@@ -1,0 +1,137 @@
+"""Hand-written CUDA kernels for Hopper: build, bind, launch, count.
+
+The sources are ``kwage_tpu_torch/csrc/*.cu`` (and ``*.cuh``). On first use
+they compile with ``nvcc`` for ``sm_90a`` into ONE shared library with a
+plain C interface, named by a sha256 of the sources and written under
+``build/kwage_tpu_torch/`` at the repository root (git-ignored), then load
+with ``ctypes``. Nothing is built when this module is imported, and nothing
+here falls back: a failed build or launch raises.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; ``launch`` raises when that is not 0
+and otherwise adds one to the kernel's launch count. The counts let a run
+show that its main path went through the kernels (``launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kwage_tpu_torch")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# C entry point (without the "kw_" prefix) -> argument types. Pointers and
+# the stream are c_void_p (a plain int would be cut to 32 bits).
+_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+_ENTRIES = {
+    # (x, out, F, W, stream)
+    "bit_transpose": [_VP, _VP, _I64, _I64, _VP],
+    # (db, idx, valid, out, nq, nk, nh, W, stream)
+    "search_complete": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    "search_counts": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
+}
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+_LAUNCHES = {name: 0 for name in _ENTRIES}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def source_tag() -> str:
+    """sha256 over the kernel sources' names and bytes (16 hex digits)."""
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> str:
+    """Compile the kernel library if no build of these sources exists;
+    return its path. The compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is kept beside it as ``.log``."""
+    so_path = os.path.join(BUILD_DIR, f"libkwage_kernels_{source_tag()}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in sources() if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(so_path[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def get_lib() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _ENTRIES.items():
+                fn = getattr(lib, "kw_" + name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.kw_error_string.argtypes = [ctypes.c_int]
+            lib.kw_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` through its C entry point; raise on a CUDA
+    error, else count the launch."""
+    lib = get_lib()
+    err = getattr(lib, "kw_" + name)(*args)
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({lib.kw_error_string(err).decode()})")
+    with _LOCK:
+        _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    with _LOCK:
+        return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0

@@ -1,0 +1,1 @@
+"""End-to-end flows of the port (the .db pack through the device transpose)."""
