@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper: build, bind, launch, count.
 
 The sources are ``kwage_tpu_torch/csrc/*.cu`` (and ``*.cuh``). On first use
-they compile with ``nvcc`` for ``sm_90a`` into ONE shared library with a
-plain C interface, named by a sha256 of the sources and written under
+each ``.cu`` compiles with ``nvcc`` for ``sm_90a`` (all at once, one
+process each) and the objects link into ONE shared library with a plain C
+interface, named by a sha256 of the sources and written under
 ``build/kwage_tpu_torch/`` at the repository root (git-ignored), then load
 with ``ctypes``. Nothing is built when this module is imported, and nothing
 here falls back: a failed build or launch raises.
@@ -29,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kwage_tpu_torch")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # C entry point (without the "kw_" prefix) -> argument types. Pointers and
@@ -41,11 +42,27 @@ _ENTRIES = {
     # (db, idx, valid, out, nq, nk, nh, W, stream)
     "search_complete": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     "search_counts": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    # (packed, valid_words, words, valid, R, w16, w32, length, k, stream)
+    "canonical_kmers": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _VP],
+    # (ascii, words, valid, R, stride, length, k, stream)
+    "canonical_kmers_ascii": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    # (words, out, n, k, nh, mask, stream)
+    "murmur32": [_VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    # (acc_s, words_s, selected, num_valid, n, num_acc, min_count, stream)
+    "select_runs": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
+    # (acc_s, words_s, selected, slot_of_acc, out, n, num_acc, k, nh,
+    #  log2_len, words_per_filter, stream)
+    "bloom_set_bits": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64,
+                       _I64, _VP],
 }
+
+# Entry points that launch another entry's kernel on another input layout;
+# their launches count under that kernel's name.
+_KERNEL_OF = {"canonical_kmers_ascii": "canonical_kmers"}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
-_LAUNCHES = {name: 0 for name in _ENTRIES}
+_LAUNCHES = {name: 0 for name in _ENTRIES if name not in _KERNEL_OF}
 
 
 def sources() -> list[str]:
@@ -78,22 +95,38 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernel library if no build of these sources exists;
-    return its path. The compiler's report (``-Xptxas -v``: registers,
-    shared memory, spills per kernel) is kept beside it as ``.log``."""
+    return its path. Every ``.cu`` compiles in its own ``nvcc`` process,
+    all started together, then one ``nvcc -shared`` links them. The
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) is kept beside the library as ``.log``."""
     so_path = os.path.join(BUILD_DIR, f"libkwage_kernels_{source_tag()}.so")
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = f"{so_path}.{os.getpid()}"
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in results):
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", f"{tmp}.so", *objs]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        results.append((cmd, res.stdout, res.returncode))
+    report = "".join(" ".join(c) + "\n" + out for c, out, _ in results)
     with open(so_path[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so_path)
+        f.write(report)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [rc for _, _, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{report}")
+    os.replace(f"{tmp}.so", so_path)
     return so_path
 
 
@@ -114,8 +147,8 @@ def get_lib() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` through its C entry point; raise on a CUDA
-    error, else count the launch."""
+    """Launch a kernel through the C entry point ``name``; raise on a CUDA
+    error, else count the launch under the kernel's name."""
     lib = get_lib()
     err = getattr(lib, "kw_" + name)(*args)
     if err:
@@ -123,7 +156,7 @@ def launch(name: str, *args) -> None:
             f"{name} launch failed: CUDA error {err} "
             f"({lib.kw_error_string(err).decode()})")
     with _LOCK:
-        _LAUNCHES[name] += 1
+        _LAUNCHES[_KERNEL_OF.get(name, name)] += 1
 
 
 def launch_counts() -> dict[str, int]:

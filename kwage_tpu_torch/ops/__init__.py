@@ -1,1 +1,2 @@
-"""Device compute of the port: the bit transpose and the search reductions."""
+"""Device compute of the port: canonical k-mers, murmur, counting and
+filter bits, the bit transpose and the search reductions."""

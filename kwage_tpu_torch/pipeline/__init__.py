@@ -1,1 +1,2 @@
-"""End-to-end flows of the port (the .db pack through the device transpose)."""
+"""End-to-end flows of the port: the .db pack through the device transpose
+and the device Bloom filter build."""

@@ -16,7 +16,8 @@ from kwage_tpu_torch.ops import transpose as tt
 
 def test_sources_and_tag():
     names = [os.path.basename(p) for p in kernels.sources()]
-    assert {"bit_transpose.cu", "search.cu"} <= set(names)
+    assert {"bit_transpose.cu", "search.cu", "kmers.cu", "murmur.cu", "murmur.cuh",
+            "counting.cu", "bitset.cu"} <= set(names)
     tag = kernels.source_tag()
     assert len(tag) == 16 and tag == kernels.source_tag()
     for path in kernels.sources():
@@ -60,7 +61,8 @@ def test_other_devices_raise():
 def test_reset_launch_counts():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
-        "bit_transpose": 0, "search_complete": 0, "search_counts": 0}
+        "bit_transpose": 0, "search_complete": 0, "search_counts": 0,
+        "canonical_kmers": 0, "murmur32": 0, "select_runs": 0, "bloom_set_bits": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -91,3 +93,22 @@ def test_launch_error_raises_and_is_not_counted(monkeypatch):
     with pytest.raises(RuntimeError, match="search_counts launch failed: CUDA error 9"):
         kernels.launch("search_counts", 0, 0, 0, 0, 1, 1, 1, 1, 0)
     assert kernels.launch_counts() == before
+
+
+class _OkLib:
+    """Stands in for the kernel library: every entry succeeds."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def test_ascii_entry_counts_as_canonical_kmers(monkeypatch):
+    """kmers.cu's two entry points launch one kernel: both count under
+    canonical_kmers, and no other count moves."""
+    monkeypatch.setattr(kernels, "_LIB", _OkLib())
+    before = kernels.launch_counts()
+    kernels.launch("canonical_kmers_ascii", 0, 0, 0, 1, 40, 40, 31, 0)
+    kernels.launch("canonical_kmers", 0, 0, 0, 0, 1, 3, 2, 40, 31, 0)
+    after = kernels.launch_counts()
+    assert "canonical_kmers_ascii" not in after
+    assert after == {**before, "canonical_kmers": before["canonical_kmers"] + 2}

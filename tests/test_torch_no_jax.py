@@ -11,9 +11,12 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "kwage_tpu_torch"
 
 # jax itself, and the kwage_tpu modules that import it at the top.
+# kwage_tpu.parallel.maestro and kwage_tpu.cli.maestro import no jax.
 JAX_IMPORT = re.compile(
-    r"^\s*(from|import)\s+(jax\b|kwage_tpu\.(ops|parallel|sriracha\.device"
-    r"|search\.resident)\b|kwage_tpu\.(ops|parallel|search|sriracha)\s+import)",
+    r"^\s*(from|import)\s+(jax\b|kwage_tpu\.(ops|sriracha\.device|search\.resident"
+    r"|parallel\.(mesh|sharded_search|distributed))\b"
+    r"|kwage_tpu\.(ops|search|sriracha)\s+import"
+    r"|kwage_tpu\.parallel\s+import\s+\(?\s*(mesh|sharded_search|distributed)\b)",
     re.MULTILINE)
 
 
@@ -51,8 +54,16 @@ def test_no_source_imports_jax():
 def test_pattern_catches_jax_imports():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "from kwage_tpu.ops.search import x", "from kwage_tpu.ops import search",
-                 "    import kwage_tpu.search.resident"):
+                 "    import kwage_tpu.search.resident", "import kwage_tpu.ops.kmers",
+                 "from kwage_tpu.parallel.mesh import make_search_mesh",
+                 "from kwage_tpu.parallel.sharded_search import x",
+                 "    from kwage_tpu.parallel.distributed import shard_inventory",
+                 "from kwage_tpu.parallel import mesh", "from kwage_tpu.sriracha.device import x"):
         assert JAX_IMPORT.search(line), line
     for line in ("from kwage_tpu.search.engine import x", "import jaxlib_free",
-                 "from kwage_tpu.search.output import render_csv"):
+                 "from kwage_tpu.search.output import render_csv",
+                 "from kwage_tpu.parallel.maestro import Maestro",
+                 "from kwage_tpu.parallel import maestro as _base",
+                 "from kwage_tpu.cli.maestro import LONG_OPTS, usage",
+                 "from kwage_tpu.pipeline.make_bloom import BloomInvalid"):
         assert not JAX_IMPORT.search(line), line
