@@ -6,9 +6,10 @@
 Search (phases 1-3): the reference's quota file shape, 2048 Bloom
 filters per .db (k=31, 5 hashes) at L=22, so one .db is 1 GiB; 8 copies of
 it fuse to W=512 words, 8 GiB on the device (the bench's fused shape).
-Ingest (phase 6): 16 FASTQ accessions, 176 Mbp of 150 bp reads. Everything
-is made from ``--seed``. Phases, one line each; any failure raises and
-exits non-zero:
+Ingest (phase 6): 16 FASTQ accessions, 176 Mbp of 150 bp reads. SriRachA
+(phase 8): 40 query genomes of 30 kbp against one FASTQ of 1,000,000
+150 bp reads and 64 of 20 kbp. Everything is made from ``--seed``. Phases,
+one line each; any failure raises and exits non-zero:
 
 1. build   -- 2048 .bloom files (random bits at ~50% fill; a few filters
               also hold every k-mer of a planted sequence) packed to .db by
@@ -19,6 +20,8 @@ exits non-zero:
               host engine's, and the hits must be exactly the planted ones.
 3. serve   -- the port's SearchServer(engine="device") answers the same
               requests over loopback; the bytes must equal phase 2's.
+              Phase 2 also prints the step times of one device search call
+              (read, upload, search, hit lists).
 6. ingest  -- the port's ``kwage-maestro-torch --device-build
               --device-transpose`` over 14 accessions of a 400 kbp genome at
               15x (fused batch) and 2 of a 4.6 Mbp genome at 10x (chunked),
@@ -28,12 +31,24 @@ exits non-zero:
               reproduces the golden .db digests.
 7. entry   -- the port's ``entry()`` forward on the card equals the plain
               versions' result on the CPU.
+8. sriracha -- ``kwage-sriracha-torch --device`` twice: (A) k=21, the
+              bucketed hash tables, and (B) k=11, the dense LUTs (two
+              groups of 32 + 8 subjects, ~1.2 M subject k-mers), t=0.8,
+              --max-results 100: each TSV must equal the host engine's
+              (``kwage_tpu.cli.sriracha``, one thread) byte for byte, and
+              the subjects hit only by 20 kbp reads must list exactly those.
+              Mbp/s, the device path's profile and the host's Mbp/s.
 4. kernels -- every kernel against its plain PyTorch version on the card,
               bit for bit, at the paths' shapes and at R*W > 2^31 words
               (search) and num_acc * 2^L >= 2^32 bits (bloom_set_bits);
               CUDA-event times of both. The ingest kernels also at
               k = 15, 16, 31 and 32 on a small block, packed and ASCII.
-5. counts  -- every kernel was launched by the path phases (1-3, 6, 7);
+              The SriRachA kernels at phase 8's batch shape (512 x 256,
+              k = 11 and 21), on a small block holding every byte value at
+              k = 3, 13, 14, 16, 31, 32, and on 2^15-base reads; both
+              probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
+              (k = 11): the LUT / hash crossover.
+5. counts  -- every kernel was launched by the path phases (1-3, 6, 7, 8);
               each path's counts are zeroed just before it and read just
               after.
 
@@ -41,11 +56,14 @@ It ends with the card's name and power limit, one JSON line of kernels and
 the line {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
 The kernels build from kwage_tpu_torch/csrc into build/kwage_tpu_torch/.
 
-``--profile`` runs phase 6 alone, with its checks, and breaks down the
-kwage-maestro-torch call: host-clock time per step (each step function of
-the port's make_bloom and maestro modules, with a device synchronize after
-it) and, from torch.profiler, the device's busy time per kernel or copy
-and its idle share of the call. It prints no result line.
+``--profile`` runs phases 6 and 8 alone, with their checks, and breaks
+down the kwage-maestro-torch call and each kwage-sriracha-torch --device
+call: host-clock time per step (each step function of the port's
+make_bloom and maestro modules, or the subject load, the table build, the
+TSV rendering and the read iterator of SriRachA, with a device
+synchronize after each) and, from torch.profiler, the device's busy time
+per kernel or copy and its idle share of the call. It prints no result
+line.
 """
 
 from __future__ import annotations
@@ -70,6 +88,7 @@ import numpy as np
 import torch
 
 from kwage_tpu.cli.kwage import main as host_kwage_main
+from kwage_tpu.cli.sriracha import main as host_sriracha_main
 from kwage_tpu.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu.core.params import BloomParam, optimal_bloom_param
 from kwage_tpu.core.words import canonical_kmers
@@ -84,6 +103,8 @@ from kwage_tpu.pipeline.make_bloom import BuildOptions, build_bloom_from_file
 from kwage_tpu_torch import kernels
 from kwage_tpu_torch.cli.kwage import main as torch_kwage_main
 from kwage_tpu_torch.cli.maestro import main as torch_maestro_main
+from kwage_tpu_torch.cli import sriracha as torch_sriracha_cli
+from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
 from kwage_tpu_torch.entry import entry
 from kwage_tpu_torch.ops import counting as tcount
 from kwage_tpu_torch.ops import hashing as th
@@ -95,6 +116,8 @@ from kwage_tpu_torch.parallel.maestro import Maestro
 from kwage_tpu_torch.pipeline import make_bloom as torch_make_bloom
 from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files
 from kwage_tpu_torch.search.resident import SearchServer
+from kwage_tpu_torch.sriracha import device as tsr
+from kwage_tpu_torch.sriracha import engine as tsr_engine
 from kwage_tpu_torch.utils.runtime import card_identity, resolve_device
 
 NUM_FILTER = 2048          # the reference's quota file (options.h:137-157)
@@ -113,6 +136,13 @@ N_RATE = 0.001             # N calls per base
 # (genome bp, coverage, accessions): 14 x 6 Mbp through the fused batch,
 # 2 x 46 Mbp (above the 8 Mbp chunk_bp) through the chunked builder.
 INGEST = [(400_000, 15, 14), (4_600_000, 10, 2)]
+# Phase 8, SriRachA: 40 query genomes of 30 kbp (SARS-CoV-2-sized) against
+# one Illumina run of 1,000,000 reads of 150 bp, plus 64 reads of 20 kbp.
+SR_SUBJECTS, SR_SUBJECT_BP = 40, 30_000
+SR_READS, SR_LONG, SR_LONG_BP = 1_000_000, 64, 20_000
+SR_LONG_ONLY = 4           # the last 4 subjects: hit by 20 kbp reads only
+# (run, k, threshold, reads): (A) the bucketed hash tables, (B) the LUTs.
+SR_RUNS = [("A", 21, 0.8, SR_READS), ("B", 11, 0.8, SR_READS)]
 # Paths (each driven with the launch counts zeroed just before it) and
 # the kernels each must launch.
 PATH_KERNELS = {
@@ -120,6 +150,8 @@ PATH_KERNELS = {
     "ingest": ("canonical_kmers", "select_runs", "bloom_set_bits", "bit_transpose",
                "search_complete", "search_counts"),
     "entry": ("canonical_kmers", "murmur32", "search_counts"),
+    "sriracha": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
+                 "subject_table"),
 }
 # The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -130,6 +162,9 @@ REPLACES = {
     "murmur32": "kwage_tpu/ops/hashing.py:59",
     "select_runs": "kwage_tpu/ops/counting.py:206",
     "bloom_set_bits": "tools/exp_pallas_bitset.py:75",
+    "sriracha_counts_lut": "kwage_tpu/sriracha/device.py:239",
+    "sriracha_counts_hash": "kwage_tpu/sriracha/device.py:179",
+    "subject_table": "kwage_tpu/sriracha/device.py:216",
 }
 SOURCES = {
     "bit_transpose": "kwage_tpu_torch/csrc/bit_transpose.cu",
@@ -139,6 +174,9 @@ SOURCES = {
     "murmur32": "kwage_tpu_torch/csrc/murmur.cu",
     "select_runs": "kwage_tpu_torch/csrc/counting.cu",
     "bloom_set_bits": "kwage_tpu_torch/csrc/bitset.cu",
+    "sriracha_counts_lut": "kwage_tpu_torch/csrc/sriracha.cu",
+    "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
+    "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
 }
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "e2e")
 GOLDEN_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
@@ -281,9 +319,15 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
                   f"hits at -t {threshold} are not exactly the planted ones")
         outputs[(threshold, fmt)] = got["device"]
     n_hits = sum(expected_hits(queries, holders, 0.5, copies).values())
+    steps: dict = {}
+    t0 = time.perf_counter()
+    ts.search_files_device(files, list(enumerate(seqs)), 0.5, device, profile=steps)
+    t_call = time.perf_counter() - t0
     print(f"phase 2 search: {len(queries)} queries x {copies} fused files "
           f"(W={copies * ((n_filter + 31) // 32)}), bytes == host engine, "
-          f"{n_hits} planted hits at -t 0.5; {'; '.join(times)}", flush=True)
+          f"{n_hits} planted hits at -t 0.5; {'; '.join(times)}; steps of one device "
+          f"search call ({t_call:.3f} s): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()), flush=True)
 
     # Phase 3: the resident server answers the same requests.
     t0 = time.perf_counter()
@@ -390,19 +434,24 @@ def run_maestro_golden(work: str) -> None:
 
 
 # The step functions --profile times: (module, names) of the port.
-PROFILE_STEPS = [
+INGEST_STEPS = [
     (torch_maestro, ("prepare_device_batch", "dispatch_device_batch", "scatter_device_batch",
                      "complete_device_batch", "build_db_from_bloom_files")),
     (torch_make_bloom, ("build_bloom_device", "_merge_sorted_counts", "count_kmers",
                         "_pad_reads_to_batch", "count_kmers_multi_packed", "tensor_to_words_u64",
                         "bloom_set_bits", "set_filter_bits")),
 ]
+SRIRACHA_STEPS = [
+    (torch_sriracha_cli, ("load_subject_kmers", "format_results")),
+    (tsr, ("build_tables",)),
+]
 
 
 @contextlib.contextmanager
-def ingest_profile(device: torch.device):
-    """Step timers on the port's ingest functions (each call's host-clock
-    time, a device synchronize after it) and torch.profiler over the
+def step_profile(device: torch.device, steps):
+    """Step timers on the (module, names) functions of ``steps`` (each
+    call's host-clock time, a device synchronize after it) and
+    torch.profiler over the
     device's activity. The functions are restored on exit. Yields a
     dict that holds the report afterwards: {"steps": [(name, s, calls)],
     "busy_s": device busy seconds, "table": the profiler's table}."""
@@ -422,7 +471,7 @@ def ingest_profile(device: torch.device):
                 totals[name][1] += 1
         return wrapper
 
-    for module, names in PROFILE_STEPS:
+    for module, names in steps:
         short = module.__name__.rsplit(".", 1)[1]
         for name in names:
             fn = getattr(module, name)
@@ -447,7 +496,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
                profile: bool = False) -> dict:
     """Phase 6 through the port's kwage-maestro-torch; returns the shapes
     phase 4 times the ingest kernels at. ``profile``: break the call
-    down (``ingest_profile``) and print the breakdown."""
+    down (``step_profile``) and print the breakdown."""
     rng = np.random.default_rng(seed + 1)
     src = os.path.join(work, "src")
     os.makedirs(src)
@@ -467,7 +516,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     write_inventory(os.path.join(work, "inv.bin"),
                     [FilterInfo(run_accession=str_to_accession(a)) for a in accs])
 
-    with ingest_profile(device) if profile else contextlib.nullcontext() as report:
+    with step_profile(device, INGEST_STEPS) if profile else contextlib.nullcontext() as report:
         t0 = time.perf_counter()
         rc = torch_maestro_main([
             "--meta", os.path.join(work, "inv.bin"), "--scratch", work,
@@ -589,6 +638,176 @@ def run_entry(device: torch.device) -> None:
     print(f"phase 7 entry: forward on the card == plain path; hit-count sums {sums}", flush=True)
 
 
+# --- phase 8: kwage-sriracha-torch --device -----------------------------------------
+
+def mutate(rng, codes: np.ndarray) -> np.ndarray:
+    """Codes with SUB_RATE substitutions per base, on a random strand."""
+    codes = codes.copy()
+    sub = rng.random(codes.shape) < SUB_RATE
+    codes[sub] = (codes[sub] + rng.integers(1, 4, size=int(sub.sum()), dtype=np.uint8)) % 4
+    return 3 - codes[::-1] if rng.random() < 0.5 else codes
+
+
+def make_sriracha_data(work: str, rng, n_reads: int) -> tuple[str, str, int]:
+    """Query FASTA of SR_SUBJECTS genomes and one FASTQ: 20% of the reads
+    drawn from the first subjects with SUB_RATE substitutions (about 74%
+    of them exact), 75% random background, 5% low-complexity (poly-A,
+    dinucleotide repeats), N-bearing or shorter than k; then SR_LONG reads
+    of SR_LONG_BP, half from the last SR_LONG_ONLY subjects (which no short
+    read comes from), half random, in random places. Returns (queries,
+    reads, bases)."""
+    genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
+    queries = os.path.join(work, "queries.fasta")
+    with open(queries, "wb") as f:
+        for i, g in enumerate(genomes):
+            f.write(b">query %d\n" % i + ACGT[g].tobytes() + b"\n")
+    kind = rng.choice(4, size=n_reads, p=[0.20, 0.75, 0.03, 0.02])
+    reads = ACGT[rng.integers(0, 4, size=(n_reads, READ_LEN), dtype=np.uint8)]
+    src = np.nonzero(kind == 0)[0]
+    owner = rng.integers(0, SR_SUBJECTS - SR_LONG_ONLY, size=src.size)
+    start = rng.integers(0, SR_SUBJECT_BP - READ_LEN + 1, size=src.size)
+    codes = genomes[owner[:, None], start[:, None] + np.arange(READ_LEN)]
+    rev = rng.random(src.size) < 0.5
+    codes[rev] = 3 - codes[rev, ::-1]
+    sub = rng.random(codes.shape) < SUB_RATE
+    codes[sub] = (codes[sub] + rng.integers(1, 4, size=int(sub.sum()), dtype=np.uint8)) % 4
+    reads[src] = ACGT[codes]
+    low = np.nonzero(kind == 2)[0]
+    reads[low[0::2]] = ord("A")
+    reads[low[1::2]] = np.resize(np.frombuffer(b"CA", np.uint8), READ_LEN)
+    nbear = np.nonzero(kind == 3)[0]
+    reads[nbear[:, None], rng.integers(0, READ_LEN, size=(nbear.size, 3))] = ord("N")
+    short = set(nbear[0::2].tolist())           # half of them: 5-20 bp
+    short_len = dict(zip(sorted(short), rng.integers(5, 21, size=len(short)).tolist()))
+    longs = {}
+    for j, pos in enumerate(rng.choice(n_reads, size=SR_LONG, replace=False).tolist()):
+        if j % 2 == 0:
+            g = genomes[SR_SUBJECTS - SR_LONG_ONLY + (j // 2) % SR_LONG_ONLY]
+            a = int(rng.integers(0, SR_SUBJECT_BP - SR_LONG_BP + 1))
+            longs[pos] = ACGT[mutate(rng, g[a : a + SR_LONG_BP])].tobytes()
+        else:
+            longs[pos] = ACGT[rng.integers(0, 4, size=SR_LONG_BP)].tobytes()
+    path = os.path.join(work, f"SRR9{n_reads:06d}.fastq")
+    total = 0
+    with open(path, "wb") as f:
+        buf = []
+        for i in range(n_reads):
+            seq = longs.get(i)
+            if seq is None:
+                seq = reads[i, : short_len.get(i, READ_LEN)].tobytes()
+            total += len(seq)
+            buf.append(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * len(seq)))
+            if len(buf) == 65536:
+                f.write(b"".join(buf))
+                buf = []
+        f.write(b"".join(buf))
+    return queries, path, total
+
+
+def timed_reads(reads, prof: dict):
+    """The read iterator, with the time spent in it (FASTQ parsing) added
+    to ``prof["read_s"]``."""
+    prof.setdefault("read_s", 0.0)
+    it = iter(reads)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            read = next(it)
+        except StopIteration:
+            return
+        finally:
+            prof["read_s"] += time.perf_counter() - t0
+        yield read
+
+
+@contextlib.contextmanager
+def sriracha_profile(time_reads: bool = False):
+    """The profile dict of the port's search_reads_device under the CLI:
+    the device branch of search_accession gets ``profile=`` (restored on
+    exit); ``time_reads`` also times its read iterator (``read_s``)."""
+    prof: dict = {}
+    saved = tsr_engine.search_reads_device
+
+    @functools.wraps(saved)
+    def with_profile(reads, *args, **kwargs):
+        if time_reads:
+            reads = timed_reads(reads, prof)
+        return saved(reads, *args, profile=prof, **kwargs)
+
+    tsr_engine.search_reads_device = with_profile
+    try:
+        yield prof
+    finally:
+        tsr_engine.search_reads_device = saved
+
+
+def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
+                 profile: bool = False) -> None:
+    """Phase 8 through the port's kwage-sriracha-torch --device, each run
+    against the host engine's bytes; on a card, each run must launch its
+    route's kernel and not the other's. ``profile``: also time the read
+    iterator and the SRIRACHA_STEPS functions, trace the device
+    (``step_profile``) and print the breakdown."""
+    data = {}
+    for tag, k, t, n_reads in runs:
+        if n_reads not in data:  # a run cut to fewer reads gets data of its own
+            t0 = time.perf_counter()
+            data[n_reads] = make_sriracha_data(work, np.random.default_rng(seed + 4), n_reads)
+            print(f"phase 8 data: {SR_SUBJECTS} queries x {SR_SUBJECT_BP} bp, {n_reads} reads "
+                  f"+ {SR_LONG} of {SR_LONG_BP} bp, {data[n_reads][2] / 1e6:.1f} Mbp "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        queries, path, bp = data[n_reads]
+        args = ["-k", str(k), "-t", str(t), "-i", queries, path]
+        before = kernels.launch_counts()
+        steps = (step_profile(device, SRIRACHA_STEPS) if profile
+                 else contextlib.nullcontext())
+        with steps as report, sriracha_profile(profile) as prof:
+            t0 = time.perf_counter()
+            rc = torch_sriracha_main(args + ["--device", "-o", os.path.join(work, "dev.tsv")])
+            t_dev = time.perf_counter() - t0
+        check(rc == 0, f"kwage-sriracha-torch exited {rc}")
+        if profile:
+            print(f"profile: run {tag} kwage-sriracha-torch --device {t_dev:.3f} s under the "
+                  f"step timers and the profiler; device busy {report['busy_s']:.4f} s, idle "
+                  f"share {1 - report['busy_s'] / t_dev:.4f}")
+            for name, secs, calls in report["steps"]:
+                print(f"profile step {name:<40} {secs:8.3f} s  x{calls}")
+            print(report["table"], flush=True)
+        after = kernels.launch_counts()
+        t0 = time.perf_counter()
+        rc = host_sriracha_main(args + ["-o", os.path.join(work, "host.tsv")])
+        t_host = time.perf_counter() - t0
+        check(rc == 0, f"host sriracha exited {rc}")
+        with open(os.path.join(work, "dev.tsv"), "rb") as f:
+            dev = f.read()
+        with open(os.path.join(work, "host.tsv"), "rb") as f:
+            host = f.read()
+        check(dev == host, f"run {tag} (k={k}): --device TSV differs from the host engine's")
+        route = "sriracha_counts_lut" if k <= 13 else "sriracha_counts_hash"
+        other = "sriracha_counts_hash" if k <= 13 else "sriracha_counts_lut"
+        check(device.type != "cuda" or (after[route] > before[route]
+                                        and after[other] == before[other]),
+              f"run {tag} (k={k}) did not take the {route} route: {before} -> {after}")
+        rows = [line.split(b"\t") for line in dev.splitlines() if b"\t" in line]
+        per_query = collections.Counter(r[4] for r in rows)
+        perfect = sum(1 for r in rows if r[2] == b"1")
+        check(len(per_query) >= SR_SUBJECTS - SR_LONG_ONLY and perfect > 0,
+              f"run {tag}: {len(rows)} rows, {perfect} perfect")
+        check(max(per_query.values()) == 100, f"run {tag}: no query reached the 100-match cap")
+        for q in range(SR_SUBJECTS - SR_LONG_ONLY, SR_SUBJECTS):
+            # Short N-bearing reads with a few valid windows may score 1 too.
+            hits = [r for r in rows if r[4] == b"query %d" % q and len(r[3]) == SR_LONG_BP]
+            check(len(hits) == SR_LONG // 2 // SR_LONG_ONLY,
+                  f"run {tag}: query {q} lists {len(hits)} 20 kbp reads, not its own")
+        shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
+        print(f"phase 8 sriracha run {tag}: k={k} -t {t}, {n_reads} reads + {SR_LONG} long, "
+              f"{bp / 1e6:.1f} Mbp; --device {t_dev:.2f} s ({bp / 1e6 / t_dev:.2f} Mbp/s, "
+              f"{after[route] - before[route]} {route} launches, profile {shown}, "
+              f"{prof.get('spans')} spans); host engine {t_host:.2f} s "
+              f"({bp / 1e6 / t_host:.2f} Mbp/s); TSV == host bytes, {len(rows)} rows, "
+              f"{perfect} with score 1", flush=True)
+
+
 # --- phase 4: kernels against their plain versions ------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
@@ -673,8 +892,10 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
         torch.cuda.empty_cache()
 
     def record(name, tag, err, ms, plain, note=""):
+        """One comparison; ``ms`` None: checked, not timed."""
         check(err == 0, f"{name} differs from its plain version at {tag} (max err {err})")
-        lines.append(f"{name} {tag}: kernel {ms:.4f} ms{note} plain {plain:.3f} ms")
+        lines.append(f"{name} {tag}: == plain{note}" if ms is None else
+                     f"{name} {tag}: kernel {ms:.4f} ms{note} plain {plain:.3f} ms")
         if name in results:
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         else:
@@ -766,6 +987,7 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                f" ({n * nh / ms / 1e6:.1f} G hashes/s)")
     del words, got
     small_block_checks(device, seed, results, lines)
+    sriracha_kernel_checks(device, seed, record, lines)
     print("phase 4 kernels == plain versions, bit for bit: " + "; ".join(lines), flush=True)
     return results
 
@@ -834,6 +1056,145 @@ def small_block_checks(device: torch.device, seed: int, results: dict, lines: li
                  f"{ms:.4f} ms plain {plain:.3f} ms")
 
 
+def sriracha_batch(rng, genomes: np.ndarray, B: int, L: int, read_len: int):
+    """ASCII reads uint8 [B, L] of ``read_len`` bases (zero padding after),
+    a fifth drawn from ``genomes`` with substitutions, some with N; the
+    lengths int32 [B], the last rows 0 (batch padding)."""
+    b = np.zeros((B, L), np.uint8)
+    b[:, :read_len] = ACGT[rng.integers(0, 4, size=(B, read_len))]
+    for r in range(0, B, 5):
+        g = genomes[int(rng.integers(0, genomes.shape[0]))]
+        a = int(rng.integers(0, g.shape[0] - read_len + 1))
+        b[r, :read_len] = ACGT[mutate(rng, g[a : a + read_len])]
+    b[rng.random((B, L)) < 0.001] = ord("N")
+    b[:, read_len:] = 0
+    lengths = np.full(B, read_len, np.int32)
+    lengths[-3:] = 0
+    b[-3:] = 0
+    return b, lengths
+
+
+def subject_sets(genomes: np.ndarray, k: int) -> list[tuple[str, np.ndarray]]:
+    """load_subject_kmers' output for the genomes: sorted unique canonical
+    words."""
+    return [(f"query {i}", np.unique(canonical_kmers_native(ACGT[g].tobytes(), k)))
+            for i, g in enumerate(genomes)]
+
+
+def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list) -> None:
+    """sriracha_counts (both probes) and subject_table against their plain
+    versions, bit for bit: at phase 8's batch shape (512 x 256, 150 bp
+    reads, 40 subjects of 30 kbp) at k = 21 and 11, timed; on a small block
+    holding every byte value at k = 3, 13, 14, 16, 31, 32; on a batch of
+    the path's long-read shape (512 x 2^15: reads of 2^15 bases and 20 kbp,
+    the rest empty; the global scratch sort), timed. Then both probes
+    timed at 8 k, 64 k, 256 k and 1 M k-mers per group at k = 11."""
+    rng = np.random.default_rng(seed + 5)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
+    b, lengths = sriracha_batch(rng, genomes, 512, 256, READ_LEN)
+    reads, lens = torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
+
+    def counts(tag, words, valid, lens, tables, timed):
+        got = tsr.sriracha_counts(words, valid, lens, tables)
+        want = tsr.sriracha_counts_ref(words, valid, lens, tables)
+        ms = plain = None
+        if timed:
+            B, P = words.shape[0], tsr.scratch_words(words.shape[1])
+            scratch = (torch.empty((B, P), dtype=torch.int64, device=device)
+                       if P > tsr.MAX_SHARED_WORDS else None)
+            launch = tsr.counts_launch(words, valid, lens, tables, got, scratch)
+            ms = cuda_ms(lambda: kernels.launch(*launch), 20)
+            plain = cuda_ms(lambda: tsr.sriracha_counts_ref(words, valid, lens, tables), 3)
+        hits = int(want[:, : tables.ns].sum())
+        check(hits > 0, f"sriracha_counts {tag}: no subject hit")
+        record(f"sriracha_counts_{tables.route}", tag, max_abs_err(got, want), ms, plain,
+               f" ({hits} hits)")
+
+    for k in (21, 11):
+        subj = subject_sets(genomes, k)
+        words, valid = tk.canonical_kmers(reads, k)
+        if k <= 14:
+            sm = tsr.subjects_matrix(subj, device)
+            table = tsr.subject_table(sm, k)
+            size = 1 << (2 * k)
+            err = max_abs_err(table, tsr.subject_table_ref(sm, k))
+            ms = cuda_ms(lambda: kernels.launch("subject_table", sm.data_ptr(), table.data_ptr(),
+                                                sm.shape[0], sm.shape[1], size, stream), 20)
+            plain = cuda_ms(lambda: tsr.subject_table_ref(sm, k), 3)
+            record("subject_table", f"{sm.shape[0]} x {sm.shape[1]} words k={k}", err, ms, plain)
+            counts(f"[512, 256] k={k}", words, valid, lens, tsr.LutTables(table, k, len(subj)),
+                   True)
+            del sm, table
+        counts(f"[512, 256] k={k}", words, valid, lens, tsr.build_hash_tables(subj, k, device),
+               True)
+    torch.cuda.empty_cache()
+
+    # Every byte value, every k branch: 3 (a 64-entry table), 13, 14 (the
+    # largest LUT, 1 GiB a group), 16, 31 and 32 (the sign bit).
+    b2, lengths2 = sriracha_batch(rng, genomes, 64, 256, READ_LEN)
+    b2[1:3, :128] = np.arange(256, dtype=np.uint8).reshape(2, 128)
+    b2[3, :READ_LEN] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=READ_LEN)]
+    small, small_lens = torch.from_numpy(b2).to(device), torch.from_numpy(lengths2).to(device)
+    for k in (3, 13, 14, 16, 31, 32):
+        subj = subject_sets(genomes, k)
+        words, valid = tk.canonical_kmers(small, k)
+        routes = [tsr.build_hash_tables(subj, k, device)]
+        if k <= 14:
+            sm = tsr.subjects_matrix(subj, device)
+            err = max_abs_err(tsr.subject_table(sm, k), tsr.subject_table_ref(sm, k))
+            record("subject_table", f"small k={k}", err, None, None)
+            routes.append(tsr.build_lut_tables(subj, k, device))
+        for tables in routes:
+            counts(f"small [64, 256] k={k}", words, valid, small_lens, tables, False)
+        del routes
+        torch.cuda.empty_cache()
+
+    # Reads of 2^15 bases and of 20 kbp in the 32768 bucket, in a batch of
+    # 512 rows as the path pads it: the global scratch sort.
+    b3 = np.zeros((512, 1 << 15), np.uint8)
+    lengths3 = np.zeros(512, np.int32)
+    lengths3[:3] = [1 << 15, SR_LONG_BP, SR_LONG_BP]
+    for r in range(3):
+        g = genomes[r]
+        b3[r, : lengths3[r]] = ACGT[np.resize(mutate(rng, g), lengths3[r])]
+    b3[2, 5000:5100] = ord("N")
+    long_reads, long_lens = torch.from_numpy(b3).to(device), torch.from_numpy(lengths3).to(device)
+    for k in (21, 11):
+        subj = subject_sets(genomes, k)
+        words, valid = tk.canonical_kmers(long_reads, k)
+        routes = [tsr.build_hash_tables(subj, k, device)]
+        if k <= 13:
+            routes.append(tsr.build_lut_tables(subj, k, device))
+        for tables in routes:
+            counts(f"[512, 32768], 3 long reads, k={k}", words, valid, long_lens, tables,
+                   True)
+    del routes, words, valid
+    torch.cuda.empty_cache()
+
+    # The LUT / hash crossover at k = 11: one group of 32 subjects holding
+    # n k-mers in all; the reads of the phase-8 batch.
+    k = 11
+    words, valid = tk.canonical_kmers(reads, k)
+    out = torch.empty((512, 34), dtype=torch.int32, device=device)
+    cross = []
+    for n in (8192, 65536, 262144, 1 << 20):
+        pool = rng.choice(1 << (2 * k), size=n, replace=False).astype(np.uint64)
+        owner = rng.integers(0, 32, size=n)
+        subj = [(f"s{i}", np.sort(pool[owner == i])) for i in range(32)]
+        times = []
+        for tables in (tsr.build_lut_tables(subj, k, device),
+                       tsr.build_hash_tables(subj, k, device)):
+            got = tsr.sriracha_counts(words, valid, lens, tables, out)
+            check(torch.equal(got, tsr.sriracha_counts_ref(words, valid, lens, tables)),
+                  f"sriracha_counts_{tables.route} differs at n={n}")
+            launch = tsr.counts_launch(words, valid, lens, tables, out, None)
+            times.append(cuda_ms(lambda: kernels.launch(*launch), 20))
+            del tables
+        cross.append(f"n={n}: lut {times[0]:.4f} ms, hash {times[1]:.4f} ms")
+    lines.append("sriracha crossover [512, 256] k=11, 32 subjects: " + "; ".join(cross))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -853,6 +1214,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.profile:
         with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
             run_ingest(work, device, INGEST, args.seed, profile=True)
+        with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
+            run_sriracha(work, device, args.seed, profile=True)
         print(card)
         return 0
 
@@ -872,6 +1235,11 @@ def main(argv: list[str] | None = None) -> int:
     kernels.reset_launch_counts()
     run_entry(device)
     paths["entry"] = kernels.launch_counts()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
+        kernels.reset_launch_counts()
+        run_sriracha(work, device, args.seed)
+        paths["sriracha"] = kernels.launch_counts()
     torch.cuda.empty_cache()
 
     results = phase_kernels(device, args.seed, shapes)

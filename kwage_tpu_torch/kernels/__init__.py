@@ -54,6 +54,16 @@ _ENTRIES = {
     #  log2_len, words_per_filter, stream)
     "bloom_set_bits": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64,
                        _I64, _VP],
+    # (words, valid, lengths, table, out, scratch, B, nwin, k, size, ns,
+    #  out_stride, scratch_words, stream)
+    "sriracha_counts_lut": [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
+                            _I64, _I64, _I64, _VP],
+    # (words, valid, lengths, keys, masks, row0, bmask, out, scratch, B, nwin,
+    #  k, ns, out_stride, scratch_words, stream)
+    "sriracha_counts_hash": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
+                             _I64, _I64, _I64, _I64, _I64, _VP],
+    # (subjects, out, ns, smax, size, stream)
+    "subject_table": [_VP, _VP, _I64, _I64, _I64, _VP],
 }
 
 # Entry points that launch another entry's kernel on another input layout;

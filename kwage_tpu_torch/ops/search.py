@@ -20,6 +20,7 @@ the JAX module are kept, so hit lists stay identical to the host engine.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -198,26 +199,111 @@ def eval_chunk_cols(
     """Hit counts (threshold < 1, int32 [nq, 32*W]) or packed complete
     mask (threshold == 1.0, uint32 [nq, W]) for one fused chunk.
 
-    ``words`` is either a device-resident int32 tensor (searched in one
-    kernel call) or a host uint32 [L, W] matrix. A host chunk wider than
-    ``budget_bytes`` streams through the device in column slabs of
-    ``budget_bytes // (L * 4)`` words, each uploaded as its own contiguous
-    buffer and released before the next upload (peak device memory: one
-    slab).
+    ``words`` is a device-resident int32 tensor (searched in one kernel
+    call), a ``HostChunk`` or a host uint32 [L, W] matrix. A host chunk
+    wider than ``budget_bytes`` streams through the device in column slabs
+    of ``budget_bytes // (L * 4)`` words, each uploaded (through pinned
+    staging) as its own contiguous buffer and released before the next
+    upload (peak device memory: one slab).
     """
     if isinstance(words, torch.Tensor):
         return _reduce(words, idx_d, valid_d, threshold)
+    chunk = words if isinstance(words, HostChunk) else HostChunk([words])
     device = idx_d.device
-    L, Wc = words.shape
+    L, Wc = chunk.shape
     slab_w = max(int(budget_bytes // (L * 4)), 1)
     if slab_w >= Wc:
-        return _reduce(words_to_tensor(words, device), idx_d, valid_d, threshold)
+        return _reduce(chunk.columns(0, Wc, device), idx_d, valid_d, threshold)
     parts = []
     for w0 in range(0, Wc, slab_w):
-        db = words_to_tensor(words[:, w0 : w0 + slab_w], device)
+        db = chunk.columns(w0, min(w0 + slab_w, Wc), device)
         parts.append(_reduce(db, idx_d, valid_d, threshold))
         del db  # release before the next slab uploads
     return np.concatenate(parts, axis=1)
+
+
+STAGE_BYTES = 64 << 20
+
+
+class PinnedStager:
+    """Host -> device copies of row blocks through two pinned staging
+    buffers of ``nbytes`` each, used in turn; a buffer is refilled only
+    after the event of its previous copy. On the CPU the rows are copied
+    straight into the destination. ``finish`` waits for the last copies."""
+
+    def __init__(self, device: torch.device, nbytes: int = STAGE_BYTES):
+        self.device = device
+        self.nbytes = nbytes
+        self.bufs: list[torch.Tensor] = []
+        self.events: list = [None, None]
+        self.turn = 0
+
+    def copy(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        """``src`` uint8 [R, n] (n <= 4 * dst's columns; the rest of each
+        row is zero) into the int32 [R, C] view ``dst``."""
+        R, C = dst.shape
+        if self.device.type != "cuda":
+            host = dst.numpy().view(np.uint8)
+            host[:, : src.shape[1]] = src
+            host[:, src.shape[1]:] = 0
+            return
+        if not self.bufs:
+            self.bufs = [torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=True)
+                         for _ in range(2)]
+        step = max(self.nbytes // (4 * C), 1)
+        for r0 in range(0, R, step):
+            r1 = min(r0 + step, R)
+            i = self.turn
+            self.turn ^= 1
+            if self.events[i] is not None:
+                self.events[i].synchronize()
+            stage = self.bufs[i][: (r1 - r0) * 4 * C].view(r1 - r0, 4 * C)
+            host = stage.numpy()
+            host[:, : src.shape[1]] = src[r0:r1]
+            host[:, src.shape[1]:] = 0
+            dst[r0:r1].copy_(stage.view(torch.int32), non_blocking=True)
+            self.events[i] = torch.cuda.Event()
+            self.events[i].record(torch.cuda.current_stream(self.device))
+
+    def finish(self) -> None:
+        for ev in self.events:
+            if ev is not None:
+                ev.synchronize()
+
+
+def _slices(reader) -> np.ndarray:
+    """A file's slice matrix uint8 [L, slice_size]: memory-mapped where the
+    format allows (.db), read otherwise (.dbz)."""
+    mm = getattr(reader, "mmap_slices", None)
+    return mm() if mm is not None else reader.read_slices()
+
+
+class HostChunk:
+    """A fused chunk held on the host as its files' slice matrices uint8
+    [L, slice_size_f], side by side and never joined: ``columns`` uploads a
+    word range of it through pinned staging, each file's part into its
+    columns of one device tensor."""
+
+    def __init__(self, pieces: list[np.ndarray]):
+        self.pieces = [p if p.dtype == np.uint8 else np.ascontiguousarray(p).view(np.uint8)
+                       for p in pieces]
+        self.widths = [-(-p.shape[1] // 4) for p in self.pieces]
+        self.shape = (self.pieces[0].shape[0], sum(self.widths))
+        self.nbytes = self.shape[0] * self.shape[1] * 4
+
+    def columns(self, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+        """Words [lo, hi) of every row as an int32 tensor [L, hi - lo]."""
+        out = torch.empty((self.shape[0], hi - lo), dtype=torch.int32, device=device)
+        stager = PinnedStager(device)
+        w0 = 0
+        for piece, w in zip(self.pieces, self.widths):
+            a, b = max(lo, w0), min(hi, w0 + w)
+            if a < b:
+                part = piece[:, 4 * (a - w0) : 4 * (b - w0)]
+                stager.copy(out[:, a - lo : b - lo], part)
+            w0 += w
+        stager.finish()
+        return out
 
 
 def group_file_chunks(readers, budget: int) -> list[tuple[object, list[int]]]:
@@ -245,16 +331,52 @@ def group_file_chunks(readers, budget: int) -> list[tuple[object, list[int]]]:
     return chunked
 
 
-def fuse_files(readers, file_idxs: list[int]) -> tuple[np.ndarray, list[tuple[int, int, int]]]:
-    """Host fused matrix uint32 [L, sum W] of the files side by side and
-    their (file index, word lo, word hi) spans."""
-    words, spans, w0 = [], [], 0
+def read_chunk(readers, file_idxs: list[int]) -> tuple[HostChunk, list[tuple[int, int, int]]]:
+    """A chunk's files on the host (``HostChunk``) and their (file index,
+    word lo, word hi) spans."""
+    pieces = [_slices(readers[fi]) for fi in file_idxs]
+    chunk = HostChunk(pieces)
+    spans, w0 = [], 0
+    for fi, w in zip(file_idxs, chunk.widths):
+        spans.append((fi, w0, w0 + w))
+        w0 += w
+    return chunk, spans
+
+
+def chunk_words(readers, file_idxs: list[int]) -> int:
+    """Words per row of the files side by side."""
+    return sum(-(-readers[fi].header.slice_size // 4) for fi in file_idxs)
+
+
+def fuse_files(readers, file_idxs: list[int], device: torch.device,
+               profile: dict | None = None) -> tuple[torch.Tensor, list[tuple[int, int, int]]]:
+    """The files side by side in one int32 tensor [L, sum W] on ``device``
+    and their (file index, word lo, word hi) spans. Each file is read and
+    copied into its column range through pinned staging, then dropped:
+    host memory holds one file at a time, never the joined chunk.
+    ``profile`` accumulates ``read_s`` (opening or reading the slices) and
+    ``upload_s`` (staging and copies, to their end)."""
+    L = readers[file_idxs[0]].header.filter_len
+    out = torch.empty((L, chunk_words(readers, file_idxs)), dtype=torch.int32, device=device)
+    stager = PinnedStager(device)
+    spans, w0 = [], 0
     for fi in file_idxs:
-        w = db_bytes_to_words(readers[fi].read_slices())
-        words.append(w)
-        spans.append((fi, w0, w0 + w.shape[1]))
-        w0 += w.shape[1]
-    return np.hstack(words), spans
+        t0 = time.perf_counter()
+        slices = _slices(readers[fi])
+        t1 = time.perf_counter()
+        w = -(-slices.shape[1] // 4)
+        stager.copy(out[:, w0 : w0 + w], slices)
+        del slices
+        if profile is not None:
+            profile["read_s"] = profile.get("read_s", 0.0) + t1 - t0
+            profile["upload_s"] = profile.get("upload_s", 0.0) + time.perf_counter() - t1
+        spans.append((fi, w0, w0 + w))
+        w0 += w
+    t0 = time.perf_counter()
+    stager.finish()
+    if profile is not None:
+        profile["upload_s"] = profile.get("upload_s", 0.0) + time.perf_counter() - t0
+    return out, spans
 
 
 def chunk_hits(out: np.ndarray, nk: np.ndarray, spans, readers, threshold: float,
@@ -305,25 +427,38 @@ def search_files_device(
     queries: list[tuple[int, str]],
     threshold: float,
     device: torch.device,
+    profile: dict | None = None,
 ):
     """Device search over many database files -> {query_id: [MatchResult]}.
 
     Files with the same BloomParam fuse side by side into one wide matrix
-    (per-file column ranges stay word-aligned), in chunks of at most
-    KWAGE_FUSION_BUDGET_BYTES (default 8 GiB). Hit lists are identical to
-    the host engine / reference binary.
+    on the device (per-file column ranges stay word-aligned; each file
+    uploads into its range, ``fuse_files``), in chunks of at most
+    KWAGE_FUSION_BUDGET_BYTES (default 8 GiB); a single file wider than
+    the budget streams in column slabs. Hit lists are identical to the
+    host engine / reference binary. ``profile`` accumulates ``read_s``,
+    ``upload_s``, ``search_s`` (query prep, kernels and readback) and
+    ``hits_s`` (hit lists).
     """
     from kwage_tpu.io.dbz_file import open_database
 
     if not queries:
         return {}
+    prof = profile if profile is not None else {}
     readers = [open_database(p) for p in db_paths]
     budget = fusion_budget_bytes()
     qids = [qid for qid, _ in queries]
     buckets: dict[int, dict[int, list]] = {}
     batch_cache: dict = {}  # param -> (idx_d, valid_d, nk); shared across chunks
     for param, file_idxs in group_file_chunks(readers, budget):
-        fused, spans = fuse_files(readers, file_idxs)
+        L = readers[file_idxs[0]].header.filter_len
+        if L * chunk_words(readers, file_idxs) * 4 <= budget:
+            fused, spans = fuse_files(readers, file_idxs, device, prof)
+        else:
+            t0 = time.perf_counter()
+            fused, spans = read_chunk(readers, file_idxs)
+            prof["read_s"] = prof.get("read_s", 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
         if param not in batch_cache:
             idx, valid, nk = make_query_batch(
                 [q for _, q in queries], param.kmer_len, param.num_hash,
@@ -333,8 +468,14 @@ def search_files_device(
         idx_d, valid_d, nk = batch_cache[param]
         out = eval_chunk_cols(fused, idx_d, valid_d, threshold, budget)
         del fused
+        t1 = time.perf_counter()
         chunk_hits(out, nk, spans, readers, threshold, buckets, qids)
-    return collect_results(buckets, readers, {})
+        prof["search_s"] = prof.get("search_s", 0.0) + t1 - t0
+        prof["hits_s"] = prof.get("hits_s", 0.0) + time.perf_counter() - t1
+    t0 = time.perf_counter()
+    results = collect_results(buckets, readers, {})
+    prof["hits_s"] = prof.get("hits_s", 0.0) + time.perf_counter() - t0
+    return results
 
 
 class DeviceSearcher:

@@ -29,13 +29,14 @@ from kwage_tpu.utils.runtime import check_token, resolve_secret
 
 from ..ops.search import (
     chunk_hits,
+    chunk_words,
     collect_results,
     eval_chunk_cols,
     fuse_files,
     fusion_budget_bytes,
     group_file_chunks,
     make_query_batch,
-    words_to_tensor,
+    read_chunk,
 )
 from ..utils.runtime import resolve_device
 
@@ -60,13 +61,16 @@ class ResidentSearcher:
         self._budget_bytes = budget_bytes
         self.db_paths = list(db_paths)
         self._readers = [open_database(p) for p in self.db_paths]
-        self._groups = []  # (param, device tensor or host matrix, spans)
+        self._groups = []  # (param, device tensor or HostChunk, spans)
         self.resident_bytes = 0
         for param, file_idxs in group_file_chunks(self._readers, budget_bytes):
-            fused, spans = fuse_files(self._readers, file_idxs)
-            if self.resident_bytes + fused.nbytes <= budget_bytes:
-                self.resident_bytes += fused.nbytes
-                fused = words_to_tensor(fused, device)
+            nbytes = (self._readers[file_idxs[0]].header.filter_len
+                      * chunk_words(self._readers, file_idxs) * 4)
+            if self.resident_bytes + nbytes <= budget_bytes:
+                self.resident_bytes += nbytes
+                fused, spans = fuse_files(self._readers, file_idxs, device)
+            else:
+                fused, spans = read_chunk(self._readers, file_idxs)
             self._groups.append((param, fused, spans))
         self._info_cache: dict[tuple[int, int], object] = {}
 

@@ -17,7 +17,7 @@ from kwage_tpu_torch.ops import transpose as tt
 def test_sources_and_tag():
     names = [os.path.basename(p) for p in kernels.sources()]
     assert {"bit_transpose.cu", "search.cu", "kmers.cu", "murmur.cu", "murmur.cuh",
-            "counting.cu", "bitset.cu"} <= set(names)
+            "counting.cu", "bitset.cu", "sriracha.cu"} <= set(names)
     tag = kernels.source_tag()
     assert len(tag) == 16 and tag == kernels.source_tag()
     for path in kernels.sources():
@@ -62,7 +62,8 @@ def test_reset_launch_counts():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "bit_transpose": 0, "search_complete": 0, "search_counts": 0,
-        "canonical_kmers": 0, "murmur32": 0, "select_runs": 0, "bloom_set_bits": 0}
+        "canonical_kmers": 0, "murmur32": 0, "select_runs": 0, "bloom_set_bits": 0,
+        "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "subject_table": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -112,3 +113,18 @@ def test_ascii_entry_counts_as_canonical_kmers(monkeypatch):
     after = kernels.launch_counts()
     assert "canonical_kmers_ascii" not in after
     assert after == {**before, "canonical_kmers": before["canonical_kmers"] + 2}
+
+
+def test_sriracha_entries_count_apart(monkeypatch):
+    """sriracha.cu's two probe entries launch one templated kernel but
+    count apart, so a run shows which route it took."""
+    monkeypatch.setattr(kernels, "_LIB", _OkLib())
+    before = kernels.launch_counts()
+    kernels.launch("sriracha_counts_lut", *[0] * 6, 1, 64, 11, 1 << 22, 40, 42, 64, 0)
+    kernels.launch("sriracha_counts_hash", *[0] * 9, 1, 64, 21, 40, 42, 64, 0)
+    kernels.launch("sriracha_counts_hash", *[0] * 9, 1, 64, 21, 40, 42, 64, 0)
+    kernels.launch("subject_table", 0, 0, 40, 100, 1 << 22, 0)
+    after = kernels.launch_counts()
+    assert after == {**before, "sriracha_counts_lut": before["sriracha_counts_lut"] + 1,
+                     "sriracha_counts_hash": before["sriracha_counts_hash"] + 2,
+                     "subject_table": before["subject_table"] + 1}

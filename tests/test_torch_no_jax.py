@@ -2,6 +2,7 @@
 machine that has none. The import check runs in a subprocess, because
 this test process has jax loaded already (tests/conftest.py)."""
 
+import os
 import pathlib
 import re
 import subprocess
@@ -58,12 +59,39 @@ def test_pattern_catches_jax_imports():
                  "from kwage_tpu.parallel.mesh import make_search_mesh",
                  "from kwage_tpu.parallel.sharded_search import x",
                  "    from kwage_tpu.parallel.distributed import shard_inventory",
-                 "from kwage_tpu.parallel import mesh", "from kwage_tpu.sriracha.device import x"):
+                 "from kwage_tpu.parallel import mesh", "from kwage_tpu.sriracha.device import x",
+                 "import kwage_tpu.sriracha.device", "from kwage_tpu.sriracha import engine",
+                 "from kwage_tpu.sriracha import device as jdev"):
         assert JAX_IMPORT.search(line), line
     for line in ("from kwage_tpu.search.engine import x", "import jaxlib_free",
                  "from kwage_tpu.search.output import render_csv",
                  "from kwage_tpu.parallel.maestro import Maestro",
                  "from kwage_tpu.parallel import maestro as _base",
                  "from kwage_tpu.cli.maestro import LONG_OPTS, usage",
-                 "from kwage_tpu.pipeline.make_bloom import BloomInvalid"):
+                 "from kwage_tpu.pipeline.make_bloom import BloomInvalid",
+                 "import kwage_tpu.sriracha.engine as host_engine",
+                 "from kwage_tpu.sriracha.engine import SearchMatch",
+                 "    from kwage_tpu.sriracha.sra_source import (",
+                 "    import kwage_tpu.sriracha.vdb as _vdb",
+                 "from kwage_tpu.cli._render import cli_errors"):
         assert not JAX_IMPORT.search(line), line
+
+
+def test_sriracha_device_run_loads_no_jax(tmp_path):
+    """A whole ``kwage-sriracha-torch --device`` run (the plain versions on
+    the CPU) never loads jax."""
+    data = REPO / "tests" / "data"
+    out = tmp_path / "out.tsv"
+    code = (
+        "import sys\n"
+        "from kwage_tpu_torch.cli.sriracha import main\n"
+        f"rc = main(['-k', '11', '-t', '0.4', '-i', {str(data / 'sriracha_queries.fasta')!r},\n"
+        f"           '--device', '-o', {str(out)!r}, {str(data / 'sriracha_reads.fasta')!r}])\n"
+        "assert rc == 0, rc\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+    )
+    env = dict(os.environ, KWAGE_TORCH_DEVICE="cpu")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert out.read_text().endswith("//\n") and "\t" in out.read_text()

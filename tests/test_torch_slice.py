@@ -189,3 +189,48 @@ def test_cuda_requested_without_a_card_raises(built, monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_kwage_main(["-d", str(built[0]), "--device", "ACGT" * 10])
+
+
+def test_fused_tensor_equals_hstack(built):
+    """fuse_files uploads each file into its column range of one tensor:
+    the result equals the np.hstack of the files' word matrices (the
+    former host join), and every column range of a HostChunk equals the
+    same columns of it."""
+    import numpy as np
+
+    from kwage_tpu.io.dbz_file import open_database
+    from kwage_tpu_torch.ops.search import db_bytes_to_words, fuse_files, read_chunk
+
+    readers = [open_database(str(p)) for p in built]
+    by_len: dict[int, list[int]] = {}
+    for fi, r in enumerate(readers):
+        by_len.setdefault(r.header.filter_len, []).append(fi)
+    cpu = torch.device("cpu")
+    for idxs in by_len.values():
+        for order in (idxs, idxs[::-1]):
+            want = np.hstack([db_bytes_to_words(readers[fi].read_slices()) for fi in order])
+            fused, spans = fuse_files(readers, order, cpu)
+            np.testing.assert_array_equal(fused.numpy().view(np.uint32), want)
+            assert spans[-1][2] == want.shape[1]
+            chunk, host_spans = read_chunk(readers, order)
+            assert host_spans == spans and chunk.shape == want.shape
+            W = want.shape[1]
+            for lo, hi in ((0, W), (0, 1), (W - 1, W), (W // 3, 2 * W // 3 + 1)):
+                got = chunk.columns(lo, hi, cpu).numpy().view(np.uint32)
+                np.testing.assert_array_equal(got, want[:, lo:hi])
+
+
+@pytest.mark.parametrize("budget", [1 << 10, 1 << 40])
+def test_device_search_bytes_with_slab_budget(budget, built, manifest, golden_dir,
+                                              data_dir, tmp_path, monkeypatch):
+    """The golden bytes whether each chunk fuses on the device or, with a
+    budget smaller than any file, streams from the host in slabs."""
+    monkeypatch.setenv("KWAGE_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("KWAGE_FUSION_BUDGET_BYTES", str(budget))
+    args = [a for db in built for a in ("-d", str(db))]
+    for case in ("csv_t075_file", "json_t1_file"):
+        case_args = [str(data_dir / "queries.fasta") if a.endswith("queries.fasta") else a
+                     for a in manifest["cases"][case]]
+        out_file = tmp_path / f"{case}.out"
+        assert torch_kwage_main(args + case_args + ["-o", str(out_file), "--device"]) == 0
+        assert out_file.read_text() == (golden_dir / "e2e" / f"{case}.out").read_text(), case
