@@ -35,26 +35,33 @@ one line each; any failure raises and exits non-zero:
               bucketed hash tables, and (B) k=11, the dense LUTs (two
               groups of 32 + 8 subjects, ~1.2 M subject k-mers), t=0.8,
               --max-results 100: each TSV must equal the host engine's
-              (``kwage_tpu.cli.sriracha``, one thread) byte for byte, and
+              (the same CLI without ``--device``, one thread) byte for byte, and
               the subjects hit only by 20 kbp reads must list exactly those.
               Mbp/s, the device path's profile and the host's Mbp/s.
 4. kernels -- every kernel against its plain PyTorch version on the card,
               bit for bit, at the paths' shapes and at R*W > 2^31 words
               (search) and num_acc * 2^L >= 2^32 bits (bloom_set_bits);
               CUDA-event times of both. The ingest kernels also at
-              k = 15, 16, 31 and 32 on a small block, packed and ASCII.
+              k = 15, 16, 31 and 32 on a small block, packed and ASCII, and
+              canonical_kmers at k = 1-32 on lengths that end inside a word.
               The SriRachA kernels at phase 8's batch shape (512 x 256,
               k = 11 and 21), on a small block holding every byte value at
-              k = 3, 13, 14, 16, 31, 32, and on 2^15-base reads; both
+              k = 3, 13, 14, 16, 31, 32, on 2^15-base reads in batches of 4
+              and 512 rows (canonical_kmers' ASCII entry too, at these
+              three shapes), and on rows around the 2^14-word tile; both
               probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
               (k = 11): the LUT / hash crossover.
 5. counts  -- every kernel was launched by the path phases (1-3, 6, 7, 8);
               each path's counts are zeroed just before it and read just
               after.
 
-It ends with the card's name and power limit, one JSON line of kernels and
-the line {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
-The kernels build from kwage_tpu_torch/csrc into build/kwage_tpu_torch/.
+It ends with one JSON line a kernel (its shape on the main path, its time
+beside its bound, its launches on each path), the card's name and power
+limit, one JSON line of kernels and the line {"ok": true, "device": {...}}.
+Without a CUDA device it exits 1. The kernels (nvcc, kwage_tpu_torch/csrc)
+and the host library (g++, kwage_tpu_torch/native) build into
+build/kwage_tpu_torch/. Nothing of kwage_tpu or jax is imported: the host
+references are the port's own host engines and tests/golden.
 
 ``--profile`` runs phases 6 and 8 alone, with their checks, and breaks
 down the kwage-maestro-torch call and each kwage-sriracha-torch --device
@@ -87,37 +94,38 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from kwage_tpu.cli.kwage import main as host_kwage_main
-from kwage_tpu.cli.sriracha import main as host_sriracha_main
-from kwage_tpu.core import FilterInfo, accession_to_str, str_to_accession
-from kwage_tpu.core.params import BloomParam, optimal_bloom_param
-from kwage_tpu.core.words import canonical_kmers
-from kwage_tpu.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
-from kwage_tpu.io.dbz_file import open_database
-from kwage_tpu.io.inventory import write_inventory
-from kwage_tpu.io.status import read_status_file
-from kwage_tpu.native import canonical_kmers_native, murmur32_native
-from kwage_tpu.parallel.maestro import STATUS_DATABASE_SUCCESS, LocalFastaResolver, MaestroOptions
-from kwage_tpu.pipeline.build_db import build_db_from_bloom_files as host_build_db
-from kwage_tpu.pipeline.make_bloom import BuildOptions, build_bloom_from_file
 from kwage_tpu_torch import kernels
+from kwage_tpu_torch.cli import sriracha as torch_sriracha_cli
 from kwage_tpu_torch.cli.kwage import main as torch_kwage_main
 from kwage_tpu_torch.cli.maestro import main as torch_maestro_main
-from kwage_tpu_torch.cli import sriracha as torch_sriracha_cli
 from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
+from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
+from kwage_tpu_torch.core.params import BloomParam, optimal_bloom_param
+from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import entry
+from kwage_tpu_torch.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
+from kwage_tpu_torch.io.dbz_file import open_database
+from kwage_tpu_torch.io.inventory import write_inventory
+from kwage_tpu_torch.io.status import read_status_file
+from kwage_tpu_torch.native import available as native_available
+from kwage_tpu_torch.native import canonical_kmers_native, murmur32_native
 from kwage_tpu_torch.ops import counting as tcount
 from kwage_tpu_torch.ops import hashing as th
 from kwage_tpu_torch.ops import kmers as tk
 from kwage_tpu_torch.ops import search as ts
 from kwage_tpu_torch.ops import transpose as tt
 from kwage_tpu_torch.parallel import maestro as torch_maestro
-from kwage_tpu_torch.parallel.maestro import Maestro
+from kwage_tpu_torch.parallel.maestro import (
+    STATUS_DATABASE_SUCCESS,
+    LocalFastaResolver,
+    Maestro,
+    MaestroOptions,
+)
 from kwage_tpu_torch.pipeline import make_bloom as torch_make_bloom
 from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files
+from kwage_tpu_torch.pipeline.make_bloom import BuildOptions, build_bloom_from_file
 from kwage_tpu_torch.search.resident import SearchServer
 from kwage_tpu_torch.sriracha import device as tsr
-from kwage_tpu_torch.sriracha import engine as tsr_engine
 from kwage_tpu_torch.utils.runtime import card_identity, resolve_device
 
 NUM_FILTER = 2048          # the reference's quota file (options.h:137-157)
@@ -155,13 +163,13 @@ PATH_KERNELS = {
 }
 # The TPU kernel each CUDA kernel replaces.
 REPLACES = {
-    "bit_transpose": "kwage_tpu/ops/transpose.py:96",
+    "bit_transpose": "kwage_tpu/ops/transpose.py:101",
     "search_complete": "kwage_tpu/ops/search.py:88",
     "search_counts": "kwage_tpu/ops/search.py:136",
     "canonical_kmers": "kwage_tpu/ops/kmers.py:67",
     "murmur32": "kwage_tpu/ops/hashing.py:59",
     "select_runs": "kwage_tpu/ops/counting.py:206",
-    "bloom_set_bits": "tools/exp_pallas_bitset.py:75",
+    "bloom_set_bits": "tools/exp_pallas_bitset.py:76",
     "sriracha_counts_lut": "kwage_tpu/sriracha/device.py:239",
     "sriracha_counts_hash": "kwage_tpu/sriracha/device.py:179",
     "subject_table": "kwage_tpu/sriracha/device.py:216",
@@ -178,6 +186,12 @@ SOURCES = {
     "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
     "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
 }
+# The card's published peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of HBM3;
+# 67 TFLOP/s of float32 outside the tensor cores is 2 flops on each of 128
+# lanes a clock and SM, and an SM has 64 int32 lanes of one operation each,
+# so a quarter of that number in integer operations.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "e2e")
 GOLDEN_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 
@@ -282,7 +296,7 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
     build_db_from_bloom_files(dev_db, param, blooms, device=device)
     t_dev = time.perf_counter() - t0
     t0 = time.perf_counter()
-    host_build_db(host_db, param, blooms)
+    build_db_from_bloom_files(host_db, param, blooms)
     t_host = time.perf_counter() - t0
     digest = sha256(dev_db)
     check(digest == sha256(host_db), "device-packed .db differs from the host builder's")
@@ -304,7 +318,7 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
     for threshold, fmt in CASES:
         got = {}
         for name, main, extra in (("device", torch_kwage_main, ["--device"]),
-                                  ("host", host_kwage_main, [])):
+                                  ("host", torch_kwage_main, [])):
             out = os.path.join(work, f"{name}.out")
             t0 = time.perf_counter()
             rc = main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out] + extra + seqs)
@@ -435,9 +449,10 @@ def run_maestro_golden(work: str) -> None:
 
 # The step functions --profile times: (module, names) of the port.
 INGEST_STEPS = [
-    (torch_maestro, ("prepare_device_batch", "dispatch_device_batch", "scatter_device_batch",
-                     "complete_device_batch", "build_db_from_bloom_files")),
-    (torch_make_bloom, ("build_bloom_device", "_merge_sorted_counts", "count_kmers",
+    (torch_maestro, ("build_db_from_bloom_files",)),
+    (torch_make_bloom, ("prepare_device_batch", "dispatch_device_batch", "scatter_device_batch",
+                        "complete_device_batch",
+                        "build_bloom_device", "_merge_sorted_counts", "count_kmers",
                         "_pad_reads_to_batch", "count_kmers_multi_packed", "tensor_to_words_u64",
                         "bloom_set_bits", "set_filter_bits")),
 ]
@@ -552,8 +567,8 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
                    for i in range(reader.header.num_filter)]
         packed += len(members)
         host = os.path.join(work, "host.db")
-        host_build_db(host, reader.header.param,
-                      [os.path.join(work, "bloom", f"{a}.bloom") for a in members])
+        build_db_from_bloom_files(host, reader.header.param,
+                                  [os.path.join(work, "bloom", f"{a}.bloom") for a in members])
         check(sha256(db) == sha256(host), f"{db}: differs from the host pack")
         os.remove(host)
     check(packed == len(accs), f"{packed} filters packed of {len(accs)}")
@@ -576,7 +591,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     for threshold in (1.0, 0.5):
         got = {}
         for name, main, extra in (("device", torch_kwage_main, ["--device"]),
-                                  ("host", host_kwage_main, [])):
+                                  ("host", torch_kwage_main, [])):
             out = os.path.join(work, f"{name}.csv")
             check(main(base + ["-t", str(threshold), "--o.csv", "-o", out] + extra + queries) == 0,
                   f"{name} kwage failed")
@@ -723,10 +738,10 @@ def timed_reads(reads, prof: dict):
 @contextlib.contextmanager
 def sriracha_profile(time_reads: bool = False):
     """The profile dict of the port's search_reads_device under the CLI:
-    the device branch of search_accession gets ``profile=`` (restored on
-    exit); ``time_reads`` also times its read iterator (``read_s``)."""
+    the device branch of search_accession (which looks the function up in
+    the device module at each call) gets ``profile=`` (restored on exit); ``time_reads`` also times its read iterator (``read_s``)."""
     prof: dict = {}
-    saved = tsr_engine.search_reads_device
+    saved = tsr.search_reads_device
 
     @functools.wraps(saved)
     def with_profile(reads, *args, **kwargs):
@@ -734,11 +749,11 @@ def sriracha_profile(time_reads: bool = False):
             reads = timed_reads(reads, prof)
         return saved(reads, *args, profile=prof, **kwargs)
 
-    tsr_engine.search_reads_device = with_profile
+    tsr.search_reads_device = with_profile
     try:
         yield prof
     finally:
-        tsr_engine.search_reads_device = saved
+        tsr.search_reads_device = saved
 
 
 def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
@@ -775,7 +790,7 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
             print(report["table"], flush=True)
         after = kernels.launch_counts()
         t0 = time.perf_counter()
-        rc = host_sriracha_main(args + ["-o", os.path.join(work, "host.tsv")])
+        rc = torch_sriracha_main(args + ["-o", os.path.join(work, "host.tsv")])
         t_host = time.perf_counter() - t0
         check(rc == 0, f"host sriracha exited {rc}")
         with open(os.path.join(work, "dev.tsv"), "rb") as f:
@@ -823,6 +838,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its integer operations over the int32 rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(nbytes), "operations": int(nops)}
+
+
+def murmur_ops(k: int, nh: int) -> int:
+    """Integer operations of murmur3-32 over one k-mer's decoded bases for
+    nh seeds: 6 a base to decode it into its message byte, 3 a message
+    block to mix it, then 3 a block and 12 for the finish and mask a seed."""
+    blocks = -(-k // 4)
+    return 6 * k + 3 * blocks + nh * (3 * blocks + 12)
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     check(a.shape == b.shape and a.dtype == b.dtype, f"{a.shape} {a.dtype} vs {b.shape} {b.dtype}")
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
@@ -859,7 +896,11 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
     ms = cuda_ms(lambda: kernels.launch("bit_transpose", x.data_ptr(), got.data_ptr(),
                                         F, W, stream()), 20)
     plain = cuda_ms(lambda: tt.packed_bit_transpose_ref(x), 2)
-    results["bit_transpose"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+    # Bytes: the matrix in, its transpose out. Operations: a 32 x 32 bit
+    # transpose by masked swaps is 5 stages of 6 operations a word.
+    results["bit_transpose"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                "shape": f"[{F}, {W}] uint32",
+                                **bound(2 * nbytes_of(x), 30 * x.numel())}
     lines.append(f"bit_transpose [{F}, {W}] kernel {ms:.4f} ms "
                  f"({2 * x.numel() * 4 / ms / 1e6:.1f} GB/s) plain {plain:.3f} ms")
     del x, got, want
@@ -885,21 +926,34 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                          f"plain {plain:.3f} ms")
             prev = results.get(name)
             if prev is None:
-                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+                # Bytes: the rows this run's valid k-mers gather (each once),
+                # the indices, the flags and the output. Operations: one AND
+                # a gathered word, and for the counts about 5 more a k-mer
+                # and word to add it into carry-save planes.
+                per_word = NUM_HASH + (5 if name == "search_counts" else 0)
+                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                 "shape": f"R={R} W={W} nq={len(n_valid)} nk={nk} nh={NUM_HASH}, "
+                                          f"{sum(n_valid)} valid k-mers",
+                                 **bound(gathered + nbytes_of(idx, valid, got),
+                                         sum(n_valid) * W * per_word)}
             else:
                 prev["max_abs_err"] = max(prev["max_abs_err"], err)
         del db, idx, valid
         torch.cuda.empty_cache()
 
-    def record(name, tag, err, ms, plain, note=""):
-        """One comparison; ``ms`` None: checked, not timed."""
+    def record(name, tag, err, ms, plain, note="", nbytes=0, nops=0):
+        """One comparison; ``ms`` None: checked, not timed. A kernel's first
+        timed comparison (the main path's shape) gives its line of the
+        result, with the bound of ``nbytes`` and ``nops``."""
         check(err == 0, f"{name} differs from its plain version at {tag} (max err {err})")
         lines.append(f"{name} {tag}: == plain{note}" if ms is None else
                      f"{name} {tag}: kernel {ms:.4f} ms{note} plain {plain:.3f} ms")
         if name in results:
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         else:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+            check(ms is not None and nbytes > 0, f"{name}: first comparison not timed")
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "shape": tag,
+                             **bound(nbytes, nops)}
 
     # canonical_kmers: the fused batch's packed block, rows x blen bases.
     R, blen, k = ingest["rows"], ingest["blen"], INGEST_K
@@ -915,8 +969,11 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
         "canonical_kmers", packed.data_ptr(), vw.data_ptr(), words.data_ptr(), valid.data_ptr(),
         R, blen // 16, blen // 32, blen, k, stream()), 10)
     plain = cuda_ms(lambda: tk.canonical_kmers_packed_ref(packed, vw, k, blen), 2)
+    # Bytes: the packed reads in, 9 bytes a window out. Operations: about
+    # 25 a window (two funnel shifts, masks, the bit reversal, the compare).
     record("canonical_kmers", f"[{R}, {blen}] k={k}", err, ms, plain,
-           f" ({words.numel() / ms / 1e6:.1f} G windows/s)")
+           f" ({words.numel() / ms / 1e6:.1f} G windows/s)",
+           nbytes_of(packed, vw, words, valid), 25 * words.numel())
     del packed, vw, words, valid
     torch.cuda.empty_cache()
 
@@ -938,8 +995,11 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
         "select_runs", acc_s.data_ptr(), words_s.data_ptr(), sel.data_ptr(), out_nv.data_ptr(),
         n, num_acc, MIN_COUNT, stream()), 10)
     plain = cuda_ms(lambda: tcount.select_runs_ref(acc_s, words_s, num_acc, MIN_COUNT), 2)
+    # Bytes: the sorted pairs in, the flags and counts out. Operations:
+    # about 10 a position (two compares with the neighbours, the run length).
     record("select_runs", f"n={n} num_acc={num_acc} min_count={MIN_COUNT}", err, ms, plain,
-           f" ({n / ms / 1e6:.1f} G positions/s)")
+           f" ({n / ms / 1e6:.1f} G positions/s)",
+           nbytes_of(acc_s, words_s, sel, nv), 10 * n)
 
     L, nh = ingest["log2_len"], ingest["num_hash"]
     slot = torch.tensor(list(range(num_acc)) + [-1], dtype=torch.int32, device=device)
@@ -951,8 +1011,15 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
         got.data_ptr(), n, num_acc, k, nh, L, got.shape[1], stream()), 10)
     plain = cuda_ms(lambda: tcount.bloom_set_bits_ref(acc_s, words_s, sel, slot, k, nh, L), 2)
     n_sel = int(nv.sum())
+    # Bytes: the flag of every position, the (accession, word) pair of the
+    # selected ones alone (the rest are never read), the filter images out
+    # once. Operations: murmur for the selected words, 3 a position to skip
+    # the rest.
+    pair_bytes = acc_s.element_size() + words_s.element_size()
     record("bloom_set_bits", f"n={n} selected={n_sel} num_acc={num_acc} L={L} nh={nh}",
-           err, ms, plain, f" ({n_sel * nh / ms / 1e6:.1f} G bits/s)")
+           err, ms, plain, f" ({n_sel * nh / ms / 1e6:.1f} G bits/s)",
+           nbytes_of(sel, slot, got) + n_sel * pair_bytes,
+           n_sel * murmur_ops(k, nh) + 3 * n)
     del acc_s, words_s, sel, nv, got, want
     torch.cuda.empty_cache()
 
@@ -984,7 +1051,8 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                                             nh, (1 << L) - 1, stream()), 20)
         plain = cuda_ms(lambda: th.murmur32_ref(words, k, nh) & ((1 << L) - 1), 3)
         record("murmur32", f"{tag} n={n} nh={nh} L={L}", err, ms, plain,
-               f" ({n * nh / ms / 1e6:.1f} G hashes/s)")
+               f" ({n * nh / ms / 1e6:.1f} G hashes/s)",
+               nbytes_of(words, got), n * murmur_ops(k, nh))
     del words, got
     small_block_checks(device, seed, results, lines)
     sriracha_kernel_checks(device, seed, record, lines)
@@ -1039,6 +1107,31 @@ def small_block_checks(device: torch.device, seed: int, results: dict, lines: li
             errs["bloom_set_bits"] += diff(
                 tcount.bloom_set_bits(acc_s, words_s, sel, slot, k, 3, L),
                 tcount.bloom_set_bits_ref(acc_s, words_s, sel, slot, k, 3, L))
+    # The window code's edges: lengths that end inside a packed word or just
+    # past a 256-window chunk, an N at the first, last, 16th and 32nd base, a
+    # lower-case row, a row of every byte value, at k = 1 and around the
+    # 32- and 64-bit word boundaries.
+    for length in (17, 33, 255, 257, 289, 1000):
+        e = ACGT[rng.integers(0, 4, size=(7, length))]
+        e[0, 0] = e[1, -1] = e[2, 15] = e[3, min(31, length - 1)] = ord("N")
+        e[4] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=length)]
+        e[5, : min(256, length)] = np.arange(256, dtype=np.uint8)[: min(256, length)]
+        e_ascii = torch.from_numpy(e).to(device)
+        e_packed, e_vw = tk.pack_to_device(e, device)
+        for k in (1, 15, 16, 17, 31, 32):
+            if k > length:
+                continue
+            words, valid = tk.canonical_kmers_packed(e_packed, e_vw, k, length)
+            ref = tk.canonical_kmers_packed_ref(e_packed, e_vw, k, length)
+            a_words, a_valid = tk.canonical_kmers(e_ascii, k)
+            a_ref = tk.canonical_kmers_ascii_ref(e_ascii, k)
+            errs["canonical_kmers"] += (diff(words, ref[0]) + diff(valid, ref[1])
+                                        + diff(a_words, a_ref[0]) + diff(a_valid, a_ref[1])
+                                        + diff(a_words, words) + diff(a_valid, valid))
+            check(not bool(valid[0, 0]) and not bool(valid[1, -1]) and bool(valid[4].all()),
+                  f"k={k} length={length}: validity at the first or last base")
+    lines.append("canonical_kmers (packed and ASCII) at k=1, 15, 16, 17, 31, 32 on lengths "
+                 "17, 33, 255, 257, 289, 1000 with N at the first, last, 16th, 32nd base == plain")
     for name, err in errs.items():
         check(err == 0, f"{name} differs from its plain version on the small block ({err})")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
@@ -1082,13 +1175,16 @@ def subject_sets(genomes: np.ndarray, k: int) -> list[tuple[str, np.ndarray]]:
 
 
 def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list) -> None:
-    """sriracha_counts (both probes) and subject_table against their plain
+    """sriracha_counts (both probes), subject_table and canonical_kmers'
+    ASCII entry (at phase 8's batch shapes, timed) against their plain
     versions, bit for bit: at phase 8's batch shape (512 x 256, 150 bp
     reads, 40 subjects of 30 kbp) at k = 21 and 11, timed; on a small block
-    holding every byte value at k = 3, 13, 14, 16, 31, 32; on a batch of
-    the path's long-read shape (512 x 2^15: reads of 2^15 bases and 20 kbp,
-    the rest empty; the global scratch sort), timed. Then both probes
-    timed at 8 k, 64 k, 256 k and 1 M k-mers per group at k = 11."""
+    holding every byte value at k = 3, 13, 14, 16, 31, 32; on batches of
+    the path's long-read shape (4 x 2^15 and 512 x 2^15: reads of 2^15
+    bases and 20 kbp, the rest empty; the tiled sort), timed; on batches
+    that mix rows of 0, 1, 2^14 - 1, 2^14, 2^14 + 1 and more valid words
+    (2^15 and 2^16 buckets). Then both probes timed at 8 k, 64 k, 256 k and
+    1 M k-mers per group at k = 11."""
     rng = np.random.default_rng(seed + 5)
     stream = torch.cuda.current_stream(device).cuda_stream
     genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
@@ -1096,24 +1192,55 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
     reads, lens = torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
 
     def counts(tag, words, valid, lens, tables, timed):
+        """One comparison of sriracha_counts with its plain version."""
         got = tsr.sriracha_counts(words, valid, lens, tables)
         want = tsr.sriracha_counts_ref(words, valid, lens, tables)
+        err = max_abs_err(got, want)
         ms = plain = None
+        nbytes = nops = 0
         if timed:
-            B, P = words.shape[0], tsr.scratch_words(words.shape[1])
-            scratch = (torch.empty((B, P), dtype=torch.int64, device=device)
-                       if P > tsr.MAX_SHARED_WORDS else None)
+            scratch = tsr.counts_scratch(*words.shape, device)
             launch = tsr.counts_launch(words, valid, lens, tables, got, scratch)
             ms = cuda_ms(lambda: kernels.launch(*launch), 20)
             plain = cuda_ms(lambda: tsr.sriracha_counts_ref(words, valid, lens, tables), 3)
+            # Bytes: the word and flag of every window that fits its read
+            # (the rest are never read), the lengths in, the counts out, and
+            # one table entry (LUT: 4 bytes; hash: a 96-byte bucket row) a
+            # distinct word and group. Operations: a merge sort's n log2 n
+            # compare-exchanges of 3 operations, 3 a word to dedup and probe.
+            nk = want[:, tables.ns].double().cpu()
+            distinct = int(want[:, tables.ns + 1].sum())
+            groups = -(-tables.ns // 32)
+            fit = int((lens.long() - tables.k + 1).clamp(0, words.shape[1]).sum())
+            nbytes = (fit * (words.element_size() + valid.element_size())
+                      + nbytes_of(lens, got)
+                      + distinct * groups * (4 if tables.route == "lut" else 96))
+            nops = int((3 * nk * torch.log2(nk.clamp(min=2)).ceil() + 3 * nk).sum())
         hits = int(want[:, : tables.ns].sum())
         check(hits > 0, f"sriracha_counts {tag}: no subject hit")
-        record(f"sriracha_counts_{tables.route}", tag, max_abs_err(got, want), ms, plain,
-               f" ({hits} hits)")
+        n_long = int((want[:, tables.ns] > tsr.MAX_SHARED_WORDS).sum())
+        record(f"sriracha_counts_{tables.route}", tag, err, ms, plain,
+               f" ({hits} hits, {n_long} rows above a tile)", nbytes, nops)
+
+    def kmers(tag, ascii_reads, k):
+        """canonical_kmers' ASCII entry on a batch of the path against its
+        plain version, timed; returns the kernel's (words, valid)."""
+        words, valid = tk.canonical_kmers(ascii_reads, k)
+        ref_words, ref_valid = tk.canonical_kmers_ascii_ref(ascii_reads, k)
+        err = max(max_abs_err(valid, ref_valid), int((words != ref_words).sum()))
+        check(bool(valid.any()) and not bool(valid.all()), f"{tag}: valid windows all or none")
+        del ref_words, ref_valid
+        B, L = ascii_reads.shape
+        ms = cuda_ms(lambda: kernels.launch(
+            "canonical_kmers_ascii", ascii_reads.data_ptr(), words.data_ptr(),
+            valid.data_ptr(), B, L, L, k, stream), 20)
+        plain = cuda_ms(lambda: tk.canonical_kmers_ascii_ref(ascii_reads, k), 2)
+        record("canonical_kmers", f"ASCII {tag} k={k}", err, ms, plain)
+        return words, valid
 
     for k in (21, 11):
         subj = subject_sets(genomes, k)
-        words, valid = tk.canonical_kmers(reads, k)
+        words, valid = kmers("[512, 256]", reads, k)
         if k <= 14:
             sm = tsr.subjects_matrix(subj, device)
             table = tsr.subject_table(sm, k)
@@ -1122,7 +1249,10 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
             ms = cuda_ms(lambda: kernels.launch("subject_table", sm.data_ptr(), table.data_ptr(),
                                                 sm.shape[0], sm.shape[1], size, stream), 20)
             plain = cuda_ms(lambda: tsr.subject_table_ref(sm, k), 3)
-            record("subject_table", f"{sm.shape[0]} x {sm.shape[1]} words k={k}", err, ms, plain)
+            # Bytes: the subjects' words in, the tables out once.
+            # Operations: 3 a word (range check, address, bit).
+            record("subject_table", f"{sm.shape[0]} x {sm.shape[1]} words k={k}", err, ms, plain,
+                   "", nbytes_of(sm, table), 3 * sm.numel())
             counts(f"[512, 256] k={k}", words, valid, lens, tsr.LutTables(table, k, len(subj)),
                    True)
             del sm, table
@@ -1150,27 +1280,52 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
         del routes
         torch.cuda.empty_cache()
 
-    # Reads of 2^15 bases and of 20 kbp in the 32768 bucket, in a batch of
-    # 512 rows as the path pads it: the global scratch sort.
-    b3 = np.zeros((512, 1 << 15), np.uint8)
-    lengths3 = np.zeros(512, np.int32)
-    lengths3[:3] = [1 << 15, SR_LONG_BP, SR_LONG_BP]
-    for r in range(3):
-        g = genomes[r]
-        b3[r, : lengths3[r]] = ACGT[np.resize(mutate(rng, g), lengths3[r])]
-    b3[2, 5000:5100] = ord("N")
-    long_reads, long_lens = torch.from_numpy(b3).to(device), torch.from_numpy(lengths3).to(device)
-    for k in (21, 11):
+    # Reads of 2^15 bases and of 20 kbp in the 32768 bucket: in a batch of 4
+    # rows as the path now pads it, and of 512 rows as it did; the long rows
+    # sort in tiles across blocks.
+    for B in (4, 512):
+        b3 = np.zeros((B, 1 << 15), np.uint8)
+        lengths3 = np.zeros(B, np.int32)
+        lengths3[:3] = [1 << 15, SR_LONG_BP, SR_LONG_BP]
+        for r in range(3):
+            b3[r, : lengths3[r]] = ACGT[np.resize(mutate(rng, genomes[r]), lengths3[r])]
+        b3[2, 5000:5100] = ord("N")
+        long_reads = torch.from_numpy(b3).to(device)
+        long_lens = torch.from_numpy(lengths3).to(device)
+        for k in (21, 11):
+            subj = subject_sets(genomes, k)
+            words, valid = kmers(f"[{B}, 32768], 3 long reads,", long_reads, k)
+            routes = [tsr.build_hash_tables(subj, k, device)]
+            if k <= 13:
+                routes.append(tsr.build_lut_tables(subj, k, device))
+            for tables in routes:
+                counts(f"[{B}, 32768], 3 long reads, k={k}", words, valid, long_lens, tables,
+                       True)
+        del routes, words, valid, long_reads
+        torch.cuda.empty_cache()
+
+    # Rows on both sides of the tile size in one batch: 0, 1, 2^14 - 1, 2^14,
+    # 2^14 + 1 and 2^15 - k + 1 valid words (no N: every window valid), and
+    # two merge levels above a tile (a 2^16 bucket).
+    tile = tsr.MAX_SHARED_WORDS
+    for k in (21, 11, 32):
         subj = subject_sets(genomes, k)
-        words, valid = tk.canonical_kmers(long_reads, k)
         routes = [tsr.build_hash_tables(subj, k, device)]
         if k <= 13:
             routes.append(tsr.build_lut_tables(subj, k, device))
-        for tables in routes:
-            counts(f"[512, 32768], 3 long reads, k={k}", words, valid, long_lens, tables,
-                   True)
-    del routes, words, valid
-    torch.cuda.empty_cache()
+        for L, row_lens in ((1 << 15, [0, k, tile + k - 2, tile + k - 1, tile + k, 1 << 15, 150]),
+                            (1 << 16, [1 << 16, 40_000, 0, tile + k - 1])):
+            b4 = np.zeros((len(row_lens), L), np.uint8)
+            for r, n in enumerate(row_lens):
+                b4[r, :n] = ACGT[np.resize(genomes[r], n) if r % 2 == 0
+                                 else rng.integers(0, 4, size=n)]
+            lens_t = torch.tensor(row_lens, dtype=torch.int32, device=device)
+            words, valid = tk.canonical_kmers(torch.from_numpy(b4).to(device), k)
+            for tables in routes:
+                counts(f"mixed rows {row_lens} in [{len(row_lens)}, {L}] k={k}", words, valid,
+                       lens_t, tables, False)
+        del routes, words, valid
+        torch.cuda.empty_cache()
 
     # The LUT / hash crossover at k = 11: one group of 32 subjects holding
     # n k-mers in all; the reads of the phase-8 batch.
@@ -1210,6 +1365,9 @@ def main(argv: list[str] | None = None) -> int:
     lib = kernels.build()
     print(f"build: {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s; "
           f"torch {torch.__version__} CUDA {torch.version.cuda}; {card}", flush=True)
+    t0 = time.perf_counter()
+    check(native_available(), "the host library (native/kwage_native.cpp, g++) did not build")
+    print(f"build: host library in {time.perf_counter() - t0:.1f} s", flush=True)
 
     if args.profile:
         with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
@@ -1251,12 +1409,27 @@ def main(argv: list[str] | None = None) -> int:
     print("phase 5 counts: " + "; ".join(
         f"{path} {{{', '.join(f'{k}: {paths[path][k]}' for k in names)}}}"
         for path, names in PATH_KERNELS.items()), flush=True)
-    check("jax" not in sys.modules, "jax was imported")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kwage_tpu"))
+    check(not loaded, f"jax or kwage_tpu was imported: {loaded}")
 
+    # One line a kernel: its shape on the main path, its time beside its
+    # bound there, and its launches on each path.
+    for k in REPLACES:
+        r = results[k]
+        print(json.dumps({
+            "kernel": k, "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "bytes": r["bytes"],
+            "operations": r["operations"], "share_of_bound": r["bound_ms"] / r["ms"],
+            "library_ms": None,
+            "launches": {path: counts[k] for path, counts in paths.items() if counts[k]}}))
     print(card)
+    # library_ms: no single PyTorch call computes any of these functions.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-         "launches": launches[k], **results[k]} for k in REPLACES]}))
+         "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
+         "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
+         "library_ms": None} for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

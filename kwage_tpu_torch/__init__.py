@@ -22,14 +22,16 @@ covers the engine's core path on one GPU:
   ``--device-build`` and ``--device-transpose`` routed to the above;
 - ``kwage_tpu_torch.entry`` -- the single-device forward step.
 
-The host layers with no jax in them (``kwage_tpu.core``, ``io``,
-``native``, ``search.engine``, ``search.output``, the host transpose) are
-imported, not copied. This package never imports jax.
+The host layers (``core``, ``io``, ``native``, ``search.engine``,
+``search.output``, ``sriracha.engine``, the host halves of ``pipeline`` and
+``parallel.maestro``) are this package's own copies of ``kwage_tpu``'s, under
+the same module paths and names. The package imports torch, numpy, the
+standard library and itself: never jax, and nothing of ``kwage_tpu``.
+
+Version identifiers mirror the reference (kwage.h:4-6) for output parity.
 """
 
-from kwage_tpu import (  # noqa: F401 -- re-exported version identifiers
-    INVENTORY_VERSION,
-    KWAGE_VERSION,
-    MAESTRO_VERSION,
-    SRIRACHA_VERSION,
-)
+KWAGE_VERSION = "0.4d"
+INVENTORY_VERSION = "0.7"
+MAESTRO_VERSION = "0.9"
+SRIRACHA_VERSION = "0.43"

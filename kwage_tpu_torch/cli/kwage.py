@@ -9,15 +9,80 @@ device -- with several, device 0). Without it the host engine runs.
 from __future__ import annotations
 
 import getopt
+import os
 import sys
 import time
 
-from kwage_tpu.cli.kwage import OUTPUT_CSV, OUTPUT_JSON, find_db_files, usage
-from kwage_tpu.core.params import DEFAULT_SEARCH_THRESHOLD
-from kwage_tpu.io.sequence import iter_sequences, reference_sequence_gate
-from kwage_tpu.search.engine import search_database_files
-from kwage_tpu.search.output import render_csv, render_json
-from kwage_tpu.utils.profiling import scope
+from .. import KWAGE_VERSION
+from ..core.params import DEFAULT_SEARCH_THRESHOLD
+from ..io.sequence import iter_sequences, reference_sequence_gate
+from ..search.engine import search_database_files
+from ..search.output import render_csv, render_json
+from ..utils.profiling import scope
+
+OUTPUT_CSV = 0
+OUTPUT_JSON = 1
+
+
+def find_db_files(paths: list[str]) -> list[str]:
+    """Recursive .db/.dbz discovery under -d paths (options.cpp:130-139;
+    the reference README promises .dbz but its options.cpp only matches
+    .db -- this engine implements both).
+
+    Traversal replicates FindFiles (file_util.h:15-126) exactly: breadth
+    first, entries in raw readdir order within each directory,
+    subdirectories queued to the back. Result ordering for tied match
+    scores follows database traversal order in the reference, so byte
+    parity on the same directory requires the same walk.
+    """
+    from collections import deque
+
+    from ..io.sequence import reference_ext_match
+
+    def is_db(path: str) -> bool:
+        # The reference's quirky matcher applies to the FULL path
+        # (file_util.cpp find_file_extension: first case-insensitive
+        # occurrence must end the string), so databases under a
+        # '.db'-containing directory are invisible -- mirrored, with the
+        # same rule for the .dbz extension.
+        return (reference_ext_match(path, ".db")
+                or reference_ext_match(path, ".dbz"))
+
+    out: list[str] = []
+    targets = deque(paths)
+    while targets:
+        p = targets.popleft()
+        if os.path.isfile(p):
+            if is_db(p):
+                out.append(p)
+        elif os.path.isdir(p):
+            with os.scandir(p) as it:
+                for entry in it:
+                    if entry.is_dir():
+                        targets.append(entry.path)
+                    elif entry.is_file() and is_db(entry.path):
+                        out.append(entry.path)
+    return out
+
+
+def usage(out=sys.stderr) -> None:
+    print(f"Usage for KWAGE (v. {KWAGE_VERSION}):", file=out)
+    print("\t[-o <output file>] (default is stdout)", file=out)
+    print("\t[--o.csv (output CSV) | --o.json (output JSON)]", file=out)
+    print(f"\t[-t <search threshold>] (default is {DEFAULT_SEARCH_THRESHOLD:g})", file=out)
+    print("\t-d <database search path> (can be repeated)", file=out)
+    print("\t[-i <input sequence file>] (can be repeated)", file=out)
+    print("\t[<DNA sequence>] (can be repeated)", file=out)
+    print("\t[--device (run the search on the TPU; multiple visible chips auto-shard over a filters-axis mesh)] (engine extension)", file=out)
+    print("\t[--threads <n> (host search threads; default OMP_NUM_THREADS/"
+          "KWAGE_NUM_THREADS)] (engine extension)", file=out)
+    print("\t[--serve <port> (keep the databases device-resident and answer"
+          " JSON-line queries over TCP; binds loopback; UNAUTHENTICATED"
+          " unless KWAGE_QUEUE_SECRET is set, then every request needs a"
+          " matching \"token\" field)] (engine extension)", file=out)
+    print("\t[--serve-engine <device|host> (serve backend: device-resident"
+          " matrices, or the CPU host engine -- no accelerator needed;"
+          " default device)] (engine extension)", file=out)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,5 +1,5 @@
 """maestro for the PyTorch + CUDA port: the flags of kwage_tpu.cli.maestro
-(its ``usage`` and ``LONG_OPTS``), building the port's Maestro.
+(``usage`` and ``LONG_OPTS`` are its own), building the port's Maestro.
 
 ``--device-build`` (exact-count ingest) and ``--device-transpose`` (the
 ``.db`` pack) run on ``KWAGE_TORCH_DEVICE`` (default ``cuda``); without
@@ -13,19 +13,83 @@ import getopt
 import os
 import sys
 
-from kwage_tpu.cli._render import cli_errors
-from kwage_tpu.cli.maestro import LONG_OPTS, usage
-from kwage_tpu.core.hash import UNKNOWN_HASH, parse_hash_function_name
-from kwage_tpu.core.params import MAX_SRA_MIN_KMER_COUNT
-from kwage_tpu.parallel.maestro import (
+from .. import MAESTRO_VERSION
+from ..core.hash import parse_hash_function_name, UNKNOWN_HASH, hash_name
+from ..core.params import (
+    DEFAULT_FALSE_POSITIVE_PROBABILITY,
+    DEFAULT_KMER_LENGTH,
+    DEFAULT_MAX_LOG_2_FILTER_LEN,
+    DEFAULT_MIN_LOG_2_FILTER_LEN,
+    DEFAULT_SRA_MIN_KMER_COUNT,
+    MAX_SRA_MIN_KMER_COUNT,
+)
+from ..parallel.maestro import (
     LocalFastaResolver,
+    Maestro,
     MaestroOptions,
     PrefetchResolver,
     StreamingResolver,
 )
-
-from ..parallel.maestro import Maestro
 from ..utils.runtime import resolve_device
+from ._render import cli_errors
+
+LONG_OPTS = [
+    "min-kmer-count=", "hash=", "scratch=", "s3=", "meta=", "len.min=",
+    "len.max=", "status=", "retry=", "halt-after=", "save.bloom", "save.db",
+    "save.sra", "s3.no-write", "max-sra-download=", "stream", "retry.bloom",
+    "delay=", "scratch.bloom=", "scratch.database=", "skip=",
+    # engine-specific extensions
+    "source-dir=", "prefetch", "workers=", "count-len.min=", "count-len.max=",
+    "device-build", "compress", "device-transpose", "lazy-inventory",
+    "device-batch=", "coordinator=", "worker=", "task-timeout=",
+    "slice=", "of=",
+]
+
+
+def usage() -> None:
+    e = sys.stderr
+    print(f"Usage for maestro (v. {MAESTRO_VERSION}):", file=e)
+    print("\t--meta <binary SRA inventory file>", file=e)
+    print("\t--scratch <scratch directory>", file=e)
+    print("\t[--scratch.bloom <scratch directory for staging Bloom filter>]", file=e)
+    print("\t[--scratch.database <scratch directory for staging database files>]", file=e)
+    print("\t[--s3 <s3 bucket for database upload>]", file=e)
+    print("\t[--s3.no-write (do *not* write database files to s3)]", file=e)
+    print("\t[--stream (stream SRA data -- do not use prefetch to download!)]", file=e)
+    print("\t[--max-sra-download <max allowed SRA file size in GB>] (default is 30)", file=e)
+    print("\t[--status <binary SRA status file for restart>] (default is ./__sra_db_status.bin)", file=e)
+    print("\t[--retry <number of download attempts>] (default is 3)", file=e)
+    print("\t[--retry.bloom (retry all failed Bloom filters)]", file=e)
+    print("\t[--delay <minimum number of seconds between download/streaming requests>]", file=e)
+    print("\t[--halt-after <halt after this many SRA downloads> (default is not to stop)]", file=e)
+    print(f"\t[-k <kmer length>] (default is {DEFAULT_KMER_LENGTH})", file=e)
+    print(f"\t[-p <false positive probability (per k-mer, per-filter)>] (default is {DEFAULT_FALSE_POSITIVE_PROBABILITY})", file=e)
+    print(f"\t[--min-kmer-count <minimum allowed k-mer count>] (default is {DEFAULT_SRA_MIN_KMER_COUNT})", file=e)
+    print("\t[--hash <hash function name>] (default is murmur32)", file=e)
+    print(f"\t[--len.min <log2 Bloom filter len>] (default is {DEFAULT_MIN_LOG_2_FILTER_LEN})", file=e)
+    print(f"\t[--len.max <log2 Bloom filter len>] (default is {DEFAULT_MAX_LOG_2_FILTER_LEN})", file=e)
+    print("\t[-v (turn on verbose output)]", file=e)
+    print("\t[--save.bloom (don't remove Bloom filters after database construction)]", file=e)
+    print("\t[--save.db (don't remove database file after S3 upload)]", file=e)
+    print("\t[--save.sra (don't remove SRA files after Bloom filter construction)]", file=e)
+    print("\t[--skip <SRA run accession> (skip over the specified accession; may be repeated)]", file=e)
+    print("\t[--source-dir <directory of local <accession>.fasta files>] (engine extension)", file=e)
+    print("\t[--prefetch (resolve accessions with the SRA toolkit)] (engine extension)", file=e)
+    print("\t[--workers <N>] (engine extension, default 4)", file=e)
+    print("\t[--device-build (exact-count thresholding on the TPU; "
+          "NOT counting-Bloom-aliased: with min.kmer.count > 1, bits can "
+          "differ from reference-built filters whenever the reference's "
+          "counting filter aliases -- see README 'Device-build parity "
+          "envelope')] (engine extension)", file=e)
+    print("\t[--compress (write zlib-chunked .dbz database files)] (engine extension)", file=e)
+    print("\t[--device-transpose (bit-slice transpose on the TPU)] (engine extension)", file=e)
+    print("\t[--lazy-inventory (index the inventory; load records on demand)] (engine extension)", file=e)
+    print("\t[--device-batch <N> (accessions fused per device dispatch, default 16)] (engine extension)", file=e)
+    print("\t[--coordinator <host:port> (serve the work queue to remote workers over DCN; UNAUTHENTICATED unless KWAGE_QUEUE_SECRET is set on coordinator + workers -- bind loopback or a trusted network only)] (engine extension)", file=e)
+    print("\t[--worker <host:port> (pull tasks from a remote coordinator)] (engine extension)", file=e)
+    print("\t[--task-timeout <sec> (coordinator re-queues overdue tasks)] (engine extension)", file=e)
+    print("\t[--slice <slice number [0, N)> --of <number of slices, N> (static multi-host split: this scheduler owns one contiguous inventory shard; give each shard its own --status and scratch; sra.<index>.db numbering interleaves without collision)] (engine extension)", file=e)
+
 
 # flag -> (MaestroOptions field, parser)
 _FIELDS = {
@@ -136,7 +200,7 @@ def main(argv: list[str] | None = None) -> int:
         resolve_device()  # raises when the device is missing: no CPU fallback
 
     if use_prefetch:
-        from kwage_tpu.io.ncbi_config import read_sra_repository
+        from ..io.ncbi_config import read_sra_repository
 
         repo = source_dir or read_sra_repository() or "."
         resolver = PrefetchResolver(repo, opt.max_sra_file_size_GB)

@@ -16,8 +16,9 @@ import os
 import sys
 import time
 
-from kwage_tpu.cli._render import cli_errors
-from kwage_tpu.sriracha.engine import (
+from .. import SRIRACHA_VERSION
+from ..sriracha.device import search_reads_device
+from ..sriracha.engine import (
     CHATTY,
     DEFAULT_KMER_LENGTH,
     DEFAULT_KMER_MATCH_THRESHOLD,
@@ -32,12 +33,10 @@ from kwage_tpu.sriracha.engine import (
     StreamStats,
     format_results,
     load_subject_kmers,
+    search_accession,
 )
-
-from .. import SRIRACHA_VERSION
-from ..sriracha.device import search_reads_device
-from ..sriracha.engine import search_accession
 from ..utils.runtime import resolve_device
+from ._render import cli_errors
 
 
 def usage() -> None:
@@ -174,8 +173,8 @@ def main(argv: list[str] | None = None) -> int:
         # independently written --slice/--of TSVs. -i and the accession
         # arguments fix the output ordering exactly as they did for the
         # sliced runs.
-        from kwage_tpu.io.sequence import iter_sequences
-        from kwage_tpu.sriracha.engine import merge_slice_tsvs
+        from ..io.sequence import iter_sequences
+        from ..sriracha.engine import merge_slice_tsvs
 
         deflines = []
         for path in opt.input_sequence_files:
@@ -243,7 +242,7 @@ def main(argv: list[str] | None = None) -> int:
                 # Non-local accessions resolve through the SRA toolkit;
                 # network-classed failures retry like the reference's
                 # per-rank loop (SriRachA/main.cpp:400-445).
-                from kwage_tpu.sriracha.sra_source import (
+                from ..sriracha.sra_source import (
                     DownloadError,
                     is_local_source,
                     is_retryable,
@@ -252,7 +251,7 @@ def main(argv: list[str] | None = None) -> int:
                 )
 
                 if opt.num_slice > 1:
-                    import kwage_tpu.sriracha.vdb as _vdb
+                    from ..sriracha import vdb as _vdb
 
                     # Mirror stream_accession's own gate exactly: with
                     # KWAGE_NO_VDB=1 the pipe (which cannot seek) would
@@ -276,7 +275,7 @@ def main(argv: list[str] | None = None) -> int:
                     # front, sra_stream.cpp:336-356); the toolkit pipe
                     # cannot seek, so sliced runs without the library
                     # materialize below.
-                    from kwage_tpu.sriracha.engine import StreamStats as _SS, search_reads
+                    from ..sriracha.engine import StreamStats as _SS, search_reads
 
                     attempt = 0
                     while True:
@@ -338,7 +337,7 @@ def main(argv: list[str] | None = None) -> int:
                             # slicing so TSV idx.sub rows and --slice
                             # sharding match the streamed VDB/pipe path
                             # exactly (sra_stream.cpp:221-413).
-                            from kwage_tpu.sriracha.engine import (
+                            from ..sriracha.engine import (
                                 iter_toolkit_fragments_range,
                                 search_reads,
                             )

@@ -19,17 +19,29 @@
 // The word is computed for invalid windows too (non-ACGT bases are code
 // 0), exactly as the JAX version does.
 //
-// Bound: bytes written. A window writes 9 bytes and reads k codes that its
-// neighbours share (L1/L2 hits), so HBM traffic is the output.
+// Bound: bytes written, 9 per window (the input is 1/36 of that packed,
+// 1/9 ASCII). The first version read every window's k bases one at a time
+// (2k loads, ~8k integer operations per window) and was instruction-bound
+// at 5% of the byte bound.
 //
-// Design (simple and right first): one thread per window, grid-stride,
-// 64-bit words in registers (no (hi, lo) split: the TPU's 32-bit lanes
-// forced that, Hopper has native 64-bit integer registers). Neighbouring
-// threads take neighbouring windows of one read, so output stores are
-// coalesced and the input they read is the same few cache lines. The two
-// layouts share the window loop (a template over the base reader); the
-// ASCII one decodes on the card, so an ASCII tensor never visits the host.
-// All offsets are int64.
+// Design: a window is a 2k-bit slice of the read's packed bit stream. With
+// the codes LSB-first, the slice s at bit 2j IS the reverse complement up
+// to a NOT: anti = ~s & mask; and the sense word is s with its bit pairs in
+// reverse order: reverse all 64 bits, swap the two bits of each pair, shift
+// right by 64 - 2k. Validity is "k ones at bit j of the validity stream".
+// So a window costs three shared-memory words, two funnel shifts and about
+// twenty integer operations at every k. One warp takes a chunk of 256
+// windows of one read: it stages the chunk's 18 packed and 9 validity words
+// in shared memory (the ASCII entry first 2-bit packs its bytes there, with
+// the same codes and validity rule: a byte per base as code | ok << 2, then
+// lane l < 18 packs 16 of them four at a time, gathering the code bits of a
+// 32-bit word's four bytes with three shifts), then lane l computes windows
+// l, l+32, ... so each 8-byte store instruction writes 256 contiguous bytes. The
+// validity bytes are collected in shared memory and leave as aligned 4-byte
+// words (single bytes only at a chunk's unaligned ends). Chunks are spread
+// over the grid's warps, fewer warps a block while the blocks would not
+// cover the card's 132 SMs twice (a batch of 512 short reads is 512 chunks);
+// all offsets are int64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,51 +49,139 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;  // at most: see launch()
+constexpr int kChunk = 256;           // windows per warp step
+constexpr int kPackedWords = 20;      // 18 used: (255 >> 4) + 2, rounded up
+constexpr int kValidWords = 10;       // 9 used: (255 >> 5) + 1
+constexpr int kStageBases = kChunk + 32;  // bases a chunk's windows cover
 
+struct WarpStage {
+  uint32_t packed[kPackedWords];
+  uint32_t validw[kValidWords];
+  uint8_t vout[kChunk + 8];           // validity bytes, shifted by the
+                                      // output's misalignment (0..3)
+  alignas(4) uint8_t bases[kStageBases];  // ASCII entry: code | ok << 2 per base
+};
+
+// Stage the packed and validity words of bases [base0, base0 + 288) of row r.
 struct PackedBases {
   const uint32_t* packed;
   const uint32_t* validw;
   int64_t w16, w32;
-  __device__ void get(int64_t r, int64_t pos, uint32_t& code, bool& ok) const {
-    code = (packed[r * w16 + (pos >> 4)] >> (2 * (pos & 15))) & 3u;
-    ok = ((validw[r * w32 + (pos >> 5)] >> (pos & 31)) & 1u) != 0;
+  __device__ void stage(WarpStage& st, int64_t r, int64_t base0,
+                        int64_t /*length*/, int lane) const {
+    const int64_t p0 = base0 >> 4, v0 = base0 >> 5;  // base0 % 256 == 0
+    if (lane < kPackedWords)
+      st.packed[lane] = p0 + lane < w16 ? packed[r * w16 + p0 + lane] : 0u;
+    if (lane < kValidWords)
+      st.validw[lane] = v0 + lane < w32 ? validw[r * w32 + v0 + lane] : 0u;
   }
 };
 
 struct AsciiBases {
   const uint8_t* ascii;
   int64_t stride;
-  __device__ void get(int64_t r, int64_t pos, uint32_t& code, bool& ok) const {
-    // Setting bit 5 lower-cases a letter; the only bytes it maps to 'a'
-    // are 'A' and 'a' (and likewise for c, g and t).
-    const uint32_t c = ascii[r * stride + pos] | 0x20u;
-    code = c == 'c' ? 1u : c == 'g' ? 2u : c == 't' ? 3u : 0u;
-    ok = c == 'a' || c == 'c' || c == 'g' || c == 't';
+  __device__ void stage(WarpStage& st, int64_t r, int64_t base0, int64_t length,
+                        int lane) const {
+    const uint8_t* row = ascii + r * stride;
+    for (int m = lane; m < kStageBases; m += 32) {
+      uint32_t b = 0;
+      if (base0 + m < length) {
+        // Setting bit 5 lower-cases a letter; the only bytes it maps to 'a'
+        // are 'A' and 'a' (and likewise for c, g and t).
+        const uint32_t c = row[base0 + m] | 0x20u;
+        const uint32_t code = c == 'c' ? 1u : c == 'g' ? 2u : c == 't' ? 3u : 0u;
+        const bool ok = c == 'a' || c == 'c' || c == 'g' || c == 't';
+        b = code | (ok ? 4u : 0u);
+      }
+      st.bases[m] = (uint8_t)b;
+    }
+    __syncwarp();
+    // Lane l < 18 packs bases [16 l, 16 l + 16), four bytes a step: the code
+    // bits of a word's four bytes gather into 8 bits, their ok bits into 4.
+    uint32_t w = 0, v16 = 0;
+    if (lane < kStageBases / 16) {
+      const uint32_t* q = reinterpret_cast<const uint32_t*>(st.bases) + 4 * lane;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint32_t x = q[t];
+        const uint32_t c = x & 0x03030303u;
+        w |= ((c | (c >> 6) | (c >> 12) | (c >> 18)) & 0xFFu) << (8 * t);
+        const uint32_t o = (x >> 2) & 0x01010101u;
+        v16 |= ((o | (o >> 7) | (o >> 14) | (o >> 21)) & 0xFu) << (4 * t);
+      }
+    }
+    const uint32_t up = __shfl_down_sync(0xFFFFFFFFu, v16, 1);
+    if (lane < kPackedWords) st.packed[lane] = w;
+    if (lane < 2 * kValidWords && (lane & 1) == 0) st.validw[lane >> 1] = v16 | (up << 16);
   }
 };
+
+// Swap the two bits of every pair.
+__device__ __forceinline__ uint32_t swap_pairs(uint32_t x) {
+  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
 
 template <typename Bases>
 __global__ void canonical_kmers_kernel(Bases bases, int64_t* __restrict__ words,
                                        uint8_t* __restrict__ valid, int64_t R,
-                                       int64_t nwin, int k) {
-  const int64_t total = R * nwin;
-  const uint64_t sense_mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t r = t / nwin, j = t - r * nwin;
-    uint64_t sense = 0, anti = 0;
-    bool ok = true;
-    for (int i = 0; i < k; ++i) {
-      uint32_t code;
-      bool base_ok;
-      bases.get(r, j + i, code, base_ok);
-      ok &= base_ok;
-      sense = (sense << 2) | code;
-      anti |= (uint64_t)(3u - code) << (2 * i);
+                                       int64_t length, int64_t nwin, int k) {
+  __shared__ WarpStage stage[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  WarpStage& st = stage[warp];
+  const int64_t chunks = (nwin + kChunk - 1) / kChunk;
+  const int64_t items = R * chunks;
+  const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
+  const uint32_t mask_lo = (uint32_t)mask, mask_hi = (uint32_t)(mask >> 32);
+  const uint32_t kmask = k == 32 ? ~0u : (1u << k) - 1;
+  const int down = 64 - 2 * k;          // sense: shift after the reversal
+  const int sh = 2 * (lane & 15);       // bit offset of this lane's windows
+  for (int64_t item = (int64_t)blockIdx.x * warps + warp; item < items;
+       item += (int64_t)gridDim.x * warps) {
+    // One chunk a read (reads of up to 256 windows) needs no division.
+    const int64_t r = chunks == 1 ? item : item / chunks, c = item - r * chunks;
+    const int64_t j0 = c * kChunk;      // first window, and first base
+    const int n = (int)(nwin - j0 < kChunk ? nwin - j0 : kChunk);
+    __syncwarp();                       // the previous chunk's reads are done
+    bases.stage(st, r, j0, length, lane);
+    int64_t* wout = words + r * nwin + j0;
+    uint8_t* vout = valid + r * nwin + j0;
+    const int a = (int)((uintptr_t)vout & 3u);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kChunk / 32; ++i) {
+      const int jl = lane + 32 * i;
+      if (jl < n) {
+        const int p = jl >> 4;
+        const uint32_t w0 = st.packed[p], w1 = st.packed[p + 1], w2 = st.packed[p + 2];
+        const uint32_t s_lo = __funnelshift_r(w0, w1, sh) & mask_lo;
+        const uint32_t s_hi = __funnelshift_r(w1, w2, sh) & mask_hi;
+        const uint64_t anti = ((uint64_t)(s_hi ^ mask_hi) << 32) | (s_lo ^ mask_lo);
+        const uint64_t rev = ((uint64_t)swap_pairs(__brev(s_lo)) << 32) |
+                             swap_pairs(__brev(s_hi));
+        const uint64_t sense = rev >> down;
+        wout[jl] = (int64_t)(sense <= anti ? sense : anti);
+        const int q = jl >> 5;
+        const uint32_t v = __funnelshift_r(st.validw[q], st.validw[q + 1], jl & 31);
+        st.vout[a + jl] = (v & kmask) == kmask;
+      }
     }
-    sense &= sense_mask;
-    words[t] = (int64_t)(sense <= anti ? sense : anti);
-    valid[t] = ok;
+    __syncwarp();
+    // Validity bytes [a, a + n) of the staging buffer go to the aligned
+    // address vout - a: whole 4-byte groups as one word, the ends bytewise.
+    uint8_t* gb = vout - a;
+    const int groups = (a + n + 3) >> 2;
+    for (int g = lane; g < groups; g += 32) {
+      const int lo = 4 * g;
+      if (lo >= a && lo + 4 <= a + n) {
+        *reinterpret_cast<uint32_t*>(gb + lo) =
+            *reinterpret_cast<const uint32_t*>(st.vout + lo);
+      } else {
+        const int b0 = lo > a ? lo : a, b1 = lo + 4 < a + n ? lo + 4 : a + n;
+        for (int b = b0; b < b1; ++b) gb[b] = st.vout[b];
+      }
+    }
   }
 }
 
@@ -89,12 +189,14 @@ template <typename Bases>
 int launch(Bases bases, void* words, void* valid, int64_t R, int64_t length,
            int64_t k, void* stream) {
   const int64_t nwin = length - k + 1;
-  const int64_t total = R * nwin;
-  if (total == 0) return 0;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
-  canonical_kmers_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      bases, (int64_t*)words, (uint8_t*)valid, R, nwin, (int)k);
+  if (R * nwin == 0) return 0;
+  const int64_t items = R * ((nwin + kChunk - 1) / kChunk);
+  int warps = kWarps;
+  while (warps > 1 && items / warps < 2 * 132) warps >>= 1;
+  const int64_t blocks = (items + warps - 1) / warps;
+  const unsigned grid = (unsigned)(blocks < (1 << 16) ? blocks : (1 << 16));
+  canonical_kmers_kernel<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
+      bases, (int64_t*)words, (uint8_t*)valid, R, length, nwin, (int)k);
   return (int)cudaGetLastError();
 }
 

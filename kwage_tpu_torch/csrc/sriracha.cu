@@ -22,22 +22,41 @@
 // latency-bound gathers (a 4^11 LUT, 16 MiB a group, sits in the 50 MB L2;
 // a 4^14 one, 1 GiB, does not). subject_table: one atomicOr per word.
 //
-// Design (simple and right first): one block per read. The block compacts
-// the read's valid words into shared memory (a shared counter hands out
-// slots: the validity flag, never the word's value, decides what is kept),
-// pads them with all-ones to the next power of two P and bitonic-sorts
-// them there under unsigned 64-bit order, log2(P)(log2(P)+1)/2 passes with
-// a barrier each and no global traffic (a 150 bp read sorts at most 256
-// words, 2 KiB). The first n sorted slots are the n valid words whatever
-// their values, so the k = 32 word -1 needs no special case. Distinct
-// words (slots that differ from their left neighbour) are probed once per
-// group; the set bits of each mask go to 32 shared counters by atomicAdd
-// (integer, order-free: bit-exact run to run). All groups' tables are one
-// allocation (LUT [G, 4^k]; hash rows concatenated with a first row and a
-// bucket mask per group), so the sort runs once and one launch probes
-// every group. Rows of more than 2^14 sort slots (128 KiB) sort in a
-// global scratch slab that the wrapper allocates per row, in the same
-// kernel (a 20 kbp read in a 32768 bucket: 256 KiB, in L2).
+// Design: one block per read. The block compacts the read's valid words
+// into shared memory (a shared counter hands out slots: the validity flag,
+// never the word's value, decides what is kept), pads them with all-ones
+// to the next power of two P and bitonic-sorts them there under unsigned
+// 64-bit order, log2(P)(log2(P)+1)/2 passes with a barrier each and no
+// global traffic (a 150 bp read sorts at most 256 words, 2 KiB). The first
+// n sorted slots are the n valid words whatever their values, so the k = 32
+// word -1 needs no special case. Distinct words (slots that differ from
+// their left neighbour) are probed once per group; the set bits of each
+// mask go to 32 shared counters by atomicAdd (integer, order-free: bit-exact
+// run to run). All groups' tables are one allocation (LUT [G, 4^k]; hash
+// rows concatenated with a first row and a bucket mask per group), so the
+// sort runs once and one launch probes every group.
+//
+// Long rows (more than 2^14 windows that fit the read: reads over 16 kbp)
+// do not fit a block's shared memory. The first version sorted such a row
+// with ONE block in global memory (120 passes with a barrier each at P =
+// 2^15: 1.7-1.8 ms a batch). Now a batch wide enough to hold long rows
+// (nwin > 2^14) comes with a scratch slab [B, P]; the per-read kernel only
+// zeroes a long row's outputs, and a short chain of launches over (tile,
+// row) blocks, in which a short row's blocks leave at once (every kernel
+// reads the row's length as the per-read kernel does), sorts the long rows
+// across blocks in tiles of 2^14 words (128 KiB of shared memory):
+//   1. long_tile_sort: block (tile, row) loads its 2^14 windows (invalid
+//      ones as all-ones), adds its valid count to the row's num_kmer, runs
+//      every stage up to 2^14 in shared memory, four stages a barrier (each
+//      thread takes the 16 slots of four strides into registers), writes
+//      the tile;
+//   2. per merge level above a tile: long_global_pass for each stride of at
+//      least a tile (elementwise in global memory), then long_tile_merge
+//      for all the strides below a tile in one shared-memory pass (P = 2^15:
+//      one global pass and one tile pass instead of 120 global passes);
+//   3. long_probe: block (span, row) dedups and probes 2048 of the row's
+//      first num_kmer slots and adds its counts into out by atomicAdd
+//      (integer, order-free).
 // All offsets are int64.
 
 #include <cstdint>
@@ -48,6 +67,25 @@ namespace {
 constexpr int kBucketCap = 8;
 constexpr int64_t kMaxSharedWords = 1 << 14;
 constexpr int kThreads = 256;
+constexpr int kTileLog = 14;
+constexpr int kTile = 1 << kTileLog;  // sort slots per long-row tile (== kMaxSharedWords)
+constexpr int kTileThreads = 1024;
+// A tile in shared memory skips one slot in 17, so that the 16 threads of a
+// half-warp that each own 16 neighbouring slots fall on 16 different banks.
+constexpr int kTileSlots = kTile + (kTile >> 4);
+constexpr size_t kTileBytes = (size_t)kTileSlots * sizeof(uint64_t);
+constexpr int kProbeSpan = 2048;      // sorted slots per long_probe block
+
+// One compare-exchange of a bitonic stage: ascending where ``asc``.
+template <typename Index>
+__device__ __forceinline__ void compare_exchange(uint64_t* s, Index i, Index j,
+                                                 bool asc) {
+  const uint64_t a = s[i], b = s[j];
+  if ((a > b) == asc) {
+    s[i] = b;
+    s[j] = a;
+  }
+}
 
 __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
   uint32_t x = lo ^ (lo >> 16);
@@ -61,6 +99,65 @@ __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
   y *= 0x85EBCA6Bu;
   y ^= y >> 16;
   return x ^ y;
+}
+
+__device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
+
+// Windows of row r that fit the read: j < min(len - k + 1, nwin).
+__device__ __forceinline__ int64_t fitting_windows(const int32_t* lengths, int64_t r,
+                                                   int64_t nwin, int k) {
+  const int64_t ends = (int64_t)lengths[r] - k + 1;
+  return ends < nwin ? ends : nwin;
+}
+
+// The strides 2^(b+NL-1) .. 2^b of merge level ``size`` over a padded tile:
+// a thread owns the 2^NL slots that differ in bits [b, b + NL), takes them
+// into registers, runs the NL stages there and writes them back. ``size``
+// is above every stride, so one direction holds for all of a thread's slots.
+template <int NL>
+__device__ __forceinline__ void tile_strides(uint64_t* s, int b, int64_t base,
+                                             int64_t size) {
+  constexpr int E = 1 << NL;
+  for (int t = threadIdx.x; t < (kTile >> NL); t += blockDim.x) {
+    const int first = ((t >> b) << (b + NL)) | (t & ((1 << b) - 1));
+    const bool asc = ((base + first) & size) == 0;
+    uint64_t v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = s[padded(first | (e << b))];
+#pragma unroll
+    for (int l = NL - 1; l >= 0; --l) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if ((e & (1 << l)) == 0) {
+          const uint64_t a = v[e], c = v[e | (1 << l)];
+          if ((a > c) == asc) {
+            v[e] = c;
+            v[e | (1 << l)] = a;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) s[padded(first | (e << b))] = v[e];
+  }
+}
+
+// Every stride below 2^log_top of merge level ``size`` over a padded tile,
+// four stages a pass (bits [12, 14), [8, 12), [4, 8), [0, 4) at most): 4
+// barriers for the 14 strides of a tile where one stage a pass takes 14.
+__device__ __forceinline__ void tile_level(uint64_t* s, int log_top, int64_t base,
+                                           int64_t size) {
+  for (int hi = log_top; hi > 0;) {
+    const int b = (hi - 1) & ~3;
+    switch (hi - b) {
+      case 1: tile_strides<1>(s, b, base, size); break;
+      case 2: tile_strides<2>(s, b, base, size); break;
+      case 3: tile_strides<3>(s, b, base, size); break;
+      default: tile_strides<4>(s, b, base, size); break;
+    }
+    __syncthreads();
+    hi = b;
+  }
 }
 
 struct LutProbe {
@@ -94,13 +191,17 @@ __global__ void sriracha_counts_kernel(const int64_t* __restrict__ words,
                                        const int32_t* __restrict__ lengths,
                                        int64_t nwin, int k, Probe probe, int ns,
                                        int32_t* __restrict__ out,
-                                       int64_t out_stride, uint64_t* scratch,
-                                       int64_t scratch_words) {
-  extern __shared__ uint64_t smem[];
+                                       int64_t out_stride) {
+  extern __shared__ uint64_t s[];
   __shared__ int n_valid, n_unique;
   __shared__ int cnt[32];
   const int64_t r = blockIdx.x;
-  uint64_t* s = scratch != nullptr ? scratch + r * scratch_words : smem;
+  const int64_t last = fitting_windows(lengths, r, nwin, k);
+  if (last > kMaxSharedWords) {
+    // A long row: the tile kernels add into its zeroed outputs.
+    for (int i = threadIdx.x; i < ns + 2; i += blockDim.x) out[r * out_stride + i] = 0;
+    return;
+  }
   if (threadIdx.x == 0) {
     n_valid = 0;
     n_unique = 0;
@@ -108,8 +209,6 @@ __global__ void sriracha_counts_kernel(const int64_t* __restrict__ words,
   __syncthreads();
 
   // Compact the valid windows' words (slot order is arbitrary).
-  const int64_t ends = (int64_t)lengths[r] - k + 1;  // windows j < ends fit the read
-  const int64_t last = ends < nwin ? ends : nwin;
   const int64_t* wr = words + r * nwin;
   const uint8_t* vr = valid + r * nwin;
   for (int64_t j = threadIdx.x; j < last; j += blockDim.x)
@@ -126,12 +225,7 @@ __global__ void sriracha_counts_kernel(const int64_t* __restrict__ words,
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = threadIdx.x; t < (P >> 1); t += blockDim.x) {
         const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const uint64_t a = s[i], b = s[j];
-        if ((a > b) == ((i & size) == 0)) {
-          s[i] = b;
-          s[j] = a;
-        }
+        compare_exchange(s, i, i + stride, (i & size) == 0);
       }
       __syncthreads();
     }
@@ -165,38 +259,190 @@ __global__ void sriracha_counts_kernel(const int64_t* __restrict__ words,
   }
 }
 
+// --- long rows: tiles of kTile sort slots across blocks -------------------
+
+// Block (tile, row): the tile's windows into shared memory (invalid ones and
+// those past the read as all-ones), the valid count into num_kmer, every
+// bitonic stage up to kTile (directions from the row-wide index), the tile
+// into the row's scratch slab.
+__global__ void __launch_bounds__(kTileThreads) long_tile_sort_kernel(const int64_t* __restrict__ words,
+                                      const uint8_t* __restrict__ valid,
+                                      const int32_t* __restrict__ lengths,
+                                      int64_t nwin, int k,
+                                      uint64_t* __restrict__ scratch, int64_t P,
+                                      int32_t* __restrict__ out,
+                                      int64_t out_stride, int ns) {
+  extern __shared__ uint64_t s[];
+  __shared__ int n_valid;
+  const int64_t r = blockIdx.y;
+  const int64_t base = (int64_t)blockIdx.x * kTile;
+  const int64_t last = fitting_windows(lengths, r, nwin, k);
+  if (last <= kMaxSharedWords) return;  // the per-read kernel's row
+  const int64_t* wr = words + r * nwin;
+  const uint8_t* vr = valid + r * nwin;
+  if (threadIdx.x == 0) n_valid = 0;
+  __syncthreads();
+  int local = 0;
+  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+    const int64_t j = base + i;
+    uint64_t w = ~0ull;
+    if (j < last && vr[j]) {
+      w = (uint64_t)wr[j];
+      ++local;
+    }
+    s[padded(i)] = w;
+  }
+  for (int d = 16; d > 0; d >>= 1) local += __shfl_down_sync(0xFFFFFFFFu, local, d);
+  if ((threadIdx.x & 31) == 0 && local) atomicAdd(&n_valid, local);
+  __syncthreads();
+  if (threadIdx.x == 0 && n_valid) atomicAdd(out + r * out_stride + ns, n_valid);
+  for (int level = 1; level <= kTileLog; ++level)
+    tile_level(s, level, base, (int64_t)1 << level);
+  uint64_t* dst = scratch + r * P + base;
+  for (int i = threadIdx.x; i < kTile; i += blockDim.x) dst[i] = s[padded(i)];
+}
+
+// One stage of merge level ``size`` whose stride is at least a tile: every
+// pair of long row blockIdx.y, in global memory.
+__global__ void long_global_pass_kernel(const int32_t* __restrict__ lengths,
+                                        int64_t nwin, int k,
+                                        uint64_t* __restrict__ scratch, int64_t P,
+                                        int64_t size, int64_t stride) {
+  const int64_t r = blockIdx.y;
+  if (fitting_windows(lengths, r, nwin, k) <= kMaxSharedWords) return;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < (P >> 1);
+       t += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = 2 * t - (t & (stride - 1));
+    compare_exchange(scratch + r * P, i, i + stride, (i & size) == 0);
+  }
+}
+
+// The stages of merge level ``size`` (at least two tiles) whose strides are
+// below a tile, in one shared-memory visit: one direction per tile.
+__global__ void __launch_bounds__(kTileThreads) long_tile_merge_kernel(const int32_t* __restrict__ lengths,
+                                       int64_t nwin, int k,
+                                       uint64_t* __restrict__ scratch, int64_t P,
+                                       int64_t size) {
+  extern __shared__ uint64_t s[];
+  const int64_t r = blockIdx.y;
+  if (fitting_windows(lengths, r, nwin, k) <= kMaxSharedWords) return;
+  const int64_t base = (int64_t)blockIdx.x * kTile;
+  uint64_t* tile = scratch + r * P + base;
+  for (int i = threadIdx.x; i < kTile; i += blockDim.x) s[padded(i)] = tile[i];
+  __syncthreads();
+  tile_level(s, kTileLog, base, size);
+  for (int i = threadIdx.x; i < kTile; i += blockDim.x) tile[i] = s[padded(i)];
+}
+
+// Block (span, row): dedup and probe kProbeSpan of the row's first num_kmer
+// sorted slots (many blocks a row: the probes are latency-bound gathers);
+// counts and num_unique add into out.
+template <typename Probe>
+__global__ void long_probe_kernel(const int32_t* __restrict__ lengths, int64_t nwin,
+                                  int k, const uint64_t* __restrict__ scratch,
+                                  int64_t P, Probe probe, int ns,
+                                  int32_t* __restrict__ out, int64_t out_stride) {
+  __shared__ int cnt[32];
+  __shared__ int n_unique;
+  const int64_t r = blockIdx.y;
+  if (fitting_windows(lengths, r, nwin, k) <= kMaxSharedWords) return;
+  const uint64_t* s = scratch + r * P;
+  const int64_t n = out[r * out_stride + ns];
+  const int64_t lo = (int64_t)blockIdx.x * kProbeSpan;
+  const int64_t hi = lo + kProbeSpan < n ? lo + kProbeSpan : n;
+  if (lo >= hi) return;
+  if (threadIdx.x == 0) n_unique = 0;
+  __syncthreads();
+  int local = 0;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x)
+    local += (i == 0 || s[i] != s[i - 1]);
+  if (local) atomicAdd(&n_unique, local);
+  for (int s0 = 0, g = 0; s0 < ns; s0 += 32, ++g) {
+    const int nsg = ns - s0 < 32 ? ns - s0 : 32;
+    if (threadIdx.x < 32) cnt[threadIdx.x] = 0;
+    __syncthreads();
+    for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const uint64_t w = s[i];
+      if (i > 0 && w == s[i - 1]) continue;
+      uint32_t m = probe(g, w);
+      while (m) {
+        const int bit = __ffs(m) - 1;
+        if (bit < nsg) atomicAdd(&cnt[bit], 1);
+        m &= m - 1;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < nsg && cnt[threadIdx.x])
+      atomicAdd(out + r * out_stride + s0 + threadIdx.x, cnt[threadIdx.x]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) atomicAdd(out + r * out_stride + ns + 1, n_unique);
+}
+
 int64_t next_pow2(int64_t x) {
   int64_t p = 1;
   while (p < x) p <<= 1;
   return p;
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// One per-read launch over all B rows; then, when the batch is wide enough
+// to hold long rows (nwin > 2^14; scratch uint64 [B, next_pow2(nwin)]), the
+// tile chain over (tile, row) blocks, on the same stream.
 template <typename Probe>
 int launch_counts(const void* words, const void* valid, const void* lengths,
-                  Probe probe, void* out, void* scratch, int64_t B,
-                  int64_t nwin, int64_t k, int64_t ns, int64_t out_stride,
-                  int64_t scratch_words, void* stream) {
+                  Probe probe, void* out, void* scratch, int64_t B, int64_t nwin,
+                  int64_t k, int64_t ns, int64_t out_stride, void* stream) {
   const int64_t P = next_pow2(nwin);
+  const bool wide = nwin > kMaxSharedWords;
   if (B < 0 || nwin < 1 || k < 1 || k > 32 || ns < 1 || out_stride < ns + 2 ||
-      P > (int64_t)1 << 30 ||
-      (scratch == nullptr ? P > kMaxSharedWords : scratch_words < P))
+      P > (int64_t)1 << 30 || (wide && (scratch == nullptr || B > 65535)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   static bool configured = false;  // per Probe
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sriracha_counts_kernel<Probe>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kMaxSharedWords * sizeof(uint64_t)));
+    cudaError_t err = allow_smem(sriracha_counts_kernel<Probe>,
+                                 kMaxSharedWords * sizeof(uint64_t));
+    if (err == cudaSuccess) err = allow_smem(long_tile_sort_kernel, kTileBytes);
+    if (err == cudaSuccess) err = allow_smem(long_tile_merge_kernel, kTileBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int threads = (int)(P / 2 < 64 ? 64 : P / 2 > kThreads ? kThreads : P / 2);
-  const size_t smem = scratch == nullptr ? (size_t)P * sizeof(uint64_t) : 0;
-  sriracha_counts_kernel<Probe><<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      (const int64_t*)words, (const uint8_t*)valid, (const int32_t*)lengths,
-      nwin, (int)k, probe, (int)ns, (int32_t*)out, out_stride,
-      (uint64_t*)scratch, scratch_words);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t Ps = P < kMaxSharedWords ? P : kMaxSharedWords;
+  const int threads = (int)(Ps / 2 < 64 ? 64 : Ps / 2 > kThreads ? kThreads : Ps / 2);
+  const int64_t* w = (const int64_t*)words;
+  const uint8_t* v = (const uint8_t*)valid;
+  const int32_t* len = (const int32_t*)lengths;
+  sriracha_counts_kernel<Probe><<<(unsigned)B, threads, (size_t)Ps * sizeof(uint64_t), st>>>(
+      w, v, len, nwin, (int)k, probe, (int)ns, (int32_t*)out, out_stride);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !wide) return (int)err;
+
+  const dim3 tiles((unsigned)(P / kTile), (unsigned)B);
+  uint64_t* sc = (uint64_t*)scratch;
+  long_tile_sort_kernel<<<tiles, kTileThreads, kTileBytes, st>>>(
+      w, v, len, nwin, (int)k, sc, P, (int32_t*)out, out_stride, (int)ns);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 pairs((unsigned)(P / 2 / kThreads), (unsigned)B);
+  for (int64_t size = 2 * (int64_t)kTile; size <= P; size <<= 1) {
+    for (int64_t stride = size >> 1; stride >= kTile; stride >>= 1) {
+      long_global_pass_kernel<<<pairs, kThreads, 0, st>>>(len, nwin, (int)k, sc, P, size,
+                                                          stride);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    long_tile_merge_kernel<<<tiles, kTileThreads, kTileBytes, st>>>(len, nwin, (int)k, sc,
+                                                                    P, size);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const dim3 spans((unsigned)(P / kProbeSpan), (unsigned)B);
+  long_probe_kernel<Probe><<<spans, kThreads, 0, st>>>(
+      len, nwin, (int)k, sc, P, probe, (int)ns, (int32_t*)out, out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -215,36 +461,34 @@ __global__ void subject_table_kernel(const int64_t* __restrict__ subjects,
 }  // namespace
 
 // (words, valid, lengths, table, out, scratch, B, nwin, k, size, ns,
-//  out_stride, scratch_words, stream); scratch may be null (shared memory).
+//  out_stride, stream); scratch may be null when nwin <= 2^14.
 extern "C" int kw_sriracha_counts_lut(const void* words, const void* valid,
                                       const void* lengths, const void* table,
                                       void* out, void* scratch, int64_t B,
                                       int64_t nwin, int64_t k, int64_t size,
                                       int64_t ns, int64_t out_stride,
-                                      int64_t scratch_words, void* stream) {
+                                      void* stream) {
   if (size < 1) return (int)cudaErrorInvalidValue;
   return launch_counts(words, valid, lengths,
                        LutProbe{(const uint32_t*)table, size}, out, scratch, B,
-                       nwin, k, ns, out_stride, scratch_words, stream);
+                       nwin, k, ns, out_stride, stream);
 }
 
-// (words, valid, lengths, keys, masks, row0, bmask, out, scratch, B, nwin,
-//  k, ns, out_stride, scratch_words, stream)
+// (words, valid, lengths, keys, masks, row0, bmask, out, scratch, B, nwin, k,
+//  ns, out_stride, stream)
 extern "C" int kw_sriracha_counts_hash(const void* words, const void* valid,
                                        const void* lengths, const void* keys,
                                        const void* masks, const void* row0,
                                        const void* bmask, void* out,
                                        void* scratch, int64_t B, int64_t nwin,
-                                       int64_t k, int64_t ns,
-                                       int64_t out_stride,
-                                       int64_t scratch_words, void* stream) {
+                                       int64_t k, int64_t ns, int64_t out_stride,
+                                       void* stream) {
   return launch_counts(words, valid, lengths,
                        HashProbe{(const unsigned long long*)keys,
                                  (const uint32_t*)masks,
                                  (const long long*)row0,
                                  (const long long*)bmask},
-                       out, scratch, B, nwin, k, ns, out_stride, scratch_words,
-                       stream);
+                       out, scratch, B, nwin, k, ns, out_stride, stream);
 }
 
 // (subjects, out, ns, smax, size, stream)

@@ -55,13 +55,13 @@ _ENTRIES = {
     "bloom_set_bits": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64,
                        _I64, _VP],
     # (words, valid, lengths, table, out, scratch, B, nwin, k, size, ns,
-    #  out_stride, scratch_words, stream)
+    #  out_stride, stream)
     "sriracha_counts_lut": [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
-                            _I64, _I64, _I64, _VP],
+                            _I64, _I64, _VP],
     # (words, valid, lengths, keys, masks, row0, bmask, out, scratch, B, nwin,
-    #  k, ns, out_stride, scratch_words, stream)
+    #  k, ns, out_stride, stream)
     "sriracha_counts_hash": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
-                             _I64, _I64, _I64, _I64, _I64, _VP],
+                             _I64, _I64, _I64, _I64, _VP],
     # (subjects, out, ns, smax, size, stream)
     "subject_table": [_VP, _VP, _I64, _I64, _I64, _VP],
 }

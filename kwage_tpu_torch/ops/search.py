@@ -25,10 +25,9 @@ import time
 import numpy as np
 import torch
 
-from kwage_tpu.core.words import canonical_kmers
-from kwage_tpu.native import murmur32_native
-
 from .. import kernels
+from ..core.words import canonical_kmers
+from ..native import murmur32_native
 
 DEFAULT_FUSION_BUDGET_BYTES = 8 << 30
 
@@ -383,7 +382,7 @@ def chunk_hits(out: np.ndarray, nk: np.ndarray, spans, readers, threshold: float
                buckets: dict[int, dict[int, list]], qids: list[int]) -> None:
     """Add one chunk's hits to ``buckets`` (qid -> file index -> [(filter,
     num_found, num_kmers)]): complete mask or counts -> per-file hits."""
-    from kwage_tpu.search.engine import query_threshold_count
+    from ..search.engine import query_threshold_count
 
     for qi, qid in enumerate(qids):
         if nk[qi] == 0:
@@ -405,7 +404,7 @@ def chunk_hits(out: np.ndarray, nk: np.ndarray, spans, readers, threshold: float
 def collect_results(buckets, readers, info_cache: dict) -> dict[int, list]:
     """{qid: [MatchResult]} in file order, then filter index, then a stable
     descending sort on num_kmers_found (the reference's output order)."""
-    from kwage_tpu.search.engine import MatchResult
+    from ..search.engine import MatchResult
 
     results: dict[int, list] = {}
     for qid, per_file in buckets.items():
@@ -440,7 +439,7 @@ def search_files_device(
     ``upload_s``, ``search_s`` (query prep, kernels and readback) and
     ``hits_s`` (hit lists).
     """
-    from kwage_tpu.io.dbz_file import open_database
+    from ..io.dbz_file import open_database
 
     if not queries:
         return {}
@@ -489,7 +488,7 @@ class DeviceSearcher:
 
     @classmethod
     def from_file(cls, path: str, device: torch.device):
-        from kwage_tpu.io.dbz_file import open_database
+        from ..io.dbz_file import open_database
 
         reader = open_database(path)
         return cls(reader.header, reader.read_slices(), device), reader
@@ -497,7 +496,7 @@ class DeviceSearcher:
     def search(self, queries: list[str], threshold: float):
         """Per-query [(filter_idx, num_found, num_kmers), ...] lists (None
         for a query with no valid k-mers)."""
-        from kwage_tpu.search.engine import query_threshold_count
+        from ..search.engine import query_threshold_count
 
         if not queries:
             return []

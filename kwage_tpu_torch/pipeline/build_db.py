@@ -6,8 +6,8 @@ lockstep in ``chunk_bits`` row chunks, each chunk is transposed, and the
 per-filter crc32 is checked at the end (build_db.cpp:280-286, 343-362).
 With a device, each chunk goes through the bit_transpose kernel
 (``kwage_tpu_torch.ops.transpose``); without one, through the host
-transpose ``kwage_tpu.pipeline.build_db.transpose_filters``. Both give the
-reference's bytes.
+transpose ``transpose_filters`` (the native 64x64-bit-block transpose, or
+numpy). Both give the reference's bytes.
 """
 
 from __future__ import annotations
@@ -17,19 +17,56 @@ import zlib
 import numpy as np
 import torch
 
-from kwage_tpu.core.params import BloomParam
-from kwage_tpu.io.binary import BinaryReader
-from kwage_tpu.io.bloom_file import BLOOM_MAGIC_COMPLETE, read_bloom_file
-from kwage_tpu.io.db_file import DBFileHeader, write_db_file_streaming
-from kwage_tpu.pipeline.build_db import DEFAULT_CHUNK_BITS, transpose_filters
-
+from ..core.params import BloomParam
+from ..io.binary import BinaryReader
+from ..io.bloom_file import BLOOM_MAGIC_COMPLETE, read_bloom_file
+from ..io.db_file import DBFileHeader, write_db_file_streaming
 from ..ops.transpose import transpose_chunks_device
 from ..utils.runtime import resolve_device
+
+# 1 GiB destination buffer in the reference (build_db.cpp:243); the numpy
+# path is not seek-bound so a smaller default keeps memory modest.
+# 2^21 bits (256 KB per filter per chunk), not 2^22: past ~256 KB row
+# stride the native transpose's per-j-sweep source working set outgrows
+# the (huge-page) TLB and throughput drops 2.6x (kwage_tpu's measurement
+# on its development host's CPU: 609/517/514/198 MB/s at 2^18/20/21/22;
+# not taken again for the port) -- and the block buffer at
+# quota width (2048 filters) stays 512 MB instead of 1 GiB. Production-L
+# filters (L >= 22) stream in multiple chunks; L <= 21 is one chunk
+# either way.
+DEFAULT_CHUNK_BITS = 1 << 21
+
+
+def transpose_filters(filter_bytes: np.ndarray, num_filter: int | None = None) -> np.ndarray:
+    """Transpose packed filters [F, L/8] -> packed slices [L, ceil(F/8)].
+
+    Bits are LSB-first within each byte on both sides (bloom.h:140-171).
+    Native 64x64-bit-block path when the library is present (~50x the
+    numpy unpack/transpose/pack below, which was the dominant cost of
+    every 2048-filter .db pack); the numpy path is the fallback twin.
+    """
+    F, nbytes = filter_bytes.shape
+    if num_filter is None:
+        num_filter = F
+    if num_filter < F:
+        raise ValueError(f"num_filter ({num_filter}) < source rows ({F})")
+    from ..native import transpose_bits_native
+
+    out = transpose_bits_native(filter_bytes, num_filter)
+    if out is not None:
+        return out
+    # [F, L] bits; unpackbits is MSB-first, so request little-endian order.
+    bits = np.unpackbits(filter_bytes, axis=1, bitorder="little")
+    slices = np.packbits(bits.T, axis=1, bitorder="little")
+    want = (num_filter + 7) // 8
+    if slices.shape[1] < want:
+        slices = np.pad(slices, ((0, 0), (0, want - slices.shape[1])))
+    return slices
 
 
 def _iter_transposed_chunks(
     paths: list[str], param: BloomParam, chunk_bits: int,
-    device: torch.device | None,
+    device: torch.device | None = None,
 ):
     """Yield transposed slice chunks while streaming all inputs in lockstep,
     validating per-filter crc32."""
@@ -103,4 +140,35 @@ def build_db_from_bloom_files(
         _iter_transposed_chunks(bloom_files, param, chunk_bits, device),
         infos,
         num_filter=len(bloom_files),
+    )
+
+
+def build_dbz_from_bloom_files(
+    out_path: str,
+    param: BloomParam,
+    bloom_files: list[str],
+    chunk_bits: int = DEFAULT_CHUNK_BITS,
+    level: int = 6,
+) -> DBFileHeader:
+    """Transpose .bloom files into a compressed .dbz database file.
+
+    Engine extension (the reference reserves the header field and the
+    .dbz name but never implements compression; see io/dbz_file.py).
+    Searching a .dbz yields hit lists identical to the equivalent .db.
+    """
+    from ..io.dbz_file import write_dbz_file_streaming
+
+    if not bloom_files:
+        raise ValueError("empty Bloom filter inventory")
+    if chunk_bits % 8:
+        raise ValueError("chunk_bits must be byte aligned")
+
+    infos = [read_bloom_file(p, with_bits=False).info for p in bloom_files]
+    return write_dbz_file_streaming(
+        out_path,
+        param,
+        _iter_transposed_chunks(bloom_files, param, chunk_bits),
+        infos,
+        num_filter=len(bloom_files),
+        level=level,
     )

@@ -1,13 +1,19 @@
-"""Device Bloom filter construction (PyTorch + CUDA port of the device
-phases of kwage_tpu/pipeline/make_bloom.py).
+"""Per-accession Bloom filter construction (the reference's make_bloom),
+host and device (PyTorch + CUDA port of kwage_tpu/pipeline/make_bloom.py).
 
-Exact-count thresholding on the device, as in the JAX module: canonical
-k-mers, a sort by (accession, word), the select_runs kernel, the host
-solves each filter's shape, and the bloom_set_bits kernel sets the bits
-(``kwage_tpu_torch.ops.counting``). The host parts carry no jax and are
-imported from the JAX module: ``BuildOptions``, ``BloomInvalid``,
+Host pipeline (make_bloom.cpp:76-504): size the counting filter from the
+total base count, stream every read through the counting-Bloom thresholder,
+solve the adaptive filter shape from the observed valid-k-mer count, fold
+the per-seed valid-bit planes down to the final length, and emit a
+``.bloom`` record with crc32 + metadata. These functions (``BuildOptions``,
+``BloomInvalid``, ``build_bloom_from_sequences``, ``build_bloom_from_file``,
 ``DeviceBatchPrep``, ``DeviceScatterState``, ``_merge_sorted_counts``,
-``_pad_reads_to_batch`` and ``_src_iter``.
+``_pad_reads_to_batch``, ``_src_iter``) are the JAX module's, unchanged.
+
+Device pipeline: exact-count thresholding on the device, as in the JAX
+module: canonical k-mers, a sort by (accession, word), the select_runs
+kernel, the host solves each filter's shape, and the bloom_set_bits kernel
+sets the bits (``kwage_tpu_torch.ops.counting``).
 
 Two int32 limits of the JAX version are gone: every bit offset is int64,
 so filters of 2^31 and 2^32 bits are set on the device (the JAX version
@@ -19,27 +25,32 @@ Every device function runs on ``resolve_device()`` (``KWAGE_TORCH_DEVICE``,
 default ``cuda``).
 """
 
+
 from __future__ import annotations
 
+import math
 import zlib
+from dataclasses import dataclass
 from typing import Iterable
 
 import numpy as np
 import torch
 
-from kwage_tpu.core.info import FilterInfo
-from kwage_tpu.core.params import approximate_max_kmers, optimal_bloom_param
-from kwage_tpu.io.bloom_file import BloomFilterRecord
-from kwage_tpu.pipeline.make_bloom import (
-    BloomInvalid,
-    BuildOptions,
-    DeviceBatchPrep,
-    DeviceScatterState,
-    _merge_sorted_counts,
-    _pad_reads_to_batch,
-    _src_iter,
+from ..core.hash import MURMUR_HASH_32
+from ..core.info import FilterInfo
+from ..core.params import (
+    DEFAULT_FALSE_POSITIVE_PROBABILITY,
+    DEFAULT_KMER_LENGTH,
+    DEFAULT_MAX_LOG_2_FILTER_LEN,
+    DEFAULT_MIN_LOG_2_FILTER_LEN,
+    DEFAULT_SRA_MIN_KMER_COUNT,
+    BloomParam,
+    approximate_max_kmers,
+    optimal_bloom_param,
 )
-
+from ..io.bloom_file import BloomFilterRecord
+from ..io.sequence import iter_sequences
+from ..native import CountingBuilder
 from ..ops.counting import (
     bloom_set_bits,
     count_kmers,
@@ -50,6 +61,142 @@ from ..ops.counting import (
 from ..ops.kmers import pack_reads_host, tensor_to_words_u64, words_u64_to_tensor
 from ..ops.search import words_to_tensor
 from ..utils.runtime import resolve_device
+
+
+# Counting-filter sizing constants (make_bloom.cpp:21-25)
+MAX_LOG_COUNT_FILTER_LEN = 32
+MIN_LOG_COUNT_FILTER_LEN = 18
+COUNT_FILTER_FP = 1.0e-2
+
+
+@dataclass
+class BuildOptions:
+    kmer_len: int = DEFAULT_KMER_LENGTH
+    min_kmer_count: int = DEFAULT_SRA_MIN_KMER_COUNT
+    false_positive_probability: float = DEFAULT_FALSE_POSITIVE_PROBABILITY
+    min_log_2_filter_len: int = DEFAULT_MIN_LOG_2_FILTER_LEN
+    max_log_2_filter_len: int = DEFAULT_MAX_LOG_2_FILTER_LEN
+    hash_func: int = MURMUR_HASH_32
+    # Counting-filter clamp; tests shrink these to bound memory.
+    min_log_2_count_len: int = MIN_LOG_COUNT_FILTER_LEN
+    max_log_2_count_len: int = MAX_LOG_COUNT_FILTER_LEN
+
+
+class BloomInvalid(Exception):
+    """Raised when no valid Bloom parameters exist for an accession
+    (maps to STATUS_BLOOM_INVALID)."""
+
+
+def counting_filter_log2_len(num_bp: int, opts: BuildOptions) -> int:
+    """Counting-filter sizing from the total base count (make_bloom.cpp:109-129).
+
+    Two 4-bit counting sub-filters, two hash functions each; length chosen
+    so the 4-probe false-positive rate stays under COUNT_FILTER_FP for
+    2*num_bp insertions, clamped to the allowed range.
+    """
+    if num_bp <= 0:
+        return opts.max_log_2_count_len
+    counting_length = 1.0 / (
+        1.0 - (1.0 - COUNT_FILTER_FP ** 0.25) ** (1.0 / (2.0 * num_bp))
+    )
+    log2_len = math.ceil(math.log(counting_length) / math.log(2.0))
+    return max(opts.min_log_2_count_len, min(opts.max_log_2_count_len, log2_len))
+
+
+def build_bloom_from_sequences(
+    sequences: Iterable[str],
+    opts: BuildOptions,
+    info: FilterInfo,
+    num_bp_hint: int | None = None,
+) -> BloomFilterRecord:
+    """Build a Bloom filter from an in-memory iterable of read sequences.
+
+    ``num_bp_hint`` plays the role of the SRA metadata BASE_COUNT used to
+    pre-size the counting filter; when absent the sequences are buffered to
+    measure it (matching what the reference gets from sra_meta.cpp).
+    """
+    if num_bp_hint is None:
+        sequences = list(sequences)
+        num_bp_hint = sum(len(s) for s in sequences)
+
+    log2_count = counting_filter_log2_len(num_bp_hint, opts)
+    max_kmers = approximate_max_kmers(
+        opts.false_positive_probability,
+        opts.hash_func,
+        opts.min_log_2_filter_len,
+        opts.max_log_2_filter_len,
+    )
+
+    with CountingBuilder(
+        opts.kmer_len, opts.min_kmer_count, log2_count, opts.max_log_2_filter_len
+    ) as builder:
+        for seq in sequences:
+            builder.add_sequence(seq)
+            if builder.num_valid_kmer > max_kmers:
+                raise BloomInvalid(
+                    f"k-mer count {builder.num_valid_kmer} exceeds feasible maximum {max_kmers}"
+                )
+        return _finish_build(builder, opts, info, max_kmers)
+
+
+def _finish_build(builder, opts: BuildOptions, info: FilterInfo, max_kmers: int) -> BloomFilterRecord:
+    """Solve the adaptive shape from the observed count and fold the planes."""
+    if builder.num_valid_kmer > max_kmers:
+        raise BloomInvalid(
+            f"k-mer count {builder.num_valid_kmer} exceeds feasible maximum {max_kmers}"
+        )
+    try:
+        param = optimal_bloom_param(
+            opts.kmer_len,
+            builder.num_valid_kmer,
+            opts.false_positive_probability,
+            opts.hash_func,
+            opts.min_log_2_filter_len,
+            opts.max_log_2_filter_len,
+        )
+    except ValueError as e:
+        raise BloomInvalid(str(e)) from e
+
+    bits = builder.fold(param.log_2_filter_len, param.num_hash)
+    return BloomFilterRecord(
+        param=param,
+        crc32=zlib.crc32(bits.tobytes()) & 0xFFFFFFFF,
+        info=info,
+        bits=bits,
+    )
+
+
+def _pad_reads_to_batch(sequences: list[str], k: int) -> "np.ndarray":
+    """ASCII read batch padded with zeros (invalid windows) to bucketed
+    dimensions. BOTH axes bucket -- length to 128-multiples, row count to
+    powers of two -- because every distinct shape is a separate XLA
+    compile; zero rows contribute no valid windows."""
+    max_len = max((len(s) for s in sequences), default=k)
+    bucket = max(128, ((max_len + 127) // 128) * 128)
+    rows = max(64, 1 << int(np.ceil(np.log2(max(len(sequences), 1)))))
+    batch = np.zeros((rows, bucket), dtype=np.uint8)
+    for i, s in enumerate(sequences):
+        batch[i, : len(s)] = np.frombuffer(s.encode("ascii"), dtype=np.uint8)
+    return batch
+
+
+def _merge_sorted_counts(
+    words_a: "np.ndarray", counts_a: "np.ndarray",
+    words_b: "np.ndarray", counts_b: "np.ndarray",
+) -> tuple["np.ndarray", "np.ndarray"]:
+    """Merge two sorted (unique word, count) runs into one (host, vectorized)."""
+    words = np.concatenate([words_a, words_b])
+    counts = np.concatenate([counts_a, counts_b])
+    order = np.argsort(words, kind="stable")
+    words = words[order]
+    counts = counts[order]
+    is_start = np.empty(words.shape[0], dtype=bool)
+    is_start[0] = True
+    np.not_equal(words[1:], words[:-1], out=is_start[1:])
+    seg = np.cumsum(is_start) - 1
+    merged_counts = np.zeros(int(seg[-1]) + 1, dtype=np.int64)
+    np.add.at(merged_counts, seg, counts)
+    return words[is_start], merged_counts
 
 
 def _max_kmers(opts: BuildOptions) -> int:
@@ -144,6 +291,35 @@ def build_bloom_device(
     return _record(param, filter_words_to_bytes(packed, param.log_2_filter_len), info)
 
 
+@dataclass
+class DeviceBatchPrep:
+    """Host-side output of prepare_device_batch: everything the device
+    phase needs, with zero device work done yet. Lets a dispatcher
+    thread overlap the (native, GIL-released) parse/pack of batch i+1
+    with the in-flight device compute of batch i."""
+
+    jobs: list
+    results: list                     # pre-filled big-job/empty slots... (None = pending)
+    small: list                       # job indices in the fused block
+    big: list                         # job indices routed to the chunked builder
+    bp_spots: dict
+    no_long_read: set
+    packed: "np.ndarray | None"       # [rows_bucket, blen/16] uint32
+    valid_words: "np.ndarray | None"
+    acc_ids: "np.ndarray | None"
+    blen: int = 0
+    seq_cache: dict = None  # type: ignore[assignment]
+    chunk_bp: int = 8_000_000
+
+
+def _src_iter(src):
+    if isinstance(src, str):
+        from ..io.sequence import iter_sequences
+
+        return (q for _, q in iter_sequences(src))
+    return iter(src)
+
+
 def prepare_device_batch(
     jobs: list[tuple[list[str], FilterInfo]],
     opts: BuildOptions,
@@ -155,8 +331,8 @@ def prepare_device_batch(
     Python strings). Pure host work: safe to run in a parse thread while
     the device executes another batch. The JAX module's function, with
     this package's ``pack_reads_host``."""
-    from kwage_tpu.io.sequence import FASTQ, UNKNOWN_SEQUENCE, get_file_type
-    from kwage_tpu.native import (
+    from ..io.sequence import FASTQ, UNKNOWN_SEQUENCE, get_file_type
+    from ..native import (
         available as native_available,
         pack_file_native,
         scan_file_batch_native,
@@ -255,6 +431,16 @@ def dispatch_device_batch(prep: DeviceBatchPrep, opts: BuildOptions):
         words_to_tensor(prep.packed, device), words_to_tensor(prep.valid_words, device),
         torch.from_numpy(prep.acc_ids).to(device),
         opts.kmer_len, opts.min_kmer_count, len(prep.small), prep.blen)
+
+
+@dataclass
+class DeviceScatterState:
+    """Output of scatter_device_batch: per-group device filter images
+    (host transfer already started async) plus the solved params."""
+
+    params: dict              # slot -> BloomParam
+    scatters: list            # (h_slots, device packed filter words)
+    fallback_slots: list      # slots routed to the per-accession builder
 
 
 def scatter_device_batch(prep: DeviceBatchPrep, opts: BuildOptions, handles):
@@ -363,3 +549,56 @@ def build_blooms_device_batch(
     larger than chunk_bp go to the chunked single-accession builder. A
     source may be a list of sequences or a FASTA/FASTQ(.gz) path."""
     return finish_device_batch(prepare_device_batch(jobs, opts, chunk_bp), opts)
+
+
+def build_bloom_from_file(
+    path: str, opts: BuildOptions, info: FilterInfo | None = None
+) -> BloomFilterRecord:
+    """Build a Bloom filter from a FASTA/FASTQ(.gz) file (two streaming passes).
+
+    Pass 1 measures the base/spot counts (the metadata the reference reads
+    from the SRA record); pass 2 digests the reads. Both passes run fully
+    in native code when the library is available (parser + counting loop,
+    no Python per read); the Python reader is the fallback and the oracle.
+    """
+    from ..io.sequence import FASTA, FASTQ, get_file_type
+    from ..native import available as native_available, scan_file_native
+
+    if info is None:
+        info = FilterInfo()
+
+    ftype = get_file_type(path)
+    use_native = native_available() and ftype in (FASTA, FASTQ)
+
+    if use_native:
+        num_spots, num_bp = scan_file_native(path, ftype)
+    else:
+        num_bp = 0
+        num_spots = 0
+        for _, seq in iter_sequences(path):
+            num_bp += len(seq)
+            num_spots += 1
+
+    # Inventory metadata counts flow through unchanged like the reference
+    # (make_bloom.cpp never writes measured counts into FilterInfo);
+    # measured values only fill absent metadata.
+    info.number_of_bases = info.number_of_bases or num_bp
+    info.number_of_spots = info.number_of_spots or num_spots
+
+    if not use_native:
+        return build_bloom_from_sequences(
+            (seq for _, seq in iter_sequences(path)), opts, info, num_bp_hint=num_bp
+        )
+
+    log2_count = counting_filter_log2_len(num_bp, opts)
+    max_kmers = approximate_max_kmers(
+        opts.false_positive_probability,
+        opts.hash_func,
+        opts.min_log_2_filter_len,
+        opts.max_log_2_filter_len,
+    )
+    with CountingBuilder(
+        opts.kmer_len, opts.min_kmer_count, log2_count, opts.max_log_2_filter_len
+    ) as builder:
+        builder.digest_file(path, ftype)
+        return _finish_build(builder, opts, info, max_kmers)

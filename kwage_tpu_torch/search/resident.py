@@ -24,9 +24,6 @@ import threading
 
 import torch
 
-from kwage_tpu.search.output import render_csv, render_json
-from kwage_tpu.utils.runtime import check_token, resolve_secret
-
 from ..ops.search import (
     chunk_hits,
     chunk_words,
@@ -38,7 +35,8 @@ from ..ops.search import (
     make_query_batch,
     read_chunk,
 )
-from ..utils.runtime import resolve_device
+from ..utils.runtime import check_token, resolve_device, resolve_secret
+from .output import render_csv, render_json
 
 
 class ResidentSearcher:
@@ -53,7 +51,7 @@ class ResidentSearcher:
 
     def __init__(self, db_paths: list[str], device: torch.device,
                  budget_bytes: int | None = None):
-        from kwage_tpu.io.dbz_file import open_database
+        from ..io.dbz_file import open_database
 
         if budget_bytes is None:
             budget_bytes = fusion_budget_bytes()
@@ -110,7 +108,7 @@ class HostResidentSearcher:
         self.db_paths = list(db_paths)
 
     def search(self, queries: list[tuple[int, str]], threshold: float):
-        from kwage_tpu.search.engine import search_database_files
+        from .engine import search_database_files
 
         return search_database_files(self.db_paths, queries, threshold)
 

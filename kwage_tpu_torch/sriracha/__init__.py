@@ -1,5 +1,11 @@
-"""SriRachA per-read confirmation search on the device (PyTorch + CUDA port
-of kwage_tpu/sriracha/device.py and of the device branch of
-kwage_tpu/sriracha/engine.py). The host engine, the read sources and the
-output format are ``kwage_tpu.sriracha.engine``'s, imported by module
-path; this package never imports jax."""
+"""SriRachA per-read confirmation search: the host engine, the read
+sources and the device search (PyTorch + CUDA port of kwage_tpu/sriracha).
+This package never imports jax."""
+from .engine import (
+    SearchMatch,
+    SrirachaOptions,
+    assign_read_range,
+    extract_sra_accession,
+    search_accession,
+    search_reads,
+)

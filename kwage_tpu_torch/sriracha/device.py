@@ -36,15 +36,14 @@ from itertools import islice
 import numpy as np
 import torch
 
-from kwage_tpu.sriracha.engine import SearchMatch, SrirachaOptions, StreamStats
-
 from .. import kernels
 from ..ops.kmers import canonical_kmers, canonical_kmers_ascii_ref
 from ..utils.runtime import resolve_device
+from .engine import SearchMatch, SrirachaOptions, StreamStats
 
 MAX_DEVICE_K = 32
 BUCKET_CAP = 8              # candidate slots per hash row (the JAX _BUCKET_CAP)
-MAX_SHARED_WORDS = 1 << 14  # csrc/sriracha.cu kMaxSharedWords: above it, global scratch
+MAX_SHARED_WORDS = 1 << 14  # csrc/sriracha.cu kMaxSharedWords: a row above it sorts in tiles
 MAX_TABLE_K = 13            # 4^13 * 4 B = 256 MiB per group (CPU)
 MAX_TABLE_K_CUDA = 14       # 1 GiB per group, as the JAX package allows on a TPU
 GROUP = 32                  # subjects per table group (one uint32 mask)
@@ -344,9 +343,20 @@ def read_batch_counts_ref(reads: torch.Tensor, lengths: torch.Tensor, tables) ->
 
 # --- kernel wrappers ----------------------------------------------------------------------
 
-def scratch_words(nwin: int) -> int:
-    """Sort slots a row needs: nwin rounded up to a power of two."""
-    return 1 << max(nwin - 1, 0).bit_length()
+def next_pow2(n: int) -> int:
+    """n rounded up to a power of two: the sort slots a row of n windows
+    needs, and the rows of a batch of n reads."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def counts_scratch(B: int, nwin: int, device: torch.device) -> torch.Tensor | None:
+    """The sort slab of one sriracha_counts launch: int64 [B,
+    next_pow2(nwin)] on ``device`` for a batch wide enough to hold rows of
+    more than MAX_SHARED_WORDS windows (the kernel sorts those in tiles
+    there; the batch's rows are already trimmed to its reads), else None."""
+    if nwin <= MAX_SHARED_WORDS:
+        return None
+    return torch.empty((B, next_pow2(nwin)), dtype=torch.int64, device=device)
 
 
 def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Tensor,
@@ -355,10 +365,9 @@ def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Ten
     canonical_kmers kernel's output) and read lengths int32 [B] -> int32
     [B, ns + 2]: per subject the distinct valid words it holds, then
     num_kmer and num_unique. ``out`` (optional) is a contiguous int32
-    [B, ns + 2] tensor to write into. CUDA tensors: the
-    sriracha_counts_lut / sriracha_counts_hash kernel (rows of more than
-    MAX_SHARED_WORDS sort slots get a global scratch slab); CPU tensors:
-    sriracha_counts_ref."""
+    [B, ns + 2] tensor to write into. CUDA tensors: the sriracha_counts_lut
+    / sriracha_counts_hash kernel (at most 65,535 rows when nwin is above
+    MAX_SHARED_WORDS); CPU tensors: sriracha_counts_ref."""
     if (words.dim() != 2 or words.dtype != torch.int64 or valid.shape != words.shape
             or valid.dtype not in (torch.bool, torch.uint8)):
         raise ValueError(f"expected int64 words and validity [B, nwin], got {words.dtype} "
@@ -389,9 +398,9 @@ def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Ten
         out = torch.empty(shape, dtype=torch.int32, device=words.device)
     if B == 0:
         return out
-    P = scratch_words(nwin)
-    scratch = (torch.empty((B, P), dtype=torch.int64, device=words.device)
-               if P > MAX_SHARED_WORDS else None)
+    if nwin > MAX_SHARED_WORDS and B > 65535:
+        raise ValueError(f"at most 65535 rows of more than {MAX_SHARED_WORDS} windows, got {B}")
+    scratch = counts_scratch(B, nwin, words.device)
     with torch.cuda.device(words.device):
         kernels.launch(*counts_launch(words, valid, lengths, tables, out, scratch))
     return out
@@ -399,19 +408,18 @@ def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Ten
 
 def counts_launch(words, valid, lengths, tables, out, scratch) -> tuple:
     """The C entry and arguments of one sriracha_counts launch over checked,
-    contiguous CUDA tensors (``scratch``: int64 [B, scratch_words(nwin)] or
-    None for shared memory), for ``kernels.launch``."""
+    contiguous CUDA tensors (``scratch``: ``counts_scratch``), for
+    ``kernels.launch``."""
     B, nwin = words.shape
-    sp = 0 if scratch is None else scratch.data_ptr()
-    P = scratch_words(nwin)
     stream = torch.cuda.current_stream(words.device).cuda_stream
     head = (words.data_ptr(), valid.data_ptr(), lengths.data_ptr())
+    tail = (out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), B, nwin, tables.k)
     if tables.route == "lut":
-        return ("sriracha_counts_lut", *head, tables.table.data_ptr(), out.data_ptr(), sp,
-                B, nwin, tables.k, tables.table.shape[1], tables.ns, out.shape[1], P, stream)
+        return ("sriracha_counts_lut", *head, tables.table.data_ptr(), *tail,
+                tables.table.shape[1], tables.ns, out.shape[1], stream)
     return ("sriracha_counts_hash", *head, tables.keys.data_ptr(), tables.masks.data_ptr(),
-            tables.row0.data_ptr(), tables.bmask.data_ptr(), out.data_ptr(), sp,
-            B, nwin, tables.k, tables.ns, out.shape[1], P, stream)
+            tables.row0.data_ptr(), tables.bmask.data_ptr(), *tail, tables.ns, out.shape[1],
+            stream)
 
 
 def read_batch_counts(reads: torch.Tensor, lengths: torch.Tensor, tables,
@@ -528,7 +536,7 @@ def search_reads_device(
     overlap device work. Each span packs all its batches into one host
     staging buffer (pinned on a card), uploads it once, launches
     canonical_kmers and sriracha_counts per batch into one device buffer
-    int32 [batches * batch_size, ns + 2] and queues one asynchronous copy
+    int32 [the batches' rows, ns + 2] and queues one asynchronous copy
     back; its readback waits for that copy's event alone. No host sync
     happens while a span is dispatched. Gate state (perfect-match caps,
     intermediate culls) carries across spans, so the output is identical
@@ -562,43 +570,46 @@ def search_reads_device(
                 stats.num_reads += 1
                 stats.num_bases += len(seq)
             buckets.setdefault(pad_len(max(len(seq), k)), []).append(i)
-        batches = [(L, idxs[start : start + batch_size])
+        # A batch's rows: its reads rounded up to a power of two (zero-length
+        # rows, no windows), so the few long reads of a span do not pad to
+        # batch_size rows of their bucket's width.
+        batches = [(L, chunk, min(batch_size, next_pow2(len(chunk))))
                    for L, idxs in sorted(buckets.items())
-                   for start in range(0, len(idxs), batch_size)]
-        nbytes = sum(batch_size * L for L, _ in batches)
-        nrows = len(batches) * batch_size
-        # Row counts pad to the full batch: zero-length rows, no windows.
+                   for chunk in (idxs[start : start + batch_size]
+                                 for start in range(0, len(idxs), batch_size))]
+        nbytes = sum(rows * L for L, _, rows in batches)
+        nrows = sum(rows for _, _, rows in batches)
         block_h = slots.get(slot, "reads", nbytes, torch.uint8)
         lens_h = slots.get(slot, "lengths", nrows, torch.int32)
         block_np, lens_np = block_h.numpy(), lens_h.numpy()
         block_np[:] = 0
         lens_np[:] = 0
-        off = 0
-        for b, (L, chunk) in enumerate(batches):
-            _pack_batch(block_np[off : off + batch_size * L].reshape(batch_size, L),
-                        lens_np[b * batch_size : (b + 1) * batch_size],
-                        [reads[i][0] for i in chunk])
-            off += batch_size * L
+        off = row0 = 0
+        for L, chunk, rows in batches:
+            _pack_batch(block_np[off : off + rows * L].reshape(rows, L),
+                        lens_np[row0 : row0 + rows], [reads[i][0] for i in chunk])
+            off += rows * L
+            row0 += rows
         block_d = block_h.to(device, non_blocking=True)
         lens_d = lens_h.to(device, non_blocking=True)
         out_d = torch.empty((nrows, width), dtype=torch.int32, device=device)
-        off = 0
-        for b, (L, _) in enumerate(batches):
-            rows = slice(b * batch_size, (b + 1) * batch_size)
-            read_batch_counts(block_d[off : off + batch_size * L].view(batch_size, L),
-                              lens_d[rows], tables, out_d[rows])
-            off += batch_size * L
+        off = row0 = 0
+        for L, _, rows in batches:
+            read_batch_counts(block_d[off : off + rows * L].view(rows, L),
+                              lens_d[row0 : row0 + rows], tables, out_d[row0 : row0 + rows])
+            off += rows * L
+            row0 += rows
         out_h = slots.get(slot, "out", nrows * width, torch.int32).view(nrows, width)
         out_h.copy_(out_d, non_blocking=True)
         event = None
         if device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
-        return [chunk for _, chunk in batches], out_h, event
+        return [(chunk, rows) for _, chunk, rows in batches], out_h, event
 
     def readback_span(reads, pending):
-        """The span's one wait: its copy back. Batch b's rows live at
-        offset b * batch_size."""
+        """The span's one wait: its copy back. A batch's rows follow the
+        previous batch's."""
         chunks, out_h, event = pending
         if event is not None:
             event.synchronize()
@@ -606,11 +617,13 @@ def search_reads_device(
         counts = np.zeros((len(reads), ns), dtype=np.int64)
         nk = np.zeros(len(reads), dtype=np.int64)
         nu = np.zeros(len(reads), dtype=np.int64)
-        for b, chunk in enumerate(chunks):
-            rows = res[b * batch_size : b * batch_size + len(chunk)]
+        row0 = 0
+        for chunk, batch_rows in chunks:
+            rows = res[row0 : row0 + len(chunk)]
             counts[chunk] = rows[:, :ns]
             nk[chunk] = rows[:, ns]
             nu[chunk] = rows[:, ns + 1]
+            row0 += batch_rows
         return counts, nk, nu
 
     if profile is not None:

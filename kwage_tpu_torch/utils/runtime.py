@@ -1,4 +1,4 @@
-"""Device selection and card identity for the port.
+"""Device selection, card identity and shared-secret auth for the port.
 
 ``KWAGE_TORCH_DEVICE`` is the port's counterpart of ``JAX_PLATFORMS``: it
 names the torch device the device paths run on (default ``cuda``). A
@@ -14,6 +14,26 @@ import subprocess
 import sys
 
 import torch
+
+
+def resolve_secret(secret: str | None) -> str:
+    """An explicit secret wins; otherwise the KWAGE_QUEUE_SECRET env var;
+    empty string = auth disabled."""
+    if secret is not None:
+        return secret
+    return os.environ.get("KWAGE_QUEUE_SECRET", "")
+
+
+def check_token(msg: dict, secret: str) -> bool:
+    """Pop the "token" field from a wire message and verify it against
+    the shared secret (constant-time). True when auth is disabled or the
+    token matches."""
+    import hmac
+
+    token = str(msg.pop("token", ""))
+    if not secret:
+        return True
+    return hmac.compare_digest(token, secret)
 
 
 def resolve_device(name: str | None = None) -> torch.device:

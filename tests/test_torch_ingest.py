@@ -5,6 +5,7 @@ comparison is exact equality. On the CPU every kernel wrapper runs its
 plain PyTorch version; the ``cuda`` tests hold the kernels against those
 on a card."""
 
+import dataclasses
 from collections import Counter
 
 import jax
@@ -104,6 +105,43 @@ def test_canonical_kmers_ascii_matches_jax_and_host(k):
     np.testing.assert_array_equal(tvalid.numpy(), np.asarray(valid))
     want = host_canonical_kmers(seq.tobytes(), k)
     np.testing.assert_array_equal(tk.tensor_to_words_u64(words[tvalid]), want)
+
+
+def _edge_reads(length, seed):
+    """ASCII reads uint8 [6, length]: an N at the first, the last, the 16th
+    and the 32nd base (one row each), a lower-case row, a clean row."""
+    rng = np.random.default_rng(seed)
+    b = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(6, length))].copy()
+    b[0, 0] = b[1, -1] = b[2, min(15, length - 1)] = b[3, min(31, length - 1)] = ord("N")
+    b[4] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=length)]
+    return b
+
+
+@pytest.mark.parametrize("k,length", [(k, n) for n in (17, 33, 255, 257)
+                                      for k in (1, 15, 16, 17, 31, 32) if k <= n])
+def test_canonical_kmers_edges_match_jax(k, length):
+    """The shapes the window-slice kernel makes risky, on the CPU through
+    both wrappers (their plain versions) against the JAX functions: k at
+    1 and around the 32- and 64-bit word boundaries, lengths that end inside
+    a packed word, an N at the first, last, 16th and 32nd base, lower case."""
+    b = _edge_reads(length, 1000 * k + length)
+    packed, vw = jk.pack_reads_host(b)
+    hi, lo, valid = jax.vmap(lambda p, v: jk.canonical_kmers_packed_device(p, v, k, length))(
+        jnp.asarray(packed), jnp.asarray(vw))
+    want_words, want_valid = _jax_words(hi, lo), np.asarray(valid)
+    words, tvalid = tk.canonical_kmers_packed(
+        words_to_tensor(packed, CPU), words_to_tensor(vw, CPU), k, length)
+    np.testing.assert_array_equal(tk.tensor_to_words_u64(words), want_words)
+    np.testing.assert_array_equal(tvalid.numpy(), want_valid)
+    a_words, a_valid = tk.canonical_kmers(torch.from_numpy(b), k)
+    np.testing.assert_array_equal(tk.tensor_to_words_u64(a_words), want_words)
+    np.testing.assert_array_equal(a_valid.numpy(), want_valid)
+    for row in range(b.shape[0]):
+        hi1, lo1, valid1 = jk.canonical_kmers_device(jnp.asarray(b[row]), k)
+        np.testing.assert_array_equal(_jax_words(hi1, lo1), want_words[row])
+        np.testing.assert_array_equal(np.asarray(valid1), want_valid[row])
+    assert not want_valid[0, 0] and not want_valid[1, -1] and want_valid[4].all()
+    assert want_valid[5].all()
 
 
 def _every_byte_batch(seed):
@@ -300,6 +338,11 @@ def reads():
     return uniq + uniq[:5] + uniq[:5] + [noisy]
 
 
+def _same(a, b) -> bool:
+    """Equal fields: the port's BloomParam is a class of its own."""
+    return dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
 def _opts(min_count, **kw):
     base = dict(kmer_len=31, min_kmer_count=min_count, false_positive_probability=0.25,
                 min_log_2_filter_len=14, max_log_2_filter_len=20,
@@ -323,14 +366,14 @@ def test_device_build_matches_exact_ground_truth_and_jax(reads, min_count):
     assert rec.bits.tobytes() == gt.tobytes()
     assert rec.test_crc32()
     want = jmb.build_bloom_device(iter(reads), _opts(min_count), FilterInfo())
-    assert rec.param == want.param and rec.bits.tobytes() == want.bits.tobytes()
+    assert _same(rec.param, want.param) and rec.bits.tobytes() == want.bits.tobytes()
 
 
 def test_device_matches_host_parity_path(reads):
     opts = _opts(1)
     dev = tmb.build_bloom_device(iter(reads), opts, FilterInfo())
     host = jmb.build_bloom_from_sequences(iter(reads), opts, FilterInfo())
-    assert dev.param == host.param
+    assert _same(dev.param, host.param)
     assert dev.bits.tobytes() == host.bits.tobytes()
 
 
@@ -350,7 +393,7 @@ def test_device_build_large_filter_stays_on_device(reads):
     dev = tmb.build_bloom_device(iter(reads), opts, FilterInfo())
     assert dev.param.log_2_filter_len == 31
     host = jmb.build_bloom_from_sequences(iter(reads), opts, FilterInfo())
-    assert dev.param == host.param
+    assert _same(dev.param, host.param)
     assert dev.bits.tobytes() == host.bits.tobytes()
     assert dev.test_crc32()
 
@@ -373,7 +416,7 @@ def test_batched_device_build_matches_single_and_jax(reads):
     for a in range(5):
         want = tmb.build_bloom_device(iter(per_acc[a]), opts, FilterInfo())
         assert not isinstance(got[a], Exception), got[a]
-        assert got[a].param == want.param == want_jax[a].param, a
+        assert _same(got[a].param, want.param) and _same(want.param, want_jax[a].param), a
         assert got[a].bits.tobytes() == want.bits.tobytes() == want_jax[a].bits.tobytes(), a
     assert isinstance(got[5], tmb.BloomInvalid)
 
@@ -386,7 +429,7 @@ def test_batched_device_build_mixed_filter_lengths():
     got = tmb.build_blooms_device_batch([(small, FilterInfo()), (big, FilterInfo())], opts)
     for j, seqs in enumerate([small, big]):
         want = jmb.build_bloom_device(iter(seqs), opts, FilterInfo())
-        assert got[j].param == want.param
+        assert _same(got[j].param, want.param)
         assert got[j].bits.tobytes() == want.bits.tobytes()
     assert got[0].param.log_2_filter_len != got[1].param.log_2_filter_len
 

@@ -17,15 +17,19 @@ import textwrap
 import pytest
 import torch
 
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.io.inventory import write_inventory
-from kwage_tpu.io.status import read_status_file
 from kwage_tpu.parallel import maestro as jax_maestro
-from kwage_tpu.parallel.maestro import STATUS_DATABASE_SUCCESS, LocalFastaResolver, MaestroOptions
 from kwage_tpu.pipeline import make_bloom as jax_make_bloom
 from kwage_tpu_torch.cli.maestro import main as maestro_main
+from kwage_tpu_torch.core import FilterInfo, str_to_accession
+from kwage_tpu_torch.io.inventory import write_inventory
+from kwage_tpu_torch.io.status import read_status_file
 from kwage_tpu_torch.parallel import maestro as torch_maestro
-from kwage_tpu_torch.parallel.maestro import Maestro
+from kwage_tpu_torch.parallel.maestro import (
+    STATUS_DATABASE_SUCCESS,
+    LocalFastaResolver,
+    Maestro,
+    MaestroOptions,
+)
 from kwage_tpu_torch.pipeline import make_bloom as torch_make_bloom
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,7 +107,7 @@ class _StreamingFastaResolver(LocalFastaResolver):
     stream, not a path."""
 
     def open_stream(self, accession):
-        from kwage_tpu.io.sequence import iter_sequences
+        from kwage_tpu_torch.io.sequence import iter_sequences
 
         return (seq for _, seq in iter_sequences(self.resolve(accession)))
 
@@ -207,8 +211,10 @@ def test_device_build_run_never_imports_jax(manifest, data_dir, tmp_path):
 
 
 # The functions the port carries over from kwage_tpu unchanged but for the
-# modules they import (the JAX module names its own as globals): (JAX
-# module, port module, qualified name).
+# modules they import: (JAX module, port module, qualified name). The
+# port's scheduler is the whole module, so every method of the scheduler's
+# classes is held too (tests/test_torch_copies.py holds the top-level names
+# of every merged module).
 COPIES = [
     (jax_maestro, torch_maestro, name) for name in (
         "_build_bloom_streamed", "execute_bloom_task", "prepare_bloom_batch",
@@ -218,6 +224,20 @@ COPIES = [
 ] + [
     (jax_make_bloom, torch_make_bloom, name) for name in (
         "prepare_device_batch", "finish_device_batch", "build_blooms_device_batch")
+] + [
+    (jax_maestro, torch_maestro, f"{cls}.{name}")
+    for cls in ("Maestro", "_DeviceDispatcher", "MaestroOptions", "LocalFastaResolver",
+                "PrefetchResolver", "StreamingResolver", "_LazyInfos")
+    for name, member in vars(getattr(jax_maestro, cls)).items()
+    if inspect.isfunction(member) and member.__module__ == jax_maestro.__name__
+    and member.__code__.co_filename == jax_maestro.__file__ and f"{cls}.{name}" not in (
+        "_DeviceDispatcher._run", "Maestro._run", "Maestro._process_accession",
+        "Maestro._process_accession_batch", "Maestro._prepare_batch_host",
+        "Maestro._build_database")
+] + [
+    (jax_make_bloom, torch_make_bloom, name) for name in (
+        "build_bloom_from_sequences", "build_bloom_from_file", "_finish_build",
+        "counting_filter_log2_len", "_merge_sorted_counts", "_pad_reads_to_batch")
 ]
 
 

@@ -11,9 +11,9 @@ import socket
 import pytest
 import torch
 
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.io.bloom_file import read_bloom_file, write_bloom_file
-from kwage_tpu.pipeline import BuildOptions, build_bloom_from_file
+from kwage_tpu_torch.core import FilterInfo, str_to_accession
+from kwage_tpu_torch.io.bloom_file import read_bloom_file, write_bloom_file
+from kwage_tpu_torch.pipeline.make_bloom import BuildOptions, build_bloom_from_file
 from kwage_tpu_torch.cli.kwage import main as torch_kwage_main
 from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files
 from kwage_tpu_torch.utils.runtime import resolve_device

@@ -18,6 +18,7 @@ import torch
 from kwage_tpu.core.words import canonical_kmers as host_canonical_kmers
 from kwage_tpu.sriracha import device as jdev
 from kwage_tpu.sriracha.engine import SrirachaOptions, load_subject_kmers, search_reads
+from kwage_tpu.sriracha.engine import format_results as jax_format_results
 from kwage_tpu_torch import kernels
 from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
 from kwage_tpu_torch.sriracha import device as tdev
@@ -465,6 +466,85 @@ def test_long_reads_and_every_bucket():
     host = _matches(search_reads(iter(reads), subj, opt))
     assert any(m[3] == reads[-2][0] for m in host[0])
     assert _matches(tdev.search_reads_device(iter(reads), subj, opt, batch_size=4)) == host
+
+
+def test_sriracha_counts_rows_around_the_tile_match_jax():
+    """One batch that mixes rows of 0, 1, 2^14 - 1, 2^14, 2^14 + 1 and 2^15
+    valid words (the kernel sorts a row above 2^14 in tiles across blocks):
+    the wrapper's scratch sizing runs on the CPU too, and
+    the counts equal the JAX kernel's."""
+    k, tile = 21, tdev.MAX_SHARED_WORDS
+    rng = np.random.default_rng(21)
+    windows = [0, 1, tile - 1, tile, tile + 1, 1 << 15]
+    lengths = np.array([0] + [n + k - 1 for n in windows[1:]], np.int32)
+    L = tdev.pad_len(int(lengths.max()))
+    assert L == 1 << 16
+    target = rng.integers(0, 4, size=40_000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    b = np.zeros((len(windows), L), np.uint8)
+    for r, n in enumerate(lengths):
+        b[r, :n] = acgt[np.resize(target, n) if r % 2 else rng.integers(0, 4, size=n)]
+    sets = [np.unique(host_canonical_kmers(acgt[target].tobytes(), k)),
+            np.unique(host_canonical_kmers(b[4, : lengths[4]].tobytes(), k))[::3]]
+    subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+    nwin = L - k + 1
+    scratch = tdev.counts_scratch(len(windows), nwin, CPU)
+    assert scratch.shape == (len(windows), L) and scratch.dtype == torch.int64
+    assert tdev.counts_scratch(len(windows), tile, CPU) is None   # a bucket of one tile
+
+    jhash = jdev._read_batch_kernel_hash(
+        jnp.asarray(b), jnp.asarray(lengths),
+        (tuple(jnp.asarray(a) for a in jdev._build_hash_group(sets)),), k, (2,))
+    want = np.concatenate([np.asarray(jhash[0]), np.asarray(jhash[1])[:, None],
+                           np.asarray(jhash[2])[:, None]], axis=1)
+    assert want[:, 2].tolist() == windows
+    tables = tdev.build_hash_tables(subj, k, CPU)
+    reads_t, lens_t = torch.from_numpy(b), torch.from_numpy(lengths)
+    out = torch.empty((len(windows), 4), dtype=torch.int32)
+    for dest in (None, out):
+        got = tdev.read_batch_counts(reads_t, lens_t, tables, dest)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_long_reads_in_a_span_give_the_host_tsv(monkeypatch):
+    """Long reads among short ones in one span: the TSV bytes equal the
+    host engine's, and a long bucket's batch holds its reads rounded up to a
+    power of two rows, not batch_size rows."""
+    from kwage_tpu_torch.sriracha import engine as tengine
+
+    rng = np.random.default_rng(12)
+    k = 21
+    target = "".join(rng.choice(list("ACGT"), 40_000))
+    subj = [("t one", np.unique(host_canonical_kmers(target, k))),
+            ("t two", np.unique(host_canonical_kmers(target[:5000], k)))]
+    sizes = [150] * 40 + [20_000, 17_000, 150, 16_404, 33_000] + [150] * 30
+    reads = []
+    for i, n in enumerate(sizes):
+        if i % 3:
+            a = int(rng.integers(0, len(target) - n + 1))
+            reads.append((target[a : a + n], i + 1, 0))
+        else:
+            reads.append(("".join(rng.choice(list("ACGTN"), n, p=[.248, .248, .248, .248, .008])),
+                          i + 1, 0))
+    opt = tengine.SrirachaOptions(kmer_len=k, kmer_match_threshold=0.5)
+    host = tengine.format_results("SRR1.fastq", subj, tengine.search_reads(iter(reads), subj, opt))
+    assert host == jax_format_results("SRR1.fastq", subj, search_reads(iter(reads), subj, opt))
+
+    shapes = []
+    real = tdev.read_batch_counts
+
+    def spy(block, lens, tables, out=None):
+        shapes.append(tuple(block.shape))
+        return real(block, lens, tables, out)
+
+    monkeypatch.setattr(tdev, "read_batch_counts", spy)
+    dev = tengine.format_results(
+        "SRR1.fastq", subj, tdev.search_reads_device(iter(reads), subj, opt, batch_size=32))
+    assert dev == host and dev.count("\n") > 10
+    # 150 bp: 71 reads in batches of 32, 32 and 7 -> 8 rows; 17,000-32,768 bp:
+    # three reads -> 4 rows (the 16,404 bp one has 2^14 windows: one tile);
+    # 33,000 bp: one read, one row.
+    assert shapes == [(32, 256), (32, 256), (8, 256), (4, 32768), (1, 65536)]
 
 
 def test_span_pipeline_overlap_order(data_dir):

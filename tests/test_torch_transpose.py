@@ -106,6 +106,15 @@ def _blooms(tmp_path, n=5, log2_len=14, seed=9):
     return param, paths
 
 
+def _port_param(param):
+    """The port's own BloomParam with the fields of kwage_tpu's."""
+    import dataclasses
+
+    from kwage_tpu_torch.core.params import BloomParam
+
+    return BloomParam(**dataclasses.asdict(param))
+
+
 @pytest.mark.parametrize("device", [True, CPU, False])
 def test_build_db_bytes_identical_to_jax_host(tmp_path, monkeypatch, device):
     """The port's pack (device=True through KWAGE_TORCH_DEVICE, an explicit
@@ -119,7 +128,8 @@ def test_build_db_bytes_identical_to_jax_host(tmp_path, monkeypatch, device):
     host, jax_dev, port = (tmp_path / n for n in ("host.db", "jax.db", "port.db"))
     jax_build(str(host), param, blooms, chunk_bits=1 << 12)
     jax_build(str(jax_dev), param, blooms, chunk_bits=1 << 12, device=True)
-    build_db_from_bloom_files(str(port), param, blooms, chunk_bits=1 << 12, device=device)
+    build_db_from_bloom_files(str(port), _port_param(param), blooms, chunk_bits=1 << 12,
+                              device=device)
     assert port.read_bytes() == host.read_bytes() == jax_dev.read_bytes()
 
 
@@ -127,10 +137,11 @@ def test_build_db_bytes_identical_to_jax_host(tmp_path, monkeypatch, device):
     ("crc", "invalid Bloom filter crc32"), ("params", "inconsistent Bloom parameters"),
     ("incomplete", "not complete"), ("truncated", "truncated filter data")])
 def test_build_db_rejects_bad_blooms(tmp_path, fault, message):
-    from kwage_tpu.core.params import BloomParam
+    from kwage_tpu_torch.core.params import BloomParam
     from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files
 
     param, blooms = _blooms(tmp_path, n=3)
+    param = _port_param(param)
     path = blooms[1]
     data = bytearray(open(path, "rb").read())
     if fault == "crc":
