@@ -44,6 +44,9 @@ one line each; any failure raises and exits non-zero:
               CUDA-event times of both. The ingest kernels also at
               k = 15, 16, 31 and 32 on a small block, packed and ASCII, and
               canonical_kmers at k = 1-32 on lengths that end inside a word.
+              select_runs and bit_transpose, which work in tiles, at the
+              sizes, runs, accession boundaries, look-aheads and ragged
+              widths that meet a tile's edge (``tiled_edge_checks``).
               The SriRachA kernels at phase 8's batch shape (512 x 256,
               k = 11 and 21), on a small block holding every byte value at
               k = 3, 13, 14, 16, 31, 32, on 2^15-base reads in batches of 4
@@ -941,13 +944,15 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
         del db, idx, valid
         torch.cuda.empty_cache()
 
-    def record(name, tag, err, ms, plain, note="", nbytes=0, nops=0):
+    def record(name, tag, err, ms=None, plain=None, note="", nbytes=0, nops=0, log=True):
         """One comparison; ``ms`` None: checked, not timed. A kernel's first
         timed comparison (the main path's shape) gives its line of the
-        result, with the bound of ``nbytes`` and ``nops``."""
+        result, with the bound of ``nbytes`` and ``nops``. ``log`` False:
+        the caller sums many comparisons up in a line of its own."""
         check(err == 0, f"{name} differs from its plain version at {tag} (max err {err})")
-        lines.append(f"{name} {tag}: == plain{note}" if ms is None else
-                     f"{name} {tag}: kernel {ms:.4f} ms{note} plain {plain:.3f} ms")
+        if log:
+            lines.append(f"{name} {tag}: == plain{note}" if ms is None else
+                         f"{name} {tag}: kernel {ms:.4f} ms{note} plain {plain:.3f} ms")
         if name in results:
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         else:
@@ -1054,10 +1059,157 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                f" ({n * nh / ms / 1e6:.1f} G hashes/s)",
                nbytes_of(words, got), n * murmur_ops(k, nh))
     del words, got
+    tiled_edge_checks(device, seed, record, lines)
     small_block_checks(device, seed, results, lines)
     sriracha_kernel_checks(device, seed, record, lines)
     print("phase 4 kernels == plain versions, bit for bit: " + "; ".join(lines), flush=True)
     return results
+
+
+def select_runs_edge_pairs(rng, tile: int, start: int, num_acc: int):
+    """Sorted (acc, word) pairs, numpy int64, that put every feature a tiled
+    select_runs can get wrong at a known place after position ``start`` (a
+    multiple of ``tile``; filler before it): a negative accession first; an
+    accession boundary 13 positions into a tile; a run of 6 that starts on
+    a tile's last position; 40 accessions of 10 positions inside one tile;
+    a run of 5 that ends on a tile's first position; a run of tile + 10; an
+    accession boundary on a tile edge; ``acc == num_acc`` and
+    ``acc > num_acc`` last. start + 5 * tile + 5 positions; the callers
+    also cut it shorter."""
+    accs, lengths = [], []   # arrays of (accession, length) runs; a new word a run
+    pos = 0
+
+    def run(acc, length):
+        nonlocal pos
+        accs.append(np.array([acc], dtype=np.int64))
+        lengths.append(np.array([length], dtype=np.int64))
+        pos += length
+
+    def fill_to(target, acc):
+        """Runs of 1 to 9 positions of accession ``acc`` up to ``target``."""
+        nonlocal pos
+        need = target - pos
+        if need <= 0:
+            return
+        lens = rng.choice(np.array([1, 1, 2, 3, 4, 5, 6, 9]), size=need)
+        ends = np.cumsum(lens)
+        last = int(np.searchsorted(ends, need))
+        lens = lens[: last + 1]
+        lens[last] -= ends[last] - need
+        accs.append(np.full(lens.shape, acc, dtype=np.int64))
+        lengths.append(lens)
+        pos = target
+
+    run(-2, 3)
+    fill_to(start + 13, 0)
+    fill_to(start + tile - 1, 1)
+    run(1, 6)
+    for acc in range(2, 42):
+        fill_to(pos + 10, acc)
+    fill_to(start + 2 * tile - 4, 42)
+    run(42, 5)
+    run(42, tile + 10)
+    fill_to(start + 4 * tile, 42)
+    fill_to(start + 5 * tile - 4, 43)
+    run(num_acc, 5)
+    run(num_acc + 2, 4)
+    check(pos == start + 5 * tile + 5 and num_acc >= 44, "select_runs edge data")
+    accs, lengths = np.concatenate(accs), np.concatenate(lengths)
+    return (np.repeat(accs, lengths),
+            np.repeat(np.arange(accs.shape[0], dtype=np.int64) * 7919 + 5, lengths))
+
+
+# csrc/counting.cu: the tiled select_runs kernel takes tiles of 2048
+# positions from n = 2^20 and look-aheads up to 32 pairs (min_count 33);
+# the one-position-a-thread kernel the rest. csrc/bit_transpose.cu: the
+# tiled kernel takes matrices of more than 4096 32 x 32 bit tiles.
+SELECT_RUNS_TILE, SELECT_RUNS_TILED_MIN_N, SELECT_RUNS_HALO = 2048, 1 << 20, 32
+BIT_TRANSPOSE_SMALL_TILES = 4096
+
+
+def tiled_edge_checks(device: torch.device, seed: int, record, lines: list) -> None:
+    """select_runs and bit_transpose, the two kernels that work in tiles, at
+    the shapes where a tile's edge can go wrong, each against its plain
+    version bit for bit. select_runs, below the tiled kernel's least n and
+    above it: n = 1 and n a tile - 1, a tile, a tile + 1, 3 tiles + 5 and
+    5 tiles + 5 past the start of ``select_runs_edge_pairs``' features, at
+    min_count 1, 2, 5, 33 (the whole staged halo), 34 (past it) and a
+    tile + 3; arrays that are not 16-byte aligned; every position invalid;
+    num_valid added over two launches. bit_transpose: F in 32, 64, 2048,
+    2080 x W in 1, 7, 8, 33, 130, 1024 on random words, the same ragged
+    widths on matrices tall or wide enough for the tiled kernel at each of
+    its tile shapes, a matrix with one set bit at each corner, and the
+    ingest's [32, 65536], timed."""
+    rng = np.random.default_rng(seed + 6)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    num_acc, n_cmp = 44, 0
+    tile = SELECT_RUNS_TILE
+    for start in (0, SELECT_RUNS_TILED_MIN_N):
+        acc_np, words_np = select_runs_edge_pairs(rng, tile, start, num_acc)
+        acc_all = torch.from_numpy(acc_np).to(device)
+        words_all = torch.from_numpy(words_np).to(device)
+        cuts = [(0, start + e) for e in (tile - 1, tile, tile + 1, 3 * tile + 5, 5 * tile + 5)]
+        cuts += [(0, 1), (3, 4), (1, start + 3 * tile + 5)]   # (1, ...): 8-byte aligned only
+        for lo, hi in cuts:
+            a, w = acc_all[lo:hi], words_all[lo:hi]
+            for m in (1, 2, 5, SELECT_RUNS_HALO + 1, SELECT_RUNS_HALO + 2, tile + 3):
+                sel, nv = tcount.select_runs(a, w, num_acc, m)
+                ref_sel, ref_nv = tcount.select_runs_ref(a, w, num_acc, m)
+                err = max(max_abs_err(sel, ref_sel), max_abs_err(nv, ref_nv))
+                record("select_runs", f"edges [{lo}:{hi}] min_count={m}", err, log=False)
+                n_cmp += 1
+                if hi == acc_all.shape[0]:
+                    check(int(nv.sum()) > 0, f"select_runs edges: nothing selected at m={m}")
+                    check(m > 1 or int((nv > 0).sum()) == num_acc, "select_runs edges: accessions")
+        # Every position invalid; then the kernel adds into num_valid.
+        a = torch.full((start + tile + 7,), num_acc, dtype=torch.int64, device=device)
+        sel, nv = tcount.select_runs(a, words_all[: a.shape[0]], num_acc, 2)
+        check(not bool(sel.any()) and not bool(nv.any()), "select_runs selected an invalid pair")
+        ref_sel, ref_nv = tcount.select_runs_ref(acc_all, words_all, num_acc, 2)
+        sel = torch.empty_like(ref_sel)
+        nv = torch.zeros_like(ref_nv)
+        for _ in range(2):
+            kernels.launch("select_runs", acc_all.data_ptr(), words_all.data_ptr(),
+                           sel.data_ptr(), nv.data_ptr(), acc_all.shape[0], num_acc, 2, stream)
+        record("select_runs", f"edges n={acc_all.shape[0]}, two launches into one num_valid",
+               max(max_abs_err(sel, ref_sel), max_abs_err(nv, 2 * ref_nv)), log=False)
+    lines.append(f"select_runs tile edges (below and above n = 2^20; {n_cmp} comparisons: "
+                 "n = 1, tile - 1 .. 5 tiles + 5; runs across tile edges; 40 accessions in a "
+                 "tile; min_count 1, 2, 5, 33, 34, tile + 3; unaligned; all invalid; two "
+                 "launches added) == plain")
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 6)
+    shapes = [(F, W) for F in (32, 64, 2048, 2080) for W in (1, 7, 8, 33, 130, 1024)]
+    # Ragged widths on the tiled kernel: 8 row groups a tile (tall), then
+    # 1, 2 and 4 (F = 32, 64, 128), widths that end inside a tile.
+    tiled = [(32 * 4100, W) for W in (1, 7, 8, 33)] + [(32, 4099), (32, 4100), (64, 2051),
+                                                       (128, 1027), (2080, 130)]
+    check(all(F // 32 * W > BIT_TRANSPOSE_SMALL_TILES for F, W in tiled),
+          "bit_transpose edges: a shape meant for the tiled kernel is too small")
+    for F, W in shapes + tiled:
+        x = random_words((F, W), gen, device)
+        record("bit_transpose", f"[{F}, {W}]", max_abs_err(
+            tt.packed_bit_transpose(x), tt.packed_bit_transpose_ref(x)), log=False)
+    x = torch.zeros((2080, 130), dtype=torch.int32, device=device)   # the tiled kernel
+    x[0, 0] = x[-1, 0] = 1
+    x[0, -1] = x[-1, -1] = -2**31
+    got = tt.packed_bit_transpose(x)
+    check(int((got != 0).sum()) == 4 and int(got[0, 0]) == 1 and int(got[0, -1]) == -2**31
+          and int(got[-1, 0]) == 1 and int(got[-1, -1]) == -2**31,
+          "bit_transpose: the corner bits did not land in the corners")
+    record("bit_transpose", "corner bits of [2080, 130]",
+           max_abs_err(got, tt.packed_bit_transpose_ref(x)), log=False)
+    lines.append("bit_transpose at F = 32, 64, 2048, 2080 x W = 1, 7, 8, 33, 130, 1024, at "
+                 + ", ".join(f"[{F}, {W}]" for F, W in tiled)
+                 + " and the corner bits of [2080, 130] == plain")
+    x = random_words((32, (1 << 21) // 32), gen, device)
+    got = tt.packed_bit_transpose(x)
+    err = max_abs_err(got, tt.packed_bit_transpose_ref(x))
+    ms = cuda_ms(lambda: kernels.launch("bit_transpose", x.data_ptr(), got.data_ptr(),
+                                        x.shape[0], x.shape[1], stream), 20)
+    plain = cuda_ms(lambda: tt.packed_bit_transpose_ref(x), 2)
+    record("bit_transpose", f"[{x.shape[0]}, {x.shape[1]}] (an ingest batch)", err, ms, plain)
 
 
 def small_block_checks(device: torch.device, seed: int, results: dict, lines: list) -> None:

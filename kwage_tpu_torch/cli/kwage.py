@@ -73,7 +73,7 @@ def usage(out=sys.stderr) -> None:
     print("\t-d <database search path> (can be repeated)", file=out)
     print("\t[-i <input sequence file>] (can be repeated)", file=out)
     print("\t[<DNA sequence>] (can be repeated)", file=out)
-    print("\t[--device (run the search on the TPU; multiple visible chips auto-shard over a filters-axis mesh)] (engine extension)", file=out)
+    print("\t[--device (run the search on the CUDA device KWAGE_TORCH_DEVICE names, default cuda; one card)] (engine extension)", file=out)
     print("\t[--threads <n> (host search threads; default OMP_NUM_THREADS/"
           "KWAGE_NUM_THREADS)] (engine extension)", file=out)
     print("\t[--serve <port> (keep the databases device-resident and answer"

@@ -76,13 +76,13 @@ def usage() -> None:
     print("\t[--source-dir <directory of local <accession>.fasta files>] (engine extension)", file=e)
     print("\t[--prefetch (resolve accessions with the SRA toolkit)] (engine extension)", file=e)
     print("\t[--workers <N>] (engine extension, default 4)", file=e)
-    print("\t[--device-build (exact-count thresholding on the TPU; "
+    print("\t[--device-build (exact-count thresholding on the CUDA device KWAGE_TORCH_DEVICE names, default cuda; one card; "
           "NOT counting-Bloom-aliased: with min.kmer.count > 1, bits can "
           "differ from reference-built filters whenever the reference's "
           "counting filter aliases -- see README 'Device-build parity "
           "envelope')] (engine extension)", file=e)
     print("\t[--compress (write zlib-chunked .dbz database files)] (engine extension)", file=e)
-    print("\t[--device-transpose (bit-slice transpose on the TPU)] (engine extension)", file=e)
+    print("\t[--device-transpose (bit-slice transpose on the same CUDA device)] (engine extension)", file=e)
     print("\t[--lazy-inventory (index the inventory; load records on demand)] (engine extension)", file=e)
     print("\t[--device-batch <N> (accessions fused per device dispatch, default 16)] (engine extension)", file=e)
     print("\t[--coordinator <host:port> (serve the work queue to remote workers over DCN; UNAUTHENTICATED unless KWAGE_QUEUE_SECRET is set on coordinator + workers -- bind loopback or a trusted network only)] (engine extension)", file=e)

@@ -269,6 +269,106 @@ def test_select_runs_edges():
     assert not sel.any() and nv.tolist() == [0, 0, 0]
 
 
+# --- select_runs at the shapes where a tiled kernel can go wrong ------------------
+# The kernel is held to select_runs_ref on the card, so the plain version is
+# held to the JAX package here, on the same features at a small size: the
+# "tile" is 32 positions.
+
+EDGE_TILE, EDGE_NUM_ACC = 32, 12
+
+
+def _edge_pairs(seed, tile=EDGE_TILE, num_acc=EDGE_NUM_ACC):
+    """Sorted (acc, word) pairs, numpy int64, 5 * tile + 5 of them: an
+    accession boundary 3 positions into a tile; a run of 6 that starts on a
+    tile's last position; 8 accessions of 2 positions inside one tile; a
+    run of 5 that ends on a tile's first position; a run of tile + 10; an
+    accession boundary on a tile edge; invalid pairs (acc == num_acc) last."""
+    rng = np.random.default_rng(seed)
+    runs, pos = [], 0
+
+    def run(acc, length):
+        nonlocal pos
+        runs.append((acc, length))
+        pos += length
+
+    def fill_to(target, acc):
+        while pos < target:
+            run(acc, min(target - pos, int(rng.choice([1, 1, 2, 3, 5, 6]))))
+
+    fill_to(3, 0)
+    fill_to(tile - 1, 1)
+    run(1, 6)
+    for acc in range(2, 10):
+        fill_to(pos + 2, acc)
+    fill_to(2 * tile - 4, 10)
+    run(10, 5)
+    run(10, tile + 10)
+    fill_to(4 * tile, 10)
+    fill_to(5 * tile - 4, 11)
+    run(num_acc, 9)
+    assert pos == 5 * tile + 5
+    accs, lengths = np.array(runs, dtype=np.int64).T
+    return np.repeat(accs, lengths), np.repeat(np.arange(len(runs), dtype=np.int64) * 7919 + 5,
+                                               lengths)
+
+
+def _jax_select(acc, words, min_count, num_acc):
+    """kwage_tpu's selection and counts over one (acc, word) pair a row; a
+    pair whose accession is outside [0, num_acc) is an invalid window.
+    Returns (selected (acc, word) pairs sorted, num_valid)."""
+    valid = (acc >= 0) & (acc < num_acc)
+    u = words.astype(np.uint64)
+    acc_s, hi_s, lo_s, sel, nv = jc._count_multi_core(
+        jnp.asarray((u >> np.uint64(32)).astype(np.uint32))[:, None],
+        jnp.asarray((u & np.uint64(0xFFFFFFFF)).astype(np.uint32))[:, None],
+        jnp.asarray(valid)[:, None], jnp.asarray(np.where(valid, acc, 0).astype(np.int32)),
+        min_count, num_acc)
+    sel = np.asarray(sel)
+    return (sorted(zip(np.asarray(acc_s)[sel].tolist(),
+                       _jax_words(np.asarray(hi_s)[sel], np.asarray(lo_s)[sel]).tolist())),
+            np.asarray(nv))
+
+
+def _check_select_against_jax(acc, words, min_count, num_acc):
+    sel, nv = tc.select_runs(torch.from_numpy(acc), torch.from_numpy(words), num_acc, min_count)
+    if min_count > acc.shape[0]:   # kwage_tpu cannot look past the end: no run is that long
+        assert not sel.any() and not nv.any()
+        return sel.numpy(), nv
+    want, want_nv = _jax_select(acc, words, min_count, num_acc)
+    np.testing.assert_array_equal(nv.numpy(), want_nv)
+    sel = sel.numpy()
+    assert sorted(zip(acc[sel].tolist(), words[sel].astype(np.uint64).tolist())) == want
+    return sel, nv
+
+
+@pytest.mark.parametrize("min_count", [1, 2, 5, EDGE_TILE + 3])
+@pytest.mark.parametrize("n", [1, EDGE_TILE - 1, EDGE_TILE, EDGE_TILE + 1, 3 * EDGE_TILE + 5,
+                               5 * EDGE_TILE + 5])
+def test_select_runs_ref_matches_jax_at_tile_edges(n, min_count):
+    acc, words = _edge_pairs(n * 31 + min_count)
+    sel, nv = _check_select_against_jax(acc[:n], words[:n], min_count, EDGE_NUM_ACC)
+    if n == acc.shape[0]:
+        assert sel[2 * EDGE_TILE + 1] and nv.sum() > 0      # the run of tile + 10
+        if min_count <= 5:
+            assert sel[EDGE_TILE - 1] and sel[2 * EDGE_TILE - 4]   # the runs across tile edges
+        if min_count == 1:
+            assert (nv > 0).all()
+
+
+def test_select_runs_ref_invalid_accessions_match_jax():
+    """Every position invalid; then negative accessions first and accessions
+    past num_acc last, which the JAX package sees as invalid windows."""
+    acc, words = _edge_pairs(3)
+    sel, nv = _check_select_against_jax(np.full_like(acc, EDGE_NUM_ACC), words, 2, EDGE_NUM_ACC)
+    assert not sel.any() and not nv.any()
+    acc[:4] = -2
+    words[:4] = 1
+    acc[-3:] = EDGE_NUM_ACC + 2
+    for min_count in (1, 2, 3):
+        sel, nv = _check_select_against_jax(acc, words, min_count, EDGE_NUM_ACC)
+        assert not sel[:4].any() and not sel[-9:].any() and nv.sum() > 0
+
+
 def test_sort_windows_k32_signed_words():
     """At k=32 words with the top bit set sort as negative int64s: equal
     (acc, word) pairs are still adjacent and accessions are in order."""
@@ -530,4 +630,27 @@ def test_ingest_kernels_match_ref(cuda_device):
     for L in (5, 12, 31):
         got = tc.bloom_set_bits(acc_s, words_s, sel, slot, 31, 3, L)
         assert torch.equal(got, tc.bloom_set_bits_ref(acc_s, words_s, sel, slot, 31, 3, L))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_select_runs_kernel_matches_ref(cuda_device):
+    """The kernel against the plain version on the tile-edge features, below
+    and above the size from which it works in tiles of 2048 positions (the
+    features then sit in the last tiles), at look-aheads inside, on and past
+    its staged halo, on arrays that are not 16-byte aligned, and adding into
+    num_valid over two calls' worth of data."""
+    tile, num_acc = 2048, 44
+    for start in (0, 1 << 20):
+        acc, words = _edge_pairs(start + 1, tile, num_acc)
+        head = np.repeat(np.arange(start // 4, dtype=np.int64), 4)   # runs of 4, accession 0
+        acc = torch.from_numpy(np.concatenate([np.zeros_like(head), acc])).to(cuda_device)
+        words = torch.from_numpy(np.concatenate([head - (start // 4) * 3, words])).to(cuda_device)
+        for lo, hi in [(0, start + e) for e in (1, tile - 1, tile, tile + 1, 3 * tile + 5,
+                                                 5 * tile + 5)] + [(1, start + 3 * tile + 5)]:
+            for min_count in (1, 2, 5, 33, 34, tile + 3):
+                got = tc.select_runs(acc[lo:hi], words[lo:hi], num_acc, min_count)
+                want = tc.select_runs_ref(acc[lo:hi], words[lo:hi], num_acc, min_count)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                    (start, lo, hi, min_count)
     torch.cuda.synchronize()

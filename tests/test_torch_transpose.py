@@ -42,6 +42,40 @@ def test_transpose_ref_matches_jax(F, B):
     np.testing.assert_array_equal(got, want)
 
 
+# The shapes where a tiled kernel can go wrong (it is held to the plain
+# version on the card, so the plain version is held to the JAX package
+# here): row counts of 1, 2, 64 and 65 groups x word counts of one word, a
+# ragged few, one past a 32-word tile, and many tiles.
+EDGE_SHAPES = [(F, W) for F in (32, 64, 2048, 2080) for W in (1, 7, 8, 33, 130, 1024)]
+
+
+def _edge_words(F, W):
+    return np.random.default_rng(F * 4099 + W).integers(0, 1 << 32, size=(F, W),
+                                                       dtype=np.uint32)
+
+
+@pytest.mark.parametrize("F,W", EDGE_SHAPES)
+def test_transpose_ref_matches_jax_at_tile_edges(F, W):
+    words = _edge_words(F, W)
+    want = np.asarray(jax_transpose.packed_bit_transpose(jnp.asarray(words)))
+    got = tensor_to_words(tt.packed_bit_transpose_ref(words_to_tensor(words, CPU)))
+    assert got.shape == (W * 32, F // 32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_transpose_ref_corner_bits():
+    """One set bit at each corner of the bit matrix lands in the transposed
+    matrix's corners, in the plain version and in the JAX package's."""
+    words = np.zeros((2080, 33), np.uint32)
+    words[0, 0] = words[-1, 0] = 1
+    words[0, -1] = words[-1, -1] = 1 << 31
+    got = tensor_to_words(tt.packed_bit_transpose_ref(words_to_tensor(words, CPU)))
+    assert got[0, 0] == 1 and got[-1, 0] == 1
+    assert got[0, -1] == 1 << 31 and got[-1, -1] == 1 << 31 and np.count_nonzero(got) == 4
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_transpose.packed_bit_transpose(jnp.asarray(words))))
+
+
 def test_pack_filters_to_words_matches_jax():
     filters, words = _words(7, 10, seed=1)  # 10 bytes: pads to 3 words
     np.testing.assert_array_equal(words, jax_transpose.pack_filters_to_words(filters))
@@ -77,8 +111,15 @@ def test_transpose_chunks_device_matches_jax_and_host(chunk_bits):
 
 @pytest.mark.cuda
 def test_bit_transpose_kernel_matches_ref(cuda_device):
-    for F, B in SHAPES + [(2048, 1 << 15)]:
-        _, words = _words(F, B, seed=F)
+    """The kernel at the JAX package's shapes, a pack chunk's width, the
+    ragged grid, and ragged widths on matrices large enough for the tiled
+    kernel at each of its tile shapes."""
+    cases = [_words(F, B, seed=F)[1] for F, B in SHAPES + [(2048, 1 << 15)]]
+    cases += [_edge_words(F, W) for F, W in EDGE_SHAPES + [
+        (32 * 4100, 1), (32 * 4100, 7), (32 * 4100, 33), (32, 4099), (32, 4100), (64, 2051),
+        (128, 1027), (2080, 130)]]
+    for words in cases:
+        F, B = words.shape
         x = words_to_tensor(words, cuda_device)
         got = tt.packed_bit_transpose(x)
         want = tt.packed_bit_transpose_ref(x)
