@@ -25,12 +25,30 @@ one line each; any failure raises and exits non-zero:
 6. ingest  -- the port's ``kwage-maestro-torch --device-build
               --device-transpose`` over 14 accessions of a 400 kbp genome at
               15x (fused batch) and 2 of a 4.6 Mbp genome at 10x (chunked),
-              k=31, min count 5: every .bloom equals the exact host ground
+              k=31, min count 5 (the sort is the radix_sort_pairs kernels: a
+              library sort of a CUDA tensor raises during the call): every
+              .bloom equals the exact host ground
               truth, every .db the host pack, a ``kwage --device`` search of
               genome reads the host engine's bytes; the golden corpus
               reproduces the golden .db digests.
 7. entry   -- the port's ``entry()`` forward on the card equals the plain
               versions' result on the CPU.
+9. mesh    -- the sharded search (``parallel.sharded_search``) over phase
+              1-3's fused files, on logical shards of the card (and on
+              every card where there are several): MeshResidentSearcher on
+              a 1 x 4 mesh, resident, and on a 2 x 2 mesh; then, under a
+              budget of 1 GiB a shard, MeshResidentSearcher on a 1 x 4 mesh
+              (the first file chunk resident, the others streamed in waves
+              of what is left) and one ``ShardedDatabase.from_files`` over
+              all 8 files (one stream of 4 column waves, so a wave reuses
+              the buffer an earlier one left); each renders phase 2's
+              bytes for every case. ``ShardedDatabase.total_hits`` equals
+              the host engine's hit-list lengths a query at -t 1.0 and
+              0.5, resident and in waves; the streamed runs' peak device
+              memory stays within the budget times the shards on the card.
+              Then ``dryrun_multichip(4)``: device ingest + device
+              transpose -> .db files + status checkpoint -> the mesh
+              search in waves == the host engine.
 8. sriracha -- ``kwage-sriracha-torch --device`` twice: (A) k=21, the
               bucketed hash tables, and (B) k=11, the dense LUTs (two
               groups of 32 + 8 subjects, ~1.2 M subject k-mers), t=0.8,
@@ -47,6 +65,14 @@ one line each; any failure raises and exits non-zero:
               select_runs and bit_transpose, which work in tiles, at the
               sizes, runs, accession boundaries, look-aheads and ragged
               widths that meet a tile's edge (``tiled_edge_checks``).
+              search_total_hits at the search rows' shape and on a shard
+              whose width is no multiple of 32. radix_sort_pairs at the
+              fused batch's window count beside ``torch.sort`` twice (its
+              plain version and its library yardstick), at 2^24 windows, at
+              k = 15, 16, 32, with 1 and 300 accessions, at sizes around
+              its 4096-pair tile, on all-equal and on sorted input.
+              transpose_bits_device on [2048, 2^17] bytes and with F, B
+              and P ragged.
               The SriRachA kernels at phase 8's batch shape (512 x 256,
               k = 11 and 21), on a small block holding every byte value at
               k = 3, 13, 14, 16, 31, 32, on 2^15-base reads in batches of 4
@@ -54,7 +80,7 @@ one line each; any failure raises and exits non-zero:
               three shapes), and on rows around the 2^14-word tile; both
               probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
               (k = 11): the LUT / hash crossover.
-5. counts  -- every kernel was launched by the path phases (1-3, 6, 7, 8);
+5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 7, 8);
               each path's counts are zeroed just before it and read just
               after.
 
@@ -105,7 +131,7 @@ from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
 from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu_torch.core.params import BloomParam, optimal_bloom_param
 from kwage_tpu_torch.core.words import canonical_kmers
-from kwage_tpu_torch.entry import entry
+from kwage_tpu_torch.entry import dryrun_multichip, entry
 from kwage_tpu_torch.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
 from kwage_tpu_torch.io.dbz_file import open_database
 from kwage_tpu_torch.io.inventory import write_inventory
@@ -118,6 +144,8 @@ from kwage_tpu_torch.ops import kmers as tk
 from kwage_tpu_torch.ops import search as ts
 from kwage_tpu_torch.ops import transpose as tt
 from kwage_tpu_torch.parallel import maestro as torch_maestro
+from kwage_tpu_torch.parallel.mesh import make_search_mesh
+from kwage_tpu_torch.parallel.sharded_search import ShardedDatabase, search_sharded_groups
 from kwage_tpu_torch.parallel.maestro import (
     STATUS_DATABASE_SUCCESS,
     LocalFastaResolver,
@@ -127,7 +155,8 @@ from kwage_tpu_torch.parallel.maestro import (
 from kwage_tpu_torch.pipeline import make_bloom as torch_make_bloom
 from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files
 from kwage_tpu_torch.pipeline.make_bloom import BuildOptions, build_bloom_from_file
-from kwage_tpu_torch.search.resident import SearchServer
+from kwage_tpu_torch.search.resident import MeshResidentSearcher, SearchServer
+from kwage_tpu_torch.search.resident import render as render_searcher
 from kwage_tpu_torch.sriracha import device as tsr
 from kwage_tpu_torch.utils.runtime import card_identity, resolve_device
 
@@ -136,6 +165,8 @@ LOG2_FILTER_LEN = 22
 KMER_LEN = 31
 NUM_HASH = 5
 COPIES = 8                 # fused .db copies in phases 2-3 (bench.py:42-47)
+MESH_SHARDS = 4            # phase 9: logical shards a card
+MESH_WAVE_BUDGET = 1 << 30  # phase 9, streamed runs: bytes a shard (8 GiB: 4 waves of 2 GiB)
 N_PLANTED = 16             # planted sequences, each held by 3 filters
 CASES = [(1.0, "csv"), (0.5, "csv"), (0.5, "json")]  # (threshold, format)
 # The ingest (phase 6): k=31, min count 5, p=0.25 and L 18-32 (defaults).
@@ -158,8 +189,10 @@ SR_RUNS = [("A", 21, 0.8, SR_READS), ("B", 11, 0.8, SR_READS)]
 # the kernels each must launch.
 PATH_KERNELS = {
     "search": ("bit_transpose", "search_complete", "search_counts"),
-    "ingest": ("canonical_kmers", "select_runs", "bloom_set_bits", "bit_transpose",
-               "search_complete", "search_counts"),
+    "mesh": ("search_complete", "search_counts", "search_total_hits", "canonical_kmers",
+             "radix_sort_pairs", "select_runs", "bloom_set_bits", "bit_transpose"),
+    "ingest": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
+               "bit_transpose", "search_complete", "search_counts"),
     "entry": ("canonical_kmers", "murmur32", "search_counts"),
     "sriracha": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
                  "subject_table"),
@@ -169,8 +202,10 @@ REPLACES = {
     "bit_transpose": "kwage_tpu/ops/transpose.py:101",
     "search_complete": "kwage_tpu/ops/search.py:88",
     "search_counts": "kwage_tpu/ops/search.py:136",
+    "search_total_hits": "kwage_tpu/parallel/sharded_search.py:61",
     "canonical_kmers": "kwage_tpu/ops/kmers.py:67",
     "murmur32": "kwage_tpu/ops/hashing.py:59",
+    "radix_sort_pairs": "kwage_tpu/ops/counting.py:46",
     "select_runs": "kwage_tpu/ops/counting.py:206",
     "bloom_set_bits": "tools/exp_pallas_bitset.py:76",
     "sriracha_counts_lut": "kwage_tpu/sriracha/device.py:239",
@@ -181,8 +216,10 @@ SOURCES = {
     "bit_transpose": "kwage_tpu_torch/csrc/bit_transpose.cu",
     "search_complete": "kwage_tpu_torch/csrc/search.cu",
     "search_counts": "kwage_tpu_torch/csrc/search.cu",
+    "search_total_hits": "kwage_tpu_torch/csrc/search.cu",
     "canonical_kmers": "kwage_tpu_torch/csrc/kmers.cu",
     "murmur32": "kwage_tpu_torch/csrc/murmur.cu",
+    "radix_sort_pairs": "kwage_tpu_torch/csrc/sort.cu",
     "select_runs": "kwage_tpu_torch/csrc/counting.cu",
     "bloom_set_bits": "kwage_tpu_torch/csrc/bitset.cu",
     "sriracha_counts_lut": "kwage_tpu_torch/csrc/sriracha.cu",
@@ -284,7 +321,8 @@ def csv_hits(text: str) -> collections.Counter:
 def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
                   copies: int, seed: int) -> dict:
     """Phases 1-3 through the port's entry points; returns phase 2's
-    outputs keyed by case. Runs on any torch device (on the CPU with the
+    outputs keyed by case, the fused files and the query sequences (phase
+    9 searches them again). Runs on any torch device (on the CPU with the
     plain versions; the card is where it counts)."""
     rng = np.random.default_rng(seed)
     param = BloomParam(kmer_len=KMER_LEN, log_2_filter_len=log2_len, num_hash=NUM_HASH)
@@ -372,7 +410,116 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
     print(f"phase 3 serve: {resident} B resident, load {t_load:.2f} s, "
           f"{len(CASES)} requests == phase 2 bytes, latency "
           + ", ".join(f"{x * 1e3:.1f} ms" for x in lat), flush=True)
-    return outputs
+    return {"outputs": outputs, "files": files, "seqs": seqs}
+
+
+# --- phase 9: the sharded search ------------------------------------------------------
+
+class OneStreamSearcher:
+    """MeshResidentSearcher's contract over ONE ShardedDatabase.from_files
+    of all the files: under a budget, a single stream of column waves."""
+
+    def __init__(self, db_paths, mesh, budget_bytes=None):
+        self.db_paths = db_paths
+        self.groups = [(ShardedDatabase.from_files(mesh, db_paths, budget_bytes),
+                        list(range(len(db_paths))))]
+
+    def search(self, queries, threshold):
+        return search_sharded_groups(self.groups, self.db_paths, queries, threshold)
+
+    def render(self, queries, threshold, fmt):
+        return render_searcher(self, queries, threshold, fmt)
+
+
+def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
+             wave_budget: int = MESH_WAVE_BUDGET, dryrun_devices: int = 4) -> None:
+    """Phase 9 over phase 1-3's files (``main``: run_main_path's result):
+    the mesh searchers on ``shards`` logical shards of ``device`` (on
+    every card where several are visible), each against phase 2's bytes,
+    the totals against the hit lists, the streamed run's peak device
+    memory against its budget; then dryrun_multichip."""
+    files, seqs, outputs = main["files"], main["seqs"], main["outputs"]
+    cuda = device.type == "cuda"
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+             if cuda else [device])
+    devices = [cards[i * len(cards) // shards] for i in range(shards)]
+    on_a_card = max(devices.count(d) for d in cards)
+    hits = {t: collections.Counter(
+        r[0] for r in list(csv.reader(io.StringIO(outputs[(t, "csv")])))[1:])
+        for t in (1.0, 0.5)}
+
+    def totals_equal_hit_lists(sdbs, tag):
+        for t in (1.0, 0.5):
+            got = sum(sdb.total_hits(seqs, t) for sdb in sdbs)
+            want = [hits[t][f"command line seq {i}"] for i in range(len(seqs))]
+            check(got.tolist() == want, f"{tag}: total_hits at -t {t} {got.tolist()} != the "
+                                        f"hit-list lengths {want}")
+        check(sum(hits[0.5].values()) > 0, "no hits to count")
+
+    report = []
+    # (tag, mesh shape, budget a shard, how the searcher is made). Under
+    # the budget MeshResidentSearcher keeps the first file chunk resident
+    # (half the budget) and streams the others, two waves of a quarter of
+    # the budget a shard each; from_files streams
+    # all 8 files as one group, four waves of half the budget a shard, so
+    # the third wave reuses the first one's buffer.
+    runs = [("1 x %d resident" % shards, (1, shards), None, MeshResidentSearcher),
+            ("2 x %d resident" % (shards // 2), (2, shards // 2), None, MeshResidentSearcher),
+            ("1 x %d part resident" % shards, (1, shards), wave_budget, MeshResidentSearcher),
+            ("1 x %d one stream" % shards, (1, shards), wave_budget, OneStreamSearcher)]
+    for tag, shape, budget, make in runs:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        mesh = make_search_mesh(*shape, devices)
+        t0 = time.perf_counter()
+        searcher = make(files, mesh, budget_bytes=budget)
+        t_load = time.perf_counter() - t0
+        sdbs = [sdb for sdb, _ in searcher.groups]
+        # The most waves of one stream: from the third on, a wave is staged
+        # into a buffer that an earlier wave has left.
+        waves = max(sdb.num_waves for sdb in sdbs)
+        if budget is None:
+            check(all(sdb.db is not None for sdb in sdbs) and waves == 1, f"{tag}: residency")
+        else:
+            check(any(sdb.db is None for sdb in sdbs), f"{tag}: nothing streams")
+            check((make is OneStreamSearcher) != any(sdb.db is not None for sdb in sdbs),
+                  f"{tag}: residency {[sdb.db is not None for sdb in sdbs]}")
+            check(waves >= (3 if make is OneStreamSearcher else 2),
+                  f"{tag}: at most {waves} waves a stream")
+        times = []
+        for threshold, fmt in CASES:
+            t0 = time.perf_counter()
+            out = searcher.render(seqs, threshold, fmt)
+            times.append(time.perf_counter() - t0)
+            check(out == outputs[(threshold, fmt)],
+                  f"{tag}: bytes differ from phase 2's at -t {threshold} {fmt}")
+        if shape[0] == 1:
+            totals_equal_hit_lists(sdbs, tag)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        if budget is not None and cuda:
+            # Two buffers a shard and the query batch, outputs and staging
+            # of a search call (64 MiB allowed for those).
+            check(peak <= budget * on_a_card + (64 << 20),
+                  f"{tag}: peak {peak} B passes {on_a_card} x {budget} B")
+        report.append(f"{tag}: load {t_load:.2f} s, waves a group "
+                      + ", ".join("resident" if sdb.db is not None else
+                                  f"{sdb.num_waves} of {sdb.wave_shard_bytes} B a shard"
+                                  for sdb in sdbs) + ", searches "
+                      + ", ".join(f"{x:.3f} s" for x in times)
+                      + f", peak device memory {peak} B"
+                      + (f" of {on_a_card} x {budget} B" if budget is not None else ""))
+        del searcher, sdbs
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        dryrun_multichip(dryrun_devices)
+    t_dry = time.perf_counter() - t0
+    print(f"phase 9 mesh: {len(files)} files on {shards} logical shard(s) over {len(cards)} "
+          f"card(s), bytes == phase 2's on every mesh, total_hits == the hit-list lengths at "
+          f"-t 1.0 and 0.5; " + "; ".join(report)
+          + f"; dryrun_multichip({dryrun_devices}) {t_dry:.2f} s ("
+          + said.getvalue().strip().replace("\n", " | ") + ")", flush=True)
 
 
 # --- phase 6: the device ingest (kwage-maestro-torch --device-build) ---------------
@@ -510,6 +657,30 @@ def step_profile(device: torch.device, steps):
     report["table"] = events.table(sort_by="self_device_time_total", row_limit=25)
 
 
+@contextlib.contextmanager
+def no_library_sort():
+    """torch.sort, Tensor.sort and argsort of a CUDA tensor raise inside."""
+    saved = {(owner, name): getattr(owner, name)
+             for owner, name in ((torch, "sort"), (torch, "argsort"), (torch.Tensor, "sort"),
+                                 (torch.Tensor, "argsort"))}
+
+    def refusing(fn, name):
+        @functools.wraps(fn)
+        def wrapper(t, *args, **kwargs):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                raise RuntimeError(f"{name} of a CUDA tensor on the device path")
+            return fn(t, *args, **kwargs)
+        return wrapper
+
+    for (owner, name), fn in saved.items():
+        setattr(owner, name, refusing(fn, name))
+    try:
+        yield
+    finally:
+        for (owner, name), fn in saved.items():
+            setattr(owner, name, fn)
+
+
 def run_ingest(work: str, device: torch.device, ingest, seed: int,
                profile: bool = False) -> dict:
     """Phase 6 through the port's kwage-maestro-torch; returns the shapes
@@ -534,7 +705,8 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     write_inventory(os.path.join(work, "inv.bin"),
                     [FilterInfo(run_accession=str_to_accession(a)) for a in accs])
 
-    with step_profile(device, INGEST_STEPS) if profile else contextlib.nullcontext() as report:
+    with (step_profile(device, INGEST_STEPS) if profile else contextlib.nullcontext()) as report, \
+            no_library_sort():
         t0 = time.perf_counter()
         rc = torch_maestro_main([
             "--meta", os.path.join(work, "inv.bin"), "--scratch", work,
@@ -884,6 +1056,185 @@ def search_inputs(R, W, nq, nk, n_valid, gen, device):
     return db, idx, valid
 
 
+def total_hits_checks(db, idx, valid, n_valid, results: dict, lines: list, stream) -> None:
+    """search_total_hits against its plain version at the search rows'
+    shape (timed: the kernels line's row) and on a column shard whose
+    width is no multiple of 32. The thresholds sit at each query's mean
+    count (a k-mer's seed-AND keeps a bit with probability 2^-nh), so
+    about half the columns pass."""
+    nq, nk = valid.shape
+    tcount = torch.tensor([max(1, n >> NUM_HASH) for n in n_valid], dtype=torch.int32,
+                          device=db.device)
+    for tag, shard in (("main", db), ("W=131", db[:, :131].contiguous())):
+        R, W = shard.shape
+        got = ts.search_total_hits(shard, idx, valid, tcount)
+        want = ts.total_hits_ref(shard, idx, valid, tcount)
+        err = max_abs_err(got, want)
+        check(err == 0, f"search_total_hits differs from its plain version at {tag} ({err})")
+        check(0 < int(got.sum()) < nq * W * 32, f"search_total_hits {tag}: all or no column")
+        out = torch.zeros_like(got)
+        ms = cuda_ms(lambda: kernels.launch(
+            "search_total_hits", shard.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            tcount.data_ptr(), out.data_ptr(), nq, nk, NUM_HASH, W, stream()), 20)
+        plain = cuda_ms(lambda: ts.total_hits_ref(shard, idx, valid, tcount), 5)
+        gathered = sum(n_valid) * NUM_HASH * W * 4
+        lines.append(f"search_total_hits {tag} R={R} W={W} nq={nq} nk={nk}: kernel {ms:.4f} ms "
+                     f"({gathered / ms / 1e6:.1f} GB/s gathered) plain {plain:.3f} ms")
+        if tag == "main":
+            # Bytes: search_counts' gathers, the indices, flags and thresholds
+            # in, one integer a query out. Operations: search_counts' (one AND
+            # a gathered word, about 5 a k-mer and word for the counters) and
+            # a compare a column.
+            results["search_total_hits"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "shape": f"R={R} W={W} nq={nq} nk={nk} nh={NUM_HASH}, {sum(n_valid)} valid k-mers",
+                **bound(gathered + nbytes_of(idx, valid, tcount, got),
+                        sum(n_valid) * W * (NUM_HASH + 5) + nq * W * 32)}
+        else:
+            results["search_total_hits"]["max_abs_err"] = max(
+                results["search_total_hits"]["max_abs_err"], err)
+
+
+SORT_TILE = tcount.SORT_TILE   # pairs a block of csrc/sort.cu takes
+# Operations a pair and pass of THIS radix sort: the digit (3), the match and
+# its leader and count (5) in the histogram; the same, the rank and the
+# address (12) in the scatter. The design's own count, reported beside the
+# passes' traffic and no part of the function's bound.
+SORT_OPS_PER_PASS = 20
+
+
+def sort_pairs(n: int, k: int, num_acc: int, gen, device, invalid: int = 1,
+               by_word: bool = False):
+    """int64 (acc, word) windows as the ingest makes them: words of k bases
+    drawn from a pool (about 8 windows a word; k = 32: any int64),
+    accessions in [0, num_acc], num_acc being the invalid windows'
+    (``invalid`` shares of num_acc + invalid). ``by_word``: a word keeps to
+    one accession, so its windows form one run (the ingest's case: this is
+    what select_runs and bloom_set_bits then see)."""
+    distinct = max(n // 8, 1)
+    if k == 32:
+        pool = torch.empty(distinct, dtype=torch.int64, device=device).random_(
+            -2**63, 2**63 - 1, generator=gen)
+    else:
+        pool = torch.randint(0, 1 << (2 * k), (distinct,), device=device, generator=gen)
+    pick = torch.randint(0, distinct, (n,), device=device, generator=gen)
+    acc = (pick % (num_acc + invalid) if by_word else
+           torch.randint(0, num_acc + invalid, (n,), device=device, generator=gen))
+    return acc.clamp_(max=num_acc), pool[pick]
+
+
+def sort_checks(device: torch.device, gen, n_main: int, num_acc_main: int, record,
+                lines: list, results: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """radix_sort_pairs against its plain version (``torch.sort`` twice,
+    which is also its library yardstick), bit for bit: the fused batch's
+    window count at k = 31 (timed: the kernels line's row), 2^24 windows
+    (a chunk call, timed), k = 15, 16, 32, 1 and 300 accessions (two
+    accession digits), every byte of both keys (no widths given), n around
+    the tile's edges, all-equal and already sorted input. Returns the
+    fused batch's sorted pairs for the kernels after it."""
+    def compare(acc, words, k, num_acc):
+        got = tcount.sort_windows(acc, words, k, num_acc)
+        want = tcount.sort_windows_ref(acc, words)
+        return got, int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    sorted_main = None
+    for tag, n, k, num_acc in (("fused batch", n_main, INGEST_K, num_acc_main),
+                               ("a chunk call", 1 << 24, INGEST_K, 1)):
+        acc, words = sort_pairs(n, k, num_acc, gen, device, invalid=6 if num_acc > 1 else 1,
+                                by_word=True)   # the fused batch: ~30% invalid
+        got, err = compare(acc, words, k, num_acc)
+        word_digits, acc_digits = tcount.sort_digits(k, num_acc)
+        passes = word_digits + acc_digits
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(lambda: tcount.sort_windows(acc, words, k, num_acc), 3)
+        peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        library = cuda_ms(lambda: tcount.sort_windows_ref(acc, words), 3)
+        lib_peak = torch.cuda.max_memory_allocated(device)
+        # The function's bound -- bytes: both arrays in, both out, once;
+        # operations: each of a pair's 16 key bytes looked at once. What
+        # this least-significant-digit design can reach is reported beside
+        # it: the passes' own traffic (40 bytes a pair and pass: both
+        # arrays read and written, the key read once more for the
+        # histogram) and the passes' own operations.
+        lsd_ms = passes * n * 40 / HBM_BYTES_PER_S * 1e3
+        lsd_ops_ms = passes * n * SORT_OPS_PER_PASS / INT32_OPS_PER_S * 1e3
+        record("radix_sort_pairs", f"{tag} n={n} k={k} num_acc={num_acc}, {passes} passes",
+               err, ms, library,
+               f" ({n / ms / 1e6:.2f} G pairs/s; the passes' traffic alone {lsd_ms:.2f} ms, "
+               f"their operations {lsd_ops_ms:.2f} ms; "
+               f"peak {peak / 1e9:.2f} GB; torch.sort twice {library:.3f} ms, peak "
+               f"{lib_peak / 1e9:.2f} GB)",
+               2 * nbytes_of(acc, words), n * 16)
+        if sorted_main is None:
+            sorted_main = got
+            results["radix_sort_pairs"]["library_ms"] = library
+            results["radix_sort_pairs"]["lsd_pass_traffic_ms"] = lsd_ms
+            results["radix_sort_pairs"]["lsd_pass_operations_ms"] = lsd_ops_ms
+        del acc, words, got
+        torch.cuda.empty_cache()
+    n_cmp = 0
+    sizes = [2, 3, 31, 32, 33, 255, 257, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1,
+             2 * SORT_TILE - 1, 3 * SORT_TILE + 5, 1 << 20]
+    for k, num_acc in ((15, 1), (16, 300), (31, 14), (32, 3), (32, 300), (None, None)):
+        for n in sizes:
+            acc, words = sort_pairs(n, k or 32, num_acc if num_acc is not None else 1 << 40,
+                                    gen, device)
+            if num_acc is None:
+                acc -= 1 << 39            # negative accessions: the sign digit of both keys
+            _, err = compare(acc, words, k, num_acc)
+            record("radix_sort_pairs", f"n={n} k={k} num_acc={num_acc}", err, log=False)
+            n_cmp += 1
+    acc, words = sort_pairs(1 << 20, INGEST_K, 14, gen, device)
+    for tag, a, w in (("all equal", torch.zeros_like(acc), torch.full_like(words, 5)),
+                      ("sorted", *tcount.sort_windows_ref(acc, words)),
+                      ("one accession digit only", acc, torch.zeros_like(words))):
+        _, err = compare(a, w, INGEST_K, 14)
+        record("radix_sort_pairs", tag, err, log=False)
+        n_cmp += 1
+    lines.append(f"radix_sort_pairs ({n_cmp} comparisons: n = 2 .. 3 tiles + 5 and 2^20 at "
+                 "k = 15, 16, 31, 32 and all 16 bytes, num_acc 1, 3, 14, 300; all equal; "
+                 "sorted; one digit) == torch.sort twice")
+    return sorted_main
+
+
+def transpose_bits_checks(device: torch.device, gen, record, lines: list) -> dict:
+    """transpose_bits_device (the byte entry of the bit_transpose kernel)
+    against its plain version, unpack -> transpose -> pack: [2048, 2^17]
+    bytes (a 2^20-bit chunk of 2048 filters), timed, and F, B and P each
+    ragged. Returns the timed shape's numbers."""
+    shapes = [(NUM_FILTER, 1 << 17, NUM_FILTER), (5, 3, 8), (40, 7, 48), (33, 4, 40),
+              (2000, 1001, 2048), (100, 64, 4096), (2047, 4099, 2048)]
+    timed = {}
+    for F, B, P in shapes:
+        f = torch.randint(0, 256, (F, B), dtype=torch.uint8, device=device, generator=gen)
+        got = tt.transpose_bits_device(f, P)
+        want = tt.transpose_bits_ref(f, P)
+        check(got.shape == (B * 8, P // 8) and got.dtype == torch.uint8,
+              f"transpose_bits_device {F} x {B}: shape {tuple(got.shape)}")
+        err = max_abs_err(got, want)
+        check(err == 0, f"transpose_bits_device differs from its plain version at "
+                        f"[{F}, {B}] P={P} ({err})")
+        record("bit_transpose", f"bytes [{F}, {B}] P={P}", err, log=False)
+        if not timed:
+            ms = cuda_ms(lambda: tt.transpose_bits_device(f, P), 20)
+            plain = cuda_ms(lambda: tt.transpose_bits_ref(f, P), 2)
+            # Bytes: the filters in, the slices out. Operations: the word
+            # transpose's 30 a 32-bit word.
+            timed = {"kernel": "transpose_bits_device (entry of bit_transpose)",
+                     "shape": f"[{F}, {B}] uint8 P={P}", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "library_ms": None,
+                     **bound(nbytes_of(f, got), 30 * f.numel() // 4)}
+            lines.append(f"transpose_bits_device [{F}, {B}] P={P}: {ms:.4f} ms "
+                         f"({nbytes_of(f, got) / ms / 1e6:.1f} GB/s) plain {plain:.3f} ms")
+        del f, got, want
+    lines.append("transpose_bits_device at " + ", ".join(
+        f"[{F}, {B}] P={P}" for F, B, P in shapes[1:]) + " == plain")
+    torch.cuda.empty_cache()
+    return timed
+
+
 def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -941,6 +1292,8 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                                          sum(n_valid) * W * per_word)}
             else:
                 prev["max_abs_err"] = max(prev["max_abs_err"], err)
+        if tag == "main":
+            total_hits_checks(db, idx, valid, n_valid, results, lines, stream)
         del db, idx, valid
         torch.cuda.empty_cache()
 
@@ -985,11 +1338,9 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
     # select_runs and bloom_set_bits over the fused batch's window count:
     # sorted (acc, word) pairs from a pool (runs of ~8), invalid tail.
     n, num_acc = R * (blen - k + 1), ingest["num_acc"]
-    pool = torch.randint(0, 1 << 62, (n // 8,), device=device, generator=gen)
-    pick = torch.randint(0, n // 8, (n,), device=device, generator=gen)
-    acc = (pick % (num_acc + 6)).clamp_(max=num_acc)  # ~30% invalid
-    acc_s, words_s = tcount.sort_windows(acc, pool[pick])
-    del pool, pick, acc
+    # radix_sort_pairs first: its output at this size feeds the two kernels
+    # after it.
+    acc_s, words_s = sort_checks(device, gen, n, num_acc, record, lines, results)
     sel, nv = tcount.select_runs(acc_s, words_s, num_acc, MIN_COUNT)
     ref_sel, ref_nv = tcount.select_runs_ref(acc_s, words_s, num_acc, MIN_COUNT)
     err = max(max_abs_err(sel, ref_sel), max_abs_err(nv, ref_nv))
@@ -1059,6 +1410,7 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                f" ({n * nh / ms / 1e6:.1f} G hashes/s)",
                nbytes_of(words, got), n * murmur_ops(k, nh))
     del words, got
+    results["transpose_bits_device"] = transpose_bits_checks(device, gen, record, lines)
     tiled_edge_checks(device, seed, record, lines)
     small_block_checks(device, seed, results, lines)
     sriracha_kernel_checks(device, seed, record, lines)
@@ -1251,7 +1603,9 @@ def small_block_checks(device: torch.device, seed: int, results: dict, lines: li
                              + diff(th.slice_indices(flat, k, 5, 22),
                                     th.murmur32_ref(flat, k, 5) & ((1 << 22) - 1)))
         acc = torch.where(valid, acc_rows[:, None], 4).reshape(-1)
-        acc_s, words_s = tcount.sort_windows(acc, flat)
+        acc_s, words_s = tcount.sort_windows(acc, flat, k, 4)
+        ref_acc, ref_words = tcount.sort_windows_ref(acc, flat)
+        errs["radix_sort_pairs"] += diff(acc_s, ref_acc) + diff(words_s, ref_words)
         sel, nv = tcount.select_runs(acc_s, words_s, 4, 1)
         ref_sel, ref_nv = tcount.select_runs_ref(acc_s, words_s, 4, 1)
         errs["select_runs"] += diff(sel, ref_sel) + diff(nv, ref_nv)
@@ -1287,7 +1641,8 @@ def small_block_checks(device: torch.device, seed: int, results: dict, lines: li
     for name, err in errs.items():
         check(err == 0, f"{name} differs from its plain version on the small block ({err})")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-    lines.append("canonical_kmers (packed and ASCII), murmur32, slice_indices, select_runs, "
+    lines.append("canonical_kmers (packed and ASCII), murmur32, slice_indices, "
+                 "radix_sort_pairs, select_runs, "
                  f"bloom_set_bits at k=15, 16, 31, 32 on [64, {READ_LEN}] == plain")
 
     query = torch.from_numpy(ACGT[rng.integers(0, 4, size=(1, 256))]).to(device)
@@ -1534,8 +1889,12 @@ def main(argv: list[str] | None = None) -> int:
     paths = {}
     with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
         kernels.reset_launch_counts()
-        run_main_path(work, device, NUM_FILTER, LOG2_FILTER_LEN, COPIES, args.seed)
+        main_path = run_main_path(work, device, NUM_FILTER, LOG2_FILTER_LEN, COPIES, args.seed)
         paths["search"] = kernels.launch_counts()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        run_mesh(main_path, device)
+        paths["mesh"] = kernels.launch_counts()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
         kernels.reset_launch_counts()
@@ -1572,16 +1931,21 @@ def main(argv: list[str] | None = None) -> int:
             "kernel": k, "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "bytes": r["bytes"],
             "operations": r["operations"], "share_of_bound": r["bound_ms"] / r["ms"],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
+            **{key: r[key] for key in ("lsd_pass_traffic_ms", "lsd_pass_operations_ms")
+               if key in r},
             "launches": {path: counts[k] for path, counts in paths.items() if counts[k]}}))
+    # The byte entry of bit_transpose: its launches count under that kernel.
+    print(json.dumps(results["transpose_bits_device"]))
     print(card)
-    # library_ms: no single PyTorch call computes any of these functions.
+    # library_ms: torch.sort twice computes radix_sort_pairs' function; no
+    # single PyTorch call computes any of the others.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
-         "library_ms": None} for k in REPLACES]}))
+         "library_ms": results[k].get("library_ms")} for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 kwage_tpu.cli.kwage (and the reference binary), with ``--device`` and
 ``--serve`` running on the port's CUDA kernels.
 
-``--device`` searches on ``KWAGE_TORCH_DEVICE`` (default ``cuda``; one
-device -- with several, device 0). Without it the host engine runs.
+``--device`` searches on ``KWAGE_TORCH_DEVICE`` (default ``cuda``); with
+several CUDA devices visible the files shard over all of them
+(``parallel.sharded_search``). Without it the host engine runs.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def usage(out=sys.stderr) -> None:
     print("\t-d <database search path> (can be repeated)", file=out)
     print("\t[-i <input sequence file>] (can be repeated)", file=out)
     print("\t[<DNA sequence>] (can be repeated)", file=out)
-    print("\t[--device (run the search on the CUDA device KWAGE_TORCH_DEVICE names, default cuda; one card)] (engine extension)", file=out)
+    print("\t[--device (run the search on the CUDA device KWAGE_TORCH_DEVICE names, default cuda; several visible cards shard the files over a filters-axis mesh)] (engine extension)", file=out)
     print("\t[--threads <n> (host search threads; default OMP_NUM_THREADS/"
           "KWAGE_NUM_THREADS)] (engine extension)", file=out)
     print("\t[--serve <port> (keep the databases device-resident and answer"
@@ -190,13 +191,25 @@ def main(argv: list[str] | None = None) -> int:
             qid += 1
 
     if use_device:
-        from ..ops.search import search_files_device
-        from ..utils.runtime import resolve_device
+        from ..parallel.mesh import default_devices
 
-        device = resolve_device()
+        devices = default_devices()
+        if len(devices) > 1:
+            # Several cards: shard the fused matrices over a filters-axis
+            # mesh spanning every visible device (hit lists remain
+            # byte-identical to the host engine / reference binary).
+            from ..parallel.mesh import make_search_mesh
+            from ..parallel.sharded_search import sharded_search_files
 
-        def _search(files, qs, t):
-            return search_files_device(files, qs, t, device)
+            mesh = make_search_mesh(1, len(devices), devices)
+
+            def _search(files, qs, t):
+                return sharded_search_files(mesh, files, qs, t)
+        else:
+            from ..ops.search import search_files_device
+
+            def _search(files, qs, t):
+                return search_files_device(files, qs, t, devices[0])
     else:
         def _search(files, qs, t):
             return search_database_files(files, qs, t, num_threads=num_threads)

@@ -42,12 +42,17 @@ _ENTRIES = {
     # (db, idx, valid, out, nq, nk, nh, W, stream)
     "search_complete": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     "search_counts": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    # (db, idx, valid, tcount, out, nq, nk, nh, W, stream)
+    "search_total_hits": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     # (packed, valid_words, words, valid, R, w16, w32, length, k, stream)
     "canonical_kmers": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _VP],
     # (ascii, words, valid, R, stride, length, k, stream)
     "canonical_kmers_ascii": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     # (words, out, n, k, nh, mask, stream)
     "murmur32": [_VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    # (acc, words, acc_a, words_a, acc_b, words_b, hist, totals, n,
+    #  word_digits, acc_digits, stream): one call runs every pass
+    "radix_sort_pairs": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
     # (acc_s, words_s, selected, num_valid, n, num_acc, min_count, stream)
     "select_runs": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
     # (acc_s, words_s, selected, slot_of_acc, out, n, num_acc, k, nh,

@@ -124,7 +124,7 @@ def select_runs_cases(device, gen):
         pool = torch.randint(0, 1 << 62, (n // 8,), device=device, generator=gen)
         pick = torch.randint(0, n // 8, (n,), device=device, generator=gen)
         acc = (pick % (num_acc + 6)).clamp_(max=num_acc)
-        acc_s, words_s = sort_windows(acc, pool[pick])
+        acc_s, words_s = sort_windows(acc, pool[pick], 31, num_acc)
         del pool, pick, acc
         selected = torch.empty(n, dtype=torch.uint8, device=device)
         num_valid = torch.zeros(num_acc, dtype=torch.int32, device=device)

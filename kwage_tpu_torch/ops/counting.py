@@ -4,21 +4,25 @@
 The JAX module's pipeline, on int64 k-mer words (``ops.kmers``):
 
   1. canonical k-mers of a read batch (the canonical_kmers kernel);
-  2. a stable sort that makes equal (accession, word) pairs adjacent;
+  2. a sort by (accession, word) that makes equal pairs adjacent (the
+     radix_sort_pairs kernels);
   3. the select_runs kernel: a position is selected when it starts a run
      of at least min_count equal pairs, and each accession's count of
      selected words is summed with integer atomics;
   4. the bloom_set_bits kernel: murmur each selected word and atomicOr
      its bits straight into the packed filter images.
 
-The sort is ``torch.sort(stable=True)`` on int64 keys, in two passes: by
-word, then by accession, with invalid windows given accession num_acc so
-that they sink to the end. It is a library sort, as in the JAX package,
-which calls XLA's ``jax.lax.sort`` outside any Pallas kernel; like a
-plain matmul left to ``torch.matmul``, it stays a library call here (a
-hand-written radix sort is a later item of the roadmap). At k = 32 the
-word fills all 64 bits and sorts as a signed value; that does not matter,
-since the only requirement is that equal pairs end up next to each other.
+The sort orders int64 (accession, word) pairs by accession, then by word,
+both as signed values; invalid windows carry accession num_acc, so they
+sink to the end. The JAX package leaves it to XLA's ``jax.lax.sort``; on a
+CUDA tensor the port runs its own least-significant-digit radix sort
+(``csrc/sort.cu``: 8-bit digits, a histogram, a scan and a stable scatter a
+digit, over the bytes of the word that k can fill and the bytes of the
+accession that num_acc can fill). Equal pairs cannot be told apart, so its
+output equals that of the plain version, ``sort_windows_ref`` (the
+library's stable sort, twice; CPU tensors and the comparisons), bit for
+bit. At k = 32 the word fills all 64 bits and orders as a signed value,
+which both versions do alike.
 
 Exactness: the counts are TRUE counts (see the JAX module's docstring);
 integer atomics and atomicOr are order-free, so every result is the same
@@ -37,12 +41,68 @@ from .kmers import canonical_kmers_packed, pack_to_device
 
 # --- the sort -------------------------------------------------------------------
 
-def sort_windows(acc: torch.Tensor, words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable two-pass sort of int64 (acc, word) pairs: by word, then by
-    accession. Returns (acc_s, words_s)."""
+SORT_TILE = 4096   # pairs a block of csrc/sort.cu takes (kTile)
+
+
+def sort_windows_ref(acc: torch.Tensor, words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain sort of int64 (acc, word) pairs by (acc, word), signed: two
+    stable passes, by word, then by accession. Returns (acc_s, words_s)."""
     words_s, order = torch.sort(words, stable=True)
     acc_s, order2 = torch.sort(acc[order], stable=True)
     return acc_s, words_s[order2]
+
+
+def sort_digits(k: int | None, num_acc: int | None) -> tuple[int, int]:
+    """(word bytes, accession bytes) that can differ between two pairs: a
+    k-mer word fills 2k bits, an accession in [0, num_acc] the bits of
+    num_acc. None: all 8 bytes (any int64, the sign included)."""
+    word_digits = 8 if k is None else -(-2 * k // 8)
+    acc_digits = 8 if num_acc is None else -(-int(num_acc).bit_length() // 8)
+    return word_digits, acc_digits
+
+
+def sort_windows(acc: torch.Tensor, words: torch.Tensor, k: int | None = None,
+                 num_acc: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """int64 (acc, word) pairs [n] ordered by (acc, word), both signed:
+    (acc_s, words_s). ``k``: the words are k-mer words, 0 <= word < 4^k
+    (k = 32: any int64); ``num_acc``: 0 <= acc <= num_acc. They tell the
+    radix sort which bytes can differ; the caller answers for them (a
+    pair outside them is ordered by its low bytes alone). CUDA tensors:
+    the radix_sort_pairs kernels, which take 32 bytes of scratch a pair
+    (two ping-pong buffers; one when a single byte differs) beside the 16
+    of the result; CPU tensors: sort_windows_ref."""
+    if acc.dtype != torch.int64 or words.dtype != torch.int64 or acc.shape != words.shape \
+            or acc.dim() != 1:
+        raise ValueError("expected int64 acc and words of one shape [n]")
+    if (k is not None and not 1 <= k <= 32) or (num_acc is not None and num_acc < 0):
+        raise ValueError(f"bad k={k} or num_acc={num_acc}")
+    if acc.device != words.device:
+        raise ValueError("acc and words must share a device")
+    if acc.device.type == "cpu":
+        return sort_windows_ref(acc, words)
+    if acc.device.type != "cuda":
+        raise ValueError(f"unsupported device {acc.device}")
+    n = acc.shape[0]
+    if n >= 1 << 32:
+        raise ValueError(f"radix_sort_pairs takes n < 2^32 pairs, not {n}")
+    word_digits, acc_digits = sort_digits(k, num_acc)
+    if n <= 1 or word_digits + acc_digits == 0:
+        return acc.clone(), words.clone()
+    acc, words = acc.contiguous(), words.contiguous()
+    passes = word_digits + acc_digits
+    # Pass p writes pair p & 1; the last pass's pair is the result.
+    pairs = [(torch.empty_like(acc), torch.empty_like(words)) for _ in range(min(passes, 2))]
+    if passes == 1:
+        pairs.append(pairs[0])
+    hist = torch.empty(256 * -(-n // SORT_TILE), dtype=torch.int32, device=acc.device)
+    totals = torch.empty(256, dtype=torch.int32, device=acc.device)
+    with torch.cuda.device(acc.device):
+        kernels.launch("radix_sort_pairs", acc.data_ptr(), words.data_ptr(),
+                       pairs[0][0].data_ptr(), pairs[0][1].data_ptr(),
+                       pairs[1][0].data_ptr(), pairs[1][1].data_ptr(),
+                       hist.data_ptr(), totals.data_ptr(), n, word_digits, acc_digits,
+                       torch.cuda.current_stream(acc.device).cuda_stream)
+    return pairs[(passes - 1) & 1]
 
 
 # --- select_runs ----------------------------------------------------------------
@@ -178,11 +238,12 @@ def filter_words_to_bytes(words, log2_filter_len: int) -> np.ndarray:
 # --- counting -------------------------------------------------------------------
 
 def count_multi_core(words: torch.Tensor, valid: torch.Tensor, acc_ids: torch.Tensor,
-                     min_count: int, num_acc: int):
+                     min_count: int, num_acc: int, k: int | None = None):
     """Windows [R, nwin] of reads [R] in accessions acc_ids -> (acc_s,
-    words_s, selected, num_valid [num_acc]), all on the device."""
+    words_s, selected, num_valid [num_acc]), all on the device. ``k``: the
+    k-mer length the words were made with (None: any int64)."""
     acc = torch.where(valid, acc_ids.to(torch.int64)[:, None], num_acc)
-    acc_s, words_s = sort_windows(acc.reshape(-1), words.reshape(-1))
+    acc_s, words_s = sort_windows(acc.reshape(-1), words.reshape(-1), k, num_acc)
     selected, num_valid = select_runs(acc_s, words_s, num_acc, min_count)
     return acc_s, words_s, selected, num_valid
 
@@ -196,7 +257,7 @@ def count_kmers_multi_packed(packed: torch.Tensor, valid_words: torch.Tensor,
     tensors (acc_s, words_s, selected, num_valid int32 [num_acc]); keep
     them on the device and feed bloom_set_bits."""
     words, valid = canonical_kmers_packed(packed, valid_words, k, length)
-    return count_multi_core(words, valid, acc_ids, min_count, num_acc)
+    return count_multi_core(words, valid, acc_ids, min_count, num_acc, k)
 
 
 def count_kmers_multi(reads_ascii: np.ndarray, acc_ids: torch.Tensor, k: int,
@@ -208,15 +269,16 @@ def count_kmers_multi(reads_ascii: np.ndarray, acc_ids: torch.Tensor, k: int,
                                     np.asarray(reads_ascii).shape[1])
 
 
-def count_and_threshold(words: torch.Tensor, valid: torch.Tensor, min_count: int):
+def count_and_threshold(words: torch.Tensor, valid: torch.Tensor, min_count: int,
+                        k: int | None = None):
     """Exact thresholding of one accession's windows: (words_s, selected,
     num_valid, num_windows). ``selected`` marks the first occurrence of
     each word whose count is >= min_count; num_windows counts the valid
     windows (duplicates included), which form the prefix of the sorted
-    arrays."""
+    arrays. ``k``: the k-mer length of the words (None: any int64)."""
     zeros = torch.zeros(1, dtype=torch.int32, device=words.device)
     acc_s, words_s, selected, num_valid = count_multi_core(
-        words.reshape(1, -1), valid.reshape(1, -1), zeros, min_count, 1)
+        words.reshape(1, -1), valid.reshape(1, -1), zeros, min_count, 1, k)
     return words_s, selected, int(num_valid[0]), int(valid.sum())
 
 
@@ -226,7 +288,7 @@ def count_kmers(reads_ascii: np.ndarray, k: int, min_count: int, device: torch.d
     packed, valid_words = pack_to_device(reads_ascii, device)
     words, valid = canonical_kmers_packed(packed, valid_words, k,
                                           np.asarray(reads_ascii).shape[1])
-    return count_and_threshold(words, valid, min_count)
+    return count_and_threshold(words, valid, min_count, k)
 
 
 def build_filter_device(reads_ascii: np.ndarray, k: int, min_count: int, num_hash: int,

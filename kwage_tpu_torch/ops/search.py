@@ -11,9 +11,14 @@ slice rows of each k-mer and AND them across seeds, then:
 - threshold < 1: per-filter hit counts ``[nq, W*32]`` (padding k-mers
   add zero) (``search_counts``).
 
+``search_total_hits`` is the second one carried to the end: the number of
+bit columns whose count reaches a per-query threshold, int32 ``[nq]``, with
+the counts kept out of device memory (one column shard's share of the mesh
+path's corpus totals, ``parallel.sharded_search``).
+
 Each wrapper launches its CUDA kernel (``csrc/search.cu``) on a CUDA
 tensor and runs its plain PyTorch version (``complete_ref`` /
-``counts_ref``) on a CPU tensor. The fusion, slab and ordering rules of
+``counts_ref`` / ``total_hits_ref``) on a CPU tensor. The fusion, slab and ordering rules of
 the JAX module are kept, so hit lists stay identical to the host engine.
 """
 
@@ -134,9 +139,20 @@ def counts_ref(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torc
     return out.reshape(nq, W * 32)
 
 
+def total_hits_ref(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                   threshold_count: torch.Tensor) -> torch.Tensor:
+    """Plain total hits: int32 [nq], the number of bit columns of ``db``
+    whose hit count (``counts_ref``) is >= threshold_count[q]."""
+    counts = counts_ref(db, idx, valid)
+    return (counts >= threshold_count[:, None]).sum(dim=1, dtype=torch.int32)
+
+
 # --- kernel wrappers ----------------------------------------------------------
 
-def _launch_search(name: str, db, idx, valid, out_cols: int) -> torch.Tensor:
+def _launch_search(name: str, db, idx, valid, out: torch.Tensor,
+                   threshold_count: torch.Tensor | None = None) -> torch.Tensor:
+    """Check the arguments and launch search kernel ``name`` into ``out``
+    (int32, nq rows) on the current stream of db's device."""
     nq, nk, nh = idx.shape
     R, W = db.shape
     if db.dtype != torch.int32 or idx.dtype != torch.int32 or valid.dtype != torch.bool:
@@ -147,7 +163,6 @@ def _launch_search(name: str, db, idx, valid, out_cols: int) -> torch.Tensor:
         raise ValueError("db, idx and valid must share a device")
     if db.device.type != "cuda":
         raise ValueError(f"unsupported device {db.device}")
-    out = torch.empty((nq, out_cols), dtype=torch.int32, device=db.device)
     if nq == 0 or W == 0:
         return out
     if nh == 0:
@@ -157,11 +172,16 @@ def _launch_search(name: str, db, idx, valid, out_cols: int) -> torch.Tensor:
         if int(lo) < 0 or int(hi) >= R:
             raise IndexError(f"slice index out of range [0, {R}): {int(lo)}..{int(hi)}")
     db, idx, valid = db.contiguous(), idx.contiguous(), valid.contiguous()
+    extra = () if threshold_count is None else (threshold_count.data_ptr(),)
     with torch.cuda.device(db.device):
         kernels.launch(
-            name, db.data_ptr(), idx.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            name, db.data_ptr(), idx.data_ptr(), valid.data_ptr(), *extra, out.data_ptr(),
             nq, nk, nh, W, torch.cuda.current_stream(db.device).cuda_stream)
     return out
+
+
+def _empty_out(db: torch.Tensor, idx: torch.Tensor, cols: int) -> torch.Tensor:
+    return torch.empty((idx.shape[0], cols), dtype=torch.int32, device=db.device)
 
 
 def search_complete(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -169,7 +189,7 @@ def search_complete(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) ->
     CUDA tensors: the search_complete kernel; CPU tensors: complete_ref."""
     if db.device.type == "cpu":
         return complete_ref(db, idx, valid)
-    return _launch_search("search_complete", db, idx, valid, db.shape[1])
+    return _launch_search("search_complete", db, idx, valid, _empty_out(db, idx, db.shape[1]))
 
 
 def search_counts(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -177,7 +197,28 @@ def search_counts(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> t
     CUDA tensors: the search_counts kernel; CPU tensors: counts_ref."""
     if db.device.type == "cpu":
         return counts_ref(db, idx, valid)
-    return _launch_search("search_counts", db, idx, valid, db.shape[1] * 32)
+    return _launch_search("search_counts", db, idx, valid,
+                          _empty_out(db, idx, db.shape[1] * 32))
+
+
+def search_total_hits(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                      threshold_count: torch.Tensor) -> torch.Tensor:
+    """Per-query number of bit columns of ``db`` (all W*32 of them) whose
+    hit count is >= threshold_count[q]: int32 [nq]. ``threshold_count`` is
+    int32 [nq], every entry >= 1, so all-zero padding columns never count.
+    CUDA tensors: the search_total_hits kernel (the counts stay in
+    registers and shared memory); CPU tensors: total_hits_ref."""
+    if threshold_count.dtype != torch.int32 or threshold_count.shape != (idx.shape[0],):
+        raise ValueError(f"expected threshold_count int32 [{idx.shape[0]}]")
+    if threshold_count.device != db.device:
+        raise ValueError("threshold_count must lie on db's device")
+    if threshold_count.numel() and int(threshold_count.min()) < 1:
+        raise ValueError("threshold_count must be >= 1")
+    if db.device.type == "cpu":
+        return total_hits_ref(db, idx, valid, threshold_count)
+    out = torch.zeros(idx.shape[0], dtype=torch.int32, device=db.device)
+    return _launch_search("search_total_hits", db, idx, valid, out,
+                          threshold_count.contiguous())
 
 
 # --- chunked / multi-file search ----------------------------------------------
@@ -222,6 +263,23 @@ def eval_chunk_cols(
 
 
 STAGE_BYTES = 64 << 20
+# Device bytes kept free for streaming when a corpus passes its budget. What
+# streams is uploaded again on every call, in row pieces as wide as the slab
+# (or wave), and the host stages narrow pieces slowly (on an H100's host, at
+# L=22: 0.9 GiB/s in 32-byte pieces, 3.4 GiB/s in 128-byte ones), so the
+# share is wide rather than small: an eighth of the default budget.
+SLAB_RESERVE_BYTES = 1 << 30
+
+
+def resident_cap_bytes(total_bytes: int, budget_bytes: int) -> int:
+    """Bytes of ``budget_bytes`` that resident chunks may take: all of it
+    when the corpus (``total_bytes``) fits; otherwise what is left beside
+    the share kept for streaming (SLAB_RESERVE_BYTES, at most half the
+    budget: two wave buffers a shard on a mesh). Chunks are cut at this
+    size so that they can go resident."""
+    if total_bytes <= budget_bytes:
+        return budget_bytes
+    return budget_bytes - min(budget_bytes // 2, SLAB_RESERVE_BYTES)
 
 
 class PinnedStager:
@@ -290,9 +348,15 @@ class HostChunk:
         self.shape = (self.pieces[0].shape[0], sum(self.widths))
         self.nbytes = self.shape[0] * self.shape[1] * 4
 
-    def columns(self, lo: int, hi: int, device: torch.device) -> torch.Tensor:
-        """Words [lo, hi) of every row as an int32 tensor [L, hi - lo]."""
-        out = torch.empty((self.shape[0], hi - lo), dtype=torch.int32, device=device)
+    def columns(self, lo: int, hi: int, device: torch.device,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        """Words [lo, hi) of every row as an int32 tensor [L, hi - lo] on
+        ``device``; ``out`` (int32 [L, >= hi - lo]) receives them in its
+        first columns instead and has the rest zeroed."""
+        if out is None:
+            out = torch.empty((self.shape[0], hi - lo), dtype=torch.int32, device=device)
+        else:
+            out[:, max(hi - lo, 0):] = 0
         stager = PinnedStager(device)
         w0 = 0
         for piece, w in zip(self.pieces, self.widths):

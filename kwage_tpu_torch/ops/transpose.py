@@ -8,6 +8,13 @@ kwage_tpu/ops/transpose.py).
   any swap network: unpack the bits, transpose, pack.
 - ``transpose_chunks_device``: the full .db transpose of packed filter
   bytes, streamed through the device in row chunks.
+- ``transpose_bits_device``: the byte entry, packed filters uint8 [F, B] ->
+  packed slices uint8 [B*8, P/8]. Little-endian bytes viewed as 32-bit
+  words are the same LSB-first bit matrix, so on a CUDA tensor it pads to
+  whole words and goes through the bit_transpose kernel; its plain
+  version, ``transpose_bits_ref``, is the unpack -> transpose -> pack
+  formulation (``unpack_bits_u8`` / ``pack_bits_u8``), the cross-check it
+  is in the JAX module.
 
 Packed words live in int32 tensors as uint32 bit patterns (torch has no
 uint32 arithmetic); ``.view(np.uint32)`` converts at the numpy boundary.
@@ -97,4 +104,61 @@ def transpose_chunks_device(
         res_host = res.cpu().numpy().view("<u4")
         res_bytes = res_host.view(np.uint8).reshape(res_host.shape[0], -1)
         out[start * 8 : stop * 8] = res_bytes[: (stop - start) * 8, :width]
+    return out
+
+
+def unpack_bits_u8(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., B] -> uint8 bits [..., B*8], LSB-first per byte."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    bits = (x[..., None] >> shifts) & 1
+    return bits.reshape(*x.shape[:-1], x.shape[-1] * 8)
+
+
+def pack_bits_u8(bits: torch.Tensor) -> torch.Tensor:
+    """uint8 bits [..., N] (N % 8 == 0) -> packed uint8 [..., N/8], LSB-first."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    grouped = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8)
+    return (grouped << shifts).sum(dim=-1, dtype=torch.uint8)
+
+
+def transpose_bits_ref(filters: torch.Tensor, num_filter_padded: int) -> torch.Tensor:
+    """Plain transpose_bits_device: unpack every bit to a byte, transpose,
+    zero-pad the columns to num_filter_padded, pack."""
+    F = filters.shape[0]
+    bits_t = unpack_bits_u8(filters).t()
+    if num_filter_padded > F:
+        bits_t = torch.cat([bits_t, bits_t.new_zeros((bits_t.shape[0], num_filter_padded - F))],
+                           dim=1)
+    return pack_bits_u8(bits_t.contiguous())
+
+
+def transpose_bits_device(filters: torch.Tensor, num_filter_padded: int) -> torch.Tensor:
+    """Packed filters uint8 [F, B] -> packed slices uint8 [B*8, P/8].
+
+    ``num_filter_padded`` (P, a multiple of 8, >= F) sets the output slice
+    width; columns past F are zero. Matches the LSB-first layout of the
+    .db format. CUDA tensor: the bit_transpose kernel on the bytes viewed
+    as words; CPU tensor: transpose_bits_ref.
+    """
+    if filters.dim() != 2 or filters.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 [F, B], got {filters.dtype} {tuple(filters.shape)}")
+    F, B = filters.shape
+    P = num_filter_padded
+    if P % 8 or P < F:
+        raise ValueError(f"num_filter_padded must be a multiple of 8 and >= {F}, not {P}")
+    if filters.device.type == "cpu":
+        return transpose_bits_ref(filters, P)
+    if filters.device.type != "cuda":
+        raise ValueError(f"unsupported device {filters.device}")
+    Fp, Bp = F + (-F) % 32, B + (-B) % 4
+    if (Fp, Bp) != (F, B):
+        padded = filters.new_zeros((Fp, Bp))
+        padded[:F, :B] = filters
+        filters = padded
+    words = packed_bit_transpose(filters.contiguous().view(torch.int32))   # [Bp*8, Fp/32]
+    slices = words.view(torch.uint8)[: B * 8]                              # [B*8, Fp/8]
+    if P <= Fp:
+        return slices[:, : P // 8].contiguous()
+    out = slices.new_zeros((B * 8, P // 8))
+    out[:, : Fp // 8] = slices
     return out

@@ -4,8 +4,9 @@ kwage_tpu/search/resident.py): load once, query many times.
 ``ResidentSearcher`` fuses same-shape .db/.dbz files once (the fusion and
 ordering rules of ``ops.search.search_files_device``) and keeps the fused
 int32 matrices on the device across requests; each query batch costs only
-its own gathers. ``SearchServer`` wraps it, or the CPU host engine, in the
-JSON-lines TCP protocol of the JAX module:
+its own gathers. ``MeshResidentSearcher`` does the same over a device mesh
+(``parallel.sharded_search``). ``SearchServer`` wraps one of them, or the
+CPU host engine, in the JSON-lines TCP protocol of the JAX module:
 
   request:  {"queries": ["ACGT...", ...], "threshold": 0.8,
              "format": "json" | "csv", "token": "..."}   (one line)
@@ -34,6 +35,7 @@ from ..ops.search import (
     group_file_chunks,
     make_query_batch,
     read_chunk,
+    resident_cap_bytes,
 )
 from ..utils.runtime import check_token, resolve_device, resolve_secret
 from .output import render_csv, render_json
@@ -42,11 +44,16 @@ from .output import render_csv, render_json
 class ResidentSearcher:
     """Fused database chunks resident on ``device``, searchable repeatedly.
 
-    Chunks stay on the device until ``budget_bytes`` (default
-    KWAGE_FUSION_BUDGET_BYTES) is spent; the rest stay on the host and
-    upload per search call, in column slabs no wider than the budget left
-    (the JAX class streams them with the whole budget, which can double
-    its peak device memory).
+    When the corpus fits ``budget_bytes`` (default
+    KWAGE_FUSION_BUDGET_BYTES), all of it stays on the device. Otherwise a
+    slab's share is set aside first (``ops.search.resident_cap_bytes``:
+    SLAB_RESERVE_BYTES, at most half the budget), the files are
+    cut into chunks of what is left so that chunks can go resident, and
+    the chunks that do not fit stay on the host and upload per search
+    call, in column slabs of the budget left -- at least the share set
+    aside (a budget spent to the last byte on resident chunks would stream
+    a host chunk one word column a slab). The JAX class streams them with
+    the whole budget, which can double its peak device memory.
     """
 
     def __init__(self, db_paths: list[str], device: torch.device,
@@ -61,10 +68,17 @@ class ResidentSearcher:
         self._readers = [open_database(p) for p in self.db_paths]
         self._groups = []  # (param, device tensor or HostChunk, spans)
         self.resident_bytes = 0
-        for param, file_idxs in group_file_chunks(self._readers, budget_bytes):
-            nbytes = (self._readers[file_idxs[0]].header.filter_len
-                      * chunk_words(self._readers, file_idxs) * 4)
-            if self.resident_bytes + nbytes <= budget_bytes:
+
+        def nbytes_of(file_idxs):
+            return (self._readers[file_idxs[0]].header.filter_len
+                    * chunk_words(self._readers, file_idxs) * 4)
+
+        # A slab's share is set aside before the chunks are cut and placed.
+        total = sum(nbytes_of([fi]) for fi in range(len(self._readers)))
+        resident_cap = resident_cap_bytes(total, budget_bytes)
+        for param, file_idxs in group_file_chunks(self._readers, resident_cap):
+            nbytes = nbytes_of(file_idxs)
+            if self.resident_bytes + nbytes <= resident_cap:
                 self.resident_bytes += nbytes
                 fused, spans = fuse_files(self._readers, file_idxs, device)
             else:
@@ -86,15 +100,45 @@ class ResidentSearcher:
             idx_d = torch.from_numpy(idx).to(self.device)
             valid_d = torch.from_numpy(valid).to(self.device)
             # Host chunks stream in slabs of the budget the resident chunks
-            # left, so device memory stays within the budget.
+            # left (at least the share set aside), so device memory stays
+            # within it.
             out = eval_chunk_cols(db, idx_d, valid_d, threshold,
-                                  max(self._budget_bytes - self.resident_bytes, 1))
+                                  self._budget_bytes - self.resident_bytes)
             chunk_hits(out, nk, spans, self._readers, threshold, buckets, qids)
         return collect_results(buckets, self._readers, self._info_cache)
 
     def render(self, queries: list[str], threshold: float, fmt: str = "json") -> str:
         """Rendered hit lists, byte-identical to the kwage CLI for the same
         command-line queries (ids 'command line seq i')."""
+        return render(self, queries, threshold, fmt)
+
+
+class MeshResidentSearcher:
+    """ResidentSearcher over a device mesh: the fused matrices shard along
+    the "filters" axis across every device (ShardedDatabase groups stay
+    alive across requests; the same per-shard budget streams over-budget
+    corpora in column waves). ``mesh`` defaults to one filter shard on
+    every visible CUDA device. Same search/render contract and bytes as
+    ResidentSearcher."""
+
+    def __init__(self, db_paths: list[str], mesh=None,
+                 budget_bytes: int | None = None):
+        from ..parallel.mesh import make_search_mesh
+        from ..parallel.sharded_search import build_sharded_groups
+
+        self.db_paths = list(db_paths)
+        self.mesh = make_search_mesh(1) if mesh is None else mesh
+        # [(ShardedDatabase, file indices)], alive across requests.
+        self.groups = build_sharded_groups(self.mesh, self.db_paths, budget_bytes)
+
+    def search(self, queries: list[tuple[int, str]], threshold: float):
+        from ..parallel.sharded_search import search_sharded_groups
+
+        return search_sharded_groups(
+            self.groups, self.db_paths, queries, threshold
+        )
+
+    def render(self, queries: list[str], threshold: float, fmt: str = "json") -> str:
         return render(self, queries, threshold, fmt)
 
 
@@ -125,8 +169,10 @@ def render(searcher, queries: list[str], threshold: float, fmt: str) -> str:
 
 
 class SearchServer:
-    """JSON-lines TCP server around a ResidentSearcher on one CUDA device
-    (engine="device"; ``device`` defaults to ``resolve_device()``) or a
+    """JSON-lines TCP server around a ResidentSearcher (engine="device"
+    with ``device`` given, or one visible CUDA device), a
+    MeshResidentSearcher (engine="device", no ``device`` and several CUDA
+    devices visible: the corpus shards across all of them) or a
     HostResidentSearcher (engine="host": no accelerator)."""
 
     def __init__(self, db_paths: list[str], host: str = "127.0.0.1", port: int = 0,
@@ -139,7 +185,12 @@ class SearchServer:
         if engine == "host":
             searcher = HostResidentSearcher(db_paths)
         elif engine == "device":
-            searcher = ResidentSearcher(db_paths, device or resolve_device())
+            from ..parallel.mesh import default_devices
+
+            if device is None and len(default_devices()) > 1:
+                searcher = MeshResidentSearcher(db_paths)
+            else:
+                searcher = ResidentSearcher(db_paths, device or resolve_device())
         else:
             raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
         self.searcher = searcher

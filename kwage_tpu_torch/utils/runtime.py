@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import os
 import subprocess
-import sys
 
 import torch
 
@@ -40,9 +39,10 @@ def resolve_device(name: str | None = None) -> torch.device:
     """The torch device the device paths run on.
 
     ``name`` wins; otherwise ``KWAGE_TORCH_DEVICE`` (default ``cuda``).
-    Raises when CUDA is asked for and no CUDA device is present. With
-    several CUDA devices and no index given, device 0 is used and a line
-    on stderr says so (multi-GPU sharding is not ported yet).
+    Raises when CUDA is asked for and no CUDA device is present. With no
+    index given a single-device entry point takes device 0; the search
+    entry points shard over every visible device instead
+    (``parallel.mesh.default_devices``).
     """
     dev = torch.device(name or os.environ.get("KWAGE_TORCH_DEVICE", "cuda"))
     if dev.type == "cuda":
@@ -52,10 +52,6 @@ def resolve_device(name: str | None = None) -> torch.device:
                 "present (set KWAGE_TORCH_DEVICE=cpu to run the plain "
                 "PyTorch versions on the CPU)")
         if dev.index is None:
-            n = torch.cuda.device_count()
-            if n > 1:
-                print(f"kwage_tpu_torch: {n} CUDA devices visible; using "
-                      "cuda:0 (multi-GPU search is not ported)", file=sys.stderr)
             dev = torch.device("cuda", 0)
     return dev
 

@@ -62,6 +62,15 @@ MERGED = {
     "pipeline.make_bloom": {"build_bloom_device", "dispatch_device_batch",
                             "scatter_device_batch", "complete_device_batch"},
     "parallel.maestro": set(),
+    # a grid of torch devices in place of jax.sharding.Mesh
+    "parallel.mesh": {"make_search_mesh"},
+    # shards searched slot by slot on torch devices in place of shard_map;
+    # the files staged from their mmaps, one residency rule
+    "parallel.sharded_search": {"to_host", "sharded_total_hits", "sharded_search_counts",
+                                "sharded_search_complete", "ShardedDatabase",
+                                "build_sharded_groups", "search_sharded_groups"},
+    # torch.distributed in place of jax.distributed
+    "parallel.distributed": {"init_distributed", "make_global_search_mesh"},
     # the device argument of the device branch
     "sriracha.engine": {"search_accession"},
     # torch.profiler in place of jax.profiler
@@ -90,6 +99,7 @@ REQUIRED = {
                          "_build_bloom_streamed", "execute_bloom_task", "prepare_bloom_batch",
                          "finish_bloom_batch", "execute_bloom_batch", "_DeviceDispatcher",
                          "_LazyInfos", "Maestro"},
+    "parallel.sharded_search": {"sharded_search_files"},
     "sriracha.engine": {"SrirachaOptions", "SearchMatch", "StreamStats", "search_reads",
                         "load_subject_kmers", "format_results", "iter_reads_range",
                         "merge_slice_tsvs", "assign_read_range"},
@@ -107,7 +117,8 @@ REQUIRED = {
 REWORDED = {
     ("cli.kwage", "usage"): {
         "\t[--device (run the search on the CUDA device KWAGE_TORCH_DEVICE names, default "
-        "cuda; one card)] (engine extension)":
+        "cuda; several visible cards shard the files over a filters-axis mesh)] "
+        "(engine extension)":
         "\t[--device (run the search on the TPU; multiple visible chips auto-shard over a "
         "filters-axis mesh)] (engine extension)",
     },
@@ -193,6 +204,34 @@ def test_port_usage_names_no_tpu(path, name, capsys):
 def test_merged_module_carries_its_host_names(path):
     carried = {n for p, n in CARRIED if p == path} | MERGED[path]
     assert REQUIRED[path] <= carried, sorted(REQUIRED[path] - carried)
+
+
+# The mesh modules: every public function and class of the original has its
+# counterpart of the same name, with the same parameters in the same order
+# (the port may add optional ones after them).
+MESH_MODULES = ["parallel.mesh", "parallel.sharded_search", "parallel.distributed"]
+
+
+@pytest.mark.parametrize("path", MESH_MODULES)
+def test_mesh_module_keeps_names_and_signatures(path):
+    original = importlib.import_module(f"kwage_tpu.{path}")
+    copy = importlib.import_module(f"kwage_tpu_torch.{path}")
+    public = [n.name for n in ast.parse(inspect.getsource(original)).body
+              if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")]
+    assert public
+    for name in public:
+        theirs, ours = getattr(original, name), getattr(copy, name)
+        pairs = [(theirs, ours)]
+        if inspect.isclass(theirs):
+            pairs = [(getattr(theirs, m), getattr(ours, m)) for m, v in vars(theirs).items()
+                     if not m.startswith("_") or m == "__init__"]
+            assert pairs, name
+        for f_theirs, f_ours in pairs:
+            want = list(inspect.signature(getattr(f_theirs, "__func__", f_theirs)).parameters)
+            got = list(inspect.signature(getattr(f_ours, "__func__", f_ours)).parameters)
+            assert got[: len(want)] == want, (name, got, want)
+            extra = list(inspect.signature(getattr(f_ours, "__func__", f_ours)).parameters.values())
+            assert all(p.default is not p.empty for p in extra[len(want):]), (name, got)
 
 
 def test_versions_equal_the_original():

@@ -61,8 +61,9 @@ def test_other_devices_raise():
 def test_reset_launch_counts():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
-        "bit_transpose": 0, "search_complete": 0, "search_counts": 0,
-        "canonical_kmers": 0, "murmur32": 0, "select_runs": 0, "bloom_set_bits": 0,
+        "bit_transpose": 0, "search_complete": 0, "search_counts": 0, "search_total_hits": 0,
+        "canonical_kmers": 0, "murmur32": 0, "radix_sort_pairs": 0, "select_runs": 0,
+        "bloom_set_bits": 0,
         "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "subject_table": 0}
 
 

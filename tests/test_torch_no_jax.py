@@ -186,6 +186,54 @@ def test_maestro_and_kwage_runs_load_no_jax(tmp_path, golden_dir, data_dir):
     assert sorted(dev.splitlines()) == sorted(golden.splitlines())
 
 
+def test_kwage_over_a_logical_mesh_loads_no_jax(tmp_path, golden_dir, data_dir):
+    """``kwage-torch --device`` over a mesh of 2 logical shards on the CPU
+    (the CPU listed twice as the visible devices), on .db files the port's host pipeline
+    packed: neither jax nor kwage_tpu is loaded, the mesh modules are, and
+    the bytes equal the host engine's and the single-device search's."""
+    with open(golden_dir / "e2e" / "manifest.json") as f:
+        manifest = json.load(f)
+    kwage_args = ["-d", str(tmp_path), "-t", "0.75", "--o.csv",
+                  "-i", str(data_dir / "queries.fasta")]
+    code = (
+        "import os, sys\n"
+        "from kwage_tpu_torch.cli.kwage import main as kwage\n"
+        "from kwage_tpu_torch.core import FilterInfo, str_to_accession\n"
+        "from kwage_tpu_torch.io.bloom_file import write_bloom_file\n"
+        "from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files\n"
+        "from kwage_tpu_torch.pipeline.make_bloom import BuildOptions, build_bloom_from_file\n"
+        f"man, work, data = {manifest!r}, {str(tmp_path)!r}, {str(data_dir)!r}\n"
+        "opts = BuildOptions(kmer_len=man['k'], min_kmer_count=man['min_kmer_count'],\n"
+        "    false_positive_probability=man['fp'], min_log_2_filter_len=man['minL'],\n"
+        "    max_log_2_filter_len=man['maxL'], min_log_2_count_len=man['minLc'],\n"
+        "    max_log_2_count_len=man['maxLc'])\n"
+        "for gi, group in enumerate(man['db_groups']):\n"
+        "    blooms = []\n"
+        "    for acc in group:\n"
+        "        rec = build_bloom_from_file(os.path.join(data, acc + '.fasta'), opts,\n"
+        "                                    FilterInfo(run_accession=str_to_accession(acc)))\n"
+        "        blooms.append(os.path.join(work, acc + '.bloom'))\n"
+        "        write_bloom_file(blooms[-1], rec)\n"
+        "    build_db_from_bloom_files(os.path.join(work, f'sra.{gi}.db'), rec.param, blooms)\n"
+        f"assert kwage({kwage_args!r} + ['--device', '-o', os.path.join(work, 'one.csv')]) == 0\n"
+        "assert 'kwage_tpu_torch.parallel.sharded_search' not in sys.modules\n"
+        "import torch, kwage_tpu_torch.parallel.mesh as mesh\n"
+        "mesh.default_devices = lambda: [torch.device('cpu')] * 2\n"
+        f"assert kwage({kwage_args!r} + ['--device', '-o', os.path.join(work, 'mesh.csv')]) == 0\n"
+        "assert 'kwage_tpu_torch.parallel.sharded_search' in sys.modules\n"
+        f"assert kwage({kwage_args!r} + ['-o', os.path.join(work, 'host.csv')]) == 0\n"
+        + ASSERT_CLEAN
+    )
+    res = _run(code, KWAGE_TORCH_DEVICE="cpu")
+    assert res.returncode == 0, res.stderr[-3000:]
+    mesh = (tmp_path / "mesh.csv").read_text()
+    assert mesh == (tmp_path / "host.csv").read_text() == (tmp_path / "one.csv").read_text()
+    golden = (golden_dir / "e2e" / "csv_t075_file.out").read_text()
+    # The same rows as the golden run, whatever order the directory lists
+    # the files in.
+    assert sorted(mesh.splitlines()) == sorted(golden.splitlines())
+
+
 def test_port_runs_with_kwage_tpu_out_of_the_way(tmp_path):
     """In a copy of the tree without kwage_tpu/, ``import chip_smoke`` and
     the three CLIs' --help still work."""
@@ -200,6 +248,8 @@ def test_port_runs_with_kwage_tpu_out_of_the_way(tmp_path):
         "assert kwage.main(['-h']) == 0\n"
         "assert maestro.main(['-h']) == 0\n"
         "assert sriracha.main(['-h']) == 0\n"
+        "from kwage_tpu_torch.parallel import distributed, mesh, sharded_search\n"
+        "from kwage_tpu_torch.entry import dryrun_multichip\n"
         "import importlib.util\n"
         "assert importlib.util.find_spec('kwage_tpu') is None\n"
         + ASSERT_CLEAN

@@ -151,6 +151,58 @@ def test_search_files_device_matches_jax(tmp_path, monkeypatch, threshold):
     assert any(got.values())
 
 
+@pytest.mark.parametrize("threshold", [1.0, 0.5])
+def test_resident_searcher_spent_budget_streams_in_bounded_slabs(tmp_path, monkeypatch,
+                                                                 threshold):
+    """Two files of one chunk's size each. A budget of exactly one chunk:
+    a slab's share is set aside before the chunks are placed (at these
+    sizes half the budget), so a host chunk streams in a bounded number of
+    slabs (never one word column a slab). With the share set to a quarter
+    of a file (what SLAB_RESERVE_BYTES is to a corpus of real size), a
+    budget of a file and a quarter keeps one file resident and streams the
+    other in four slabs. The bytes equal the host engine's."""
+    from kwage_tpu_torch.search import resident
+    from kwage_tpu_torch.search.engine import search_database_files
+
+    paths = []
+    for i in range(2):
+        p = tmp_path / f"sra.{i}.db"
+        _write_db(p, seed=i + 1, num_filter=256, log2_len=10)
+        paths.append(str(p))
+    chunk_bytes = (1 << 10) * (256 // 32) * 4
+    widths = []
+    upload = ts.HostChunk.columns
+
+    def recording_columns(self, lo, hi, device, out=None):
+        widths.append(hi - lo)
+        return upload(self, lo, hi, device, out)
+
+    monkeypatch.setattr(ts.HostChunk, "columns", recording_columns)
+    rng = np.random.default_rng(8)
+    seqs = [_rand_seq(rng, n) for n in (31, 40, 70)]
+    host = resident.HostResidentSearcher(paths)
+    big = ts.SLAB_RESERVE_BYTES
+    quarter = chunk_bytes // 4
+    # (budget, the share kept for slabs, resident files, slabs a host file)
+    for budget, reserve, resident_chunks, slabs in (
+            (chunk_bytes, big, 0, 1), (chunk_bytes * 3 // 2, big, 0, 1),
+            (2 * chunk_bytes, big, 2, 0), (3 * chunk_bytes, big, 2, 0),
+            (chunk_bytes, quarter, 0, 1), (chunk_bytes + quarter, quarter, 1, 4),
+            (chunk_bytes + 2 * quarter, quarter, 1, 2)):
+        monkeypatch.setattr(ts, "SLAB_RESERVE_BYTES", reserve)
+        widths.clear()
+        searcher = resident.ResidentSearcher(paths, CPU, budget_bytes=budget)
+        assert searcher.resident_bytes == resident_chunks * chunk_bytes
+        assert searcher.resident_bytes <= budget
+        out = searcher.render(seqs, threshold, "csv")
+        assert out == host.render(seqs, threshold, "csv")
+        assert len(widths) == slabs * (2 - resident_chunks)
+        assert all(w == 8 // slabs for w in widths)
+    want = search_database_files(paths, list(enumerate(seqs)), threshold)
+    assert _fields(searcher.search(list(enumerate(seqs)), threshold)) == _fields(
+        {q: r for q, r in want.items() if r})
+
+
 @pytest.mark.cuda
 def test_search_kernels_match_ref(cuda_device):
     for R, W, nq, nk, nh in ((256, 3, 4, 45, 5), (1 << 16, 100, 5, 300, 3)):

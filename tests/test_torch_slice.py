@@ -158,9 +158,11 @@ def test_search_server_errors_and_token(built, data_dir, monkeypatch, engine):
 
 def test_resident_budget_chunks_match(built, data_dir):
     """A budget too small for any chunk keeps every chunk on the host and
-    streams it in one-column slabs; a budget of the smallest chunk keeps
-    some resident and streams the rest in what is left. Output equals the
-    fully resident one."""
+    streams it in one-column slabs; when not everything fits, a slab's
+    share is set aside first (at these sizes half the budget), so a budget
+    of twice the smallest chunk keeps some resident and streams the rest
+    in what is left, and a budget of exactly the smallest chunk keeps none
+    and leaves the slabs all of it. Output equals the fully resident one."""
     from kwage_tpu.io.sequence import iter_sequences
     from kwage_tpu_torch.search.resident import ResidentSearcher
 
@@ -170,13 +172,15 @@ def test_resident_budget_chunks_match(built, data_dir):
     full = ResidentSearcher(files, cpu)
     tiny = ResidentSearcher(files, cpu, budget_bytes=1 << 10)
     smallest = min(db.numel() * 4 for _, db, _ in full._groups)
-    partial = ResidentSearcher(files, cpu, budget_bytes=smallest)
-    assert tiny.resident_bytes == 0
-    assert 0 < partial.resident_bytes < full.resident_bytes
+    partial = ResidentSearcher(files, cpu, budget_bytes=2 * smallest)
+    spent = ResidentSearcher(files, cpu, budget_bytes=smallest)
+    assert tiny.resident_bytes == 0 and spent.resident_bytes == 0
+    assert 0 < partial.resident_bytes <= smallest < full.resident_bytes
     for threshold in (1.0, 0.5):
         want = full.render(queries, threshold)
         assert tiny.render(queries, threshold) == want
         assert partial.render(queries, threshold) == want
+        assert spent.render(queries, threshold) == want
 
 
 def test_cuda_requested_without_a_card_raises(built, monkeypatch):

@@ -196,3 +196,72 @@ def test_build_db_rejects_bad_blooms(tmp_path, fault, message):
         param = BloomParam(kmer_len=31, log_2_filter_len=14, num_hash=4, hash_func=0)
     with pytest.raises(ValueError, match=message):
         build_db_from_bloom_files(str(tmp_path / "out.db"), param, blooms, device=CPU)
+
+
+# --- the byte entry: transpose_bits_device ------------------------------------
+
+# Filters x bytes a filter -> padded filter count: whole words, and F, B and
+# P each ragged (F no multiple of 32 or 8, B no multiple of 4, P past F).
+BYTE_SHAPES = [(32, 4, 32), (64, 16, 64), (5, 3, 8), (40, 7, 48), (33, 4, 40), (100, 9, 4096),
+               (2000, 11, 2048)]
+
+
+def _word_route(filters: torch.Tensor, P: int) -> torch.Tensor:
+    """What transpose_bits_device does on a CUDA tensor, with the bit
+    transpose's plain version in the kernel's place."""
+    F, B = filters.shape
+    Fp, Bp = F + (-F) % 32, B + (-B) % 4
+    padded = filters.new_zeros((Fp, Bp))
+    padded[:F, :B] = filters
+    words = tt.packed_bit_transpose_ref(padded.view(torch.int32))
+    slices = words.view(torch.uint8)[: B * 8]
+    out = slices.new_zeros((B * 8, P // 8))
+    n = min(P, Fp) // 8
+    out[:, :n] = slices[:, :n]
+    return out
+
+
+@pytest.mark.parametrize("F,B,P", BYTE_SHAPES)
+def test_transpose_bits_device_matches_jax_and_unpackbits(F, B, P):
+    rng = np.random.default_rng(F * 7 + B)
+    filters = rng.integers(0, 256, size=(F, B), dtype=np.uint8)
+    bits = np.pad(np.unpackbits(filters, axis=1, bitorder="little").T, ((0, 0), (0, P - F)))
+    want = np.packbits(bits, axis=1, bitorder="little")
+    np.testing.assert_array_equal(
+        np.asarray(jax_transpose.transpose_bits_device(jnp.asarray(filters), P)), want)
+    t = torch.from_numpy(filters)
+    for got in (tt.transpose_bits_device(t, P), tt.transpose_bits_ref(t, P), _word_route(t, P)):
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+    if P == F and F % 8 == 0:
+        np.testing.assert_array_equal(want, transpose_filters(filters))
+
+
+def test_bit_helpers_match_jax():
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, size=(3, 5, 7), dtype=np.uint8)
+    bits = tt.unpack_bits_u8(torch.from_numpy(x))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jax_transpose.unpack_bits_u8(jnp.asarray(x))))
+    np.testing.assert_array_equal(bits.numpy(), np.unpackbits(x, axis=-1, bitorder="little"))
+    packed = tt.pack_bits_u8(bits)
+    np.testing.assert_array_equal(packed.numpy(), x)
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(jax_transpose.pack_bits_u8(jnp.asarray(bits.numpy()))))
+
+
+def test_transpose_bits_device_rejects_bad_arguments():
+    f = torch.zeros((16, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tt.transpose_bits_device(f, 20)       # not a multiple of 8
+    with pytest.raises(ValueError):
+        tt.transpose_bits_device(f, 8)        # narrower than the filters
+    with pytest.raises(ValueError):
+        tt.transpose_bits_device(f.int(), 16)
+
+
+@pytest.mark.cuda
+def test_transpose_bits_device_kernel_matches_ref(cuda_device):
+    rng = np.random.default_rng(11)
+    for F, B, P in BYTE_SHAPES + [(2048, 1 << 12, 2048)]:
+        f = torch.from_numpy(rng.integers(0, 256, size=(F, B), dtype=np.uint8)).to(cuda_device)
+        assert torch.equal(tt.transpose_bits_device(f, P), tt.transpose_bits_ref(f, P))
