@@ -26,7 +26,8 @@ one line each; any failure raises and exits non-zero:
               --device-transpose`` over 14 accessions of a 400 kbp genome at
               15x (fused batch) and 2 of a 4.6 Mbp genome at 10x (chunked),
               k=31, min count 5 (the sort is the radix_sort_pairs kernels: a
-              library sort of a CUDA tensor raises during the call): every
+              library sort of a CUDA tensor raises during the call, and so
+              does a library compaction inside the sort): every
               .bloom equals the exact host ground
               truth, every .db the host pack, a ``kwage --device`` search of
               genome reads the host engine's bytes; the golden corpus
@@ -66,12 +67,17 @@ one line each; any failure raises and exits non-zero:
               sizes, runs, accession boundaries, look-aheads and ragged
               widths that meet a tile's edge (``tiled_edge_checks``).
               search_total_hits at the search rows' shape and on a shard
-              whose width is no multiple of 32. radix_sort_pairs at the
-              fused batch's window count beside ``torch.sort`` twice (its
-              plain version and its library yardstick), at 2^24 windows, at
-              k = 15, 16, 32, with 1 and 300 accessions, at sizes around
+              whose width is no multiple of 32. radix_sort_pairs (both
+              entries: all pairs, and the valid windows only) at the fused
+              batch's layout (the main path's call), at its window count
+              with 30% invalid, and at 2^24 windows, each beside compaction
+              + ``torch.sort`` twice over the valid pairs and ``torch.sort``
+              twice over all (its plain versions and library yardsticks);
+              at k = 15, 16, 32, with 1 and 300 accessions, at sizes around
               its 4096-pair tile, on all-equal and on sorted input.
-              transpose_bits_device on [2048, 2^17] bytes and with F, B
+              select_runs and bloom_set_bits on its outputs: the fused
+              batch's valid windows (the main path's input), then all
+              pairs at 30% invalid. transpose_bits_device on [2048, 2^17] bytes and with F, B
               and P ragged.
               The SriRachA kernels at phase 8's batch shape (512 x 256,
               k = 11 and 21), on a small block holding every byte value at
@@ -136,6 +142,7 @@ from kwage_tpu_torch.io.bloom_file import BloomFilterRecord, read_bloom_file, wr
 from kwage_tpu_torch.io.dbz_file import open_database
 from kwage_tpu_torch.io.inventory import write_inventory
 from kwage_tpu_torch.io.status import read_status_file
+from kwage_tpu_torch.kernels.time_kernel import fused_batch_pairs, sort_case
 from kwage_tpu_torch.native import available as native_available
 from kwage_tpu_torch.native import canonical_kmers_native, murmur32_native
 from kwage_tpu_torch.ops import counting as tcount
@@ -226,12 +233,16 @@ SOURCES = {
     "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
     "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
 }
-# The card's published peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of HBM3;
-# 67 TFLOP/s of float32 outside the tensor cores is 2 flops on each of 128
-# lanes a clock and SM, and an SM has 64 int32 lanes of one operation each,
-# so a quarter of that number in integer operations.
+# The card's peaks: 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet); int32
+# operations: two pipes, IMAD on the FMA pipe and LOP3 (and the adds and
+# shifts) on the integer ALU, each 64 lanes a clock and SM, at 132 SMs and
+# 1.98 GHz. Chains of IMAD alone and of LOP3 alone each ran at 63.3-63.8 a
+# clock and SM at 1.98-1.995 GHz on an H100 80GB HBM3 at 700.00 W (``python
+# -m kwage_tpu_torch.kernels.time_kernel roof``, csrc/variants/int_roof.cu);
+# their mix reached 87-88 a clock and SM, not the 128 of both pipes full, so
+# the peak is what two full pipes dispatch, not that reading.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 2 * 64 * 132 * 1.98e9
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "e2e")
 GOLDEN_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 
@@ -657,17 +668,31 @@ def step_profile(device: torch.device, steps):
     report["table"] = events.table(sort_by="self_device_time_total", row_limit=25)
 
 
+# Library calls that compact a CUDA tensor: refused inside the sort, where
+# the kernel drops the invalid windows itself. Later device steps may call
+# them (make_bloom's chunked build takes torch.nonzero of the flags).
+COMPACTING = ((torch, "nonzero"), (torch.Tensor, "nonzero"), (torch, "argwhere"),
+              (torch.Tensor, "argwhere"), (torch, "masked_select"),
+              (torch.Tensor, "masked_select"), (torch, "unique"), (torch.Tensor, "unique"))
+
+
+def _is_mask(index) -> bool:
+    items = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in items)
+
+
 @contextlib.contextmanager
-def no_library_sort():
-    """torch.sort, Tensor.sort and argsort of a CUDA tensor raise inside."""
-    saved = {(owner, name): getattr(owner, name)
-             for owner, name in ((torch, "sort"), (torch, "argsort"), (torch.Tensor, "sort"),
-                                 (torch.Tensor, "argsort"))}
+def _refused(targets):
+    """Inside, each (owner, name) of ``targets`` raises when it is called on
+    a CUDA tensor (``__getitem__``: when indexed by a boolean mask); the
+    originals come back on exit."""
+    saved = {(owner, name): getattr(owner, name) for owner, name in targets}
 
     def refusing(fn, name):
         @functools.wraps(fn)
         def wrapper(t, *args, **kwargs):
-            if isinstance(t, torch.Tensor) and t.is_cuda:
+            if isinstance(t, torch.Tensor) and t.is_cuda and (
+                    name != "__getitem__" or _is_mask(args[0])):
                 raise RuntimeError(f"{name} of a CUDA tensor on the device path")
             return fn(t, *args, **kwargs)
         return wrapper
@@ -679,6 +704,32 @@ def no_library_sort():
     finally:
         for (owner, name), fn in saved.items():
             setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def no_library_sort():
+    """torch.sort, Tensor.sort and argsort of a CUDA tensor raise inside.
+    While ``sort_valid_windows`` runs, so do torch.nonzero, argwhere,
+    masked_select, unique and indexing by a boolean mask: those wrappers
+    are installed for each such call alone, so the rest of the ingest runs
+    without them. Yields a dict whose "sorts" counts the sort_valid_windows
+    calls it watched."""
+    watch = {"sorts": 0}
+    sort_valid_windows = tcount.sort_valid_windows
+
+    @functools.wraps(sort_valid_windows)
+    def watched(*args, **kwargs):
+        watch["sorts"] += 1
+        with _refused((*COMPACTING, (torch.Tensor, "__getitem__"))):
+            return sort_valid_windows(*args, **kwargs)
+
+    tcount.sort_valid_windows = watched
+    try:
+        with _refused(((torch, "sort"), (torch, "argsort"), (torch.Tensor, "sort"),
+                       (torch.Tensor, "argsort"))):
+            yield watch
+    finally:
+        tcount.sort_valid_windows = sort_valid_windows
 
 
 def run_ingest(work: str, device: torch.device, ingest, seed: int,
@@ -706,7 +757,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
                     [FilterInfo(run_accession=str_to_accession(a)) for a in accs])
 
     with (step_profile(device, INGEST_STEPS) if profile else contextlib.nullcontext()) as report, \
-            no_library_sort():
+            no_library_sort() as guard:
         t0 = time.perf_counter()
         rc = torch_maestro_main([
             "--meta", os.path.join(work, "inv.bin"), "--scratch", work,
@@ -715,6 +766,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
             "--device-transpose", "--device-batch", "16", "--workers", "2", "--save.bloom"])
         t_dev = time.perf_counter() - t0
     check(rc == 0, f"kwage-maestro-torch exited {rc}")
+    check(guard["sorts"] > 0, "no sort_valid_windows call ran under the guard")
     if profile:
         print(f"profile: kwage-maestro-torch {t_dev:.3f} s under the step timers and the "
               f"profiler; device busy (kernel, copy and memset self time) "
@@ -796,7 +848,8 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     small = [truth_params[a] for a in accs[: ingest[0][2]]]
     print(f"phase 6 ingest: {len(accs)} accessions, {total_bp / 1e6:.1f} Mbp of {READ_LEN} bp "
           f"reads (data + ground truth {t_data:.1f} s); kwage-maestro-torch --device-build "
-          f"--device-transpose {t_dev:.2f} s ({total_bp / 1e6 / t_dev:.2f} Mbp/s); "
+          f"--device-transpose {t_dev:.2f} s ({total_bp / 1e6 / t_dev:.2f} Mbp/s; "
+          f"{guard['sorts']} sorts, no library sort or compaction of a CUDA tensor in them); "
           f"{len(accs)} .bloom == exact ground truth (L "
           f"{sorted({p.log_2_filter_len for p in truth_params.values()})}); "
           f"{len(dbs)} .db == host pack; --device search == host engine at -t 1.0 and 0.5; "
@@ -806,6 +859,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     rows = count * (genome_bp * coverage // READ_LEN)
     return {"rows": max(64, 1 << int(np.ceil(np.log2(rows)))),
             "blen": max(128, -(-READ_LEN // 128) * 128), "num_acc": count,
+            "live_rows": rows, "valid_per_row": READ_LEN - INGEST_K + 1,
             "log2_len": small[0].log_2_filter_len, "num_hash": small[0].num_hash}
 
 
@@ -1025,10 +1079,11 @@ def bound(nbytes: float, nops: float) -> dict:
 
 def murmur_ops(k: int, nh: int) -> int:
     """Integer operations of murmur3-32 over one k-mer's decoded bases for
-    nh seeds: 6 a base to decode it into its message byte, 3 a message
-    block to mix it, then 3 a block and 12 for the finish and mask a seed."""
+    nh seeds: 10 a message block of 4 bases to decode them (a shift, the
+    codes spread to nibbles, one byte permute) and 3 to mix it, then 3 a
+    block and 12 for the finish and mask a seed."""
     blocks = -(-k // 4)
-    return 6 * k + 3 * blocks + nh * (3 * blocks + 12)
+    return 13 * blocks + nh * (3 * blocks + 12)
 
 
 def nbytes_of(*tensors) -> int:
@@ -1095,11 +1150,11 @@ def total_hits_checks(db, idx, valid, n_valid, results: dict, lines: list, strea
                 results["search_total_hits"]["max_abs_err"], err)
 
 
-SORT_TILE = tcount.SORT_TILE   # pairs a block of csrc/sort.cu takes
-# Operations a pair and pass of THIS radix sort: the digit (3), the match and
-# its leader and count (5) in the histogram; the same, the rank and the
-# address (12) in the scatter. The design's own count, reported beside the
-# passes' traffic and no part of the function's bound.
+SORT_TILE = tcount.SORT_TILE   # pairs a block of csrc/sort.cu takes a pass
+# Operations a pair and pass of THIS radix sort, an estimate: the digit (5),
+# the match, its leader and the warp's counter (6), the rank, the staging
+# and the address (9). The design's own count, reported beside the passes'
+# traffic and no part of the function's bound.
 SORT_OPS_PER_PASS = 20
 
 
@@ -1123,56 +1178,116 @@ def sort_pairs(n: int, k: int, num_acc: int, gen, device, invalid: int = 1,
     return acc.clamp_(max=num_acc), pool[pick]
 
 
-def sort_checks(device: torch.device, gen, n_main: int, num_acc_main: int, record,
+def sort_traffic(n: int, kept: int, plan, acc_bytes: int) -> int:
+    """Bytes THIS radix sort moves: the histogram reads the accessions and
+    the kept words; the first pass reads them again and writes the kept
+    pairs narrow (8 + acc_bytes), the middle passes read and write them
+    narrow, the last reads them narrow and writes int64 pairs."""
+    narrow = kept * (8 + acc_bytes)
+    first_read = n * 8 + kept * 8
+    passes = len(plan)
+    if passes == 1:
+        return 2 * first_read + kept * 16
+    return 2 * first_read + narrow + 2 * narrow * (passes - 2) + narrow + kept * 16
+
+
+def sort_checks(device: torch.device, gen, ingest: dict, record,
                 lines: list, results: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """radix_sort_pairs against its plain version (``torch.sort`` twice,
-    which is also its library yardstick), bit for bit: the fused batch's
-    window count at k = 31 (timed: the kernels line's row), 2^24 windows
-    (a chunk call, timed), k = 15, 16, 32, 1 and 300 accessions (two
-    accession digits), every byte of both keys (no widths given), n around
-    the tile's edges, all-equal and already sorted input. Returns the
-    fused batch's sorted pairs for the kernels after it."""
+    """radix_sort_pairs against its plain versions, bit for bit, timed beside
+    two library yardsticks: compaction + ``torch.sort`` twice over the valid
+    pairs (sort_valid_windows' function) and ``torch.sort`` twice over all
+    pairs (sort_windows'). Rows: the ingest's fused batch, valid only (the
+    main path's call: the kernels line's row); the same window count with a
+    30% invalid share drawn at random (all pairs, and valid only); 2^24
+    windows of one accession (a chunk call), valid only. Then k = 15, 16,
+    32, 1 and 300 accessions, every byte of both keys (no widths given), n
+    around the tile's edges, all-equal and already sorted input, each
+    through both entries. Returns the sorted pairs for the kernels after
+    it: the fused batch's valid windows (what the main path hands them)
+    and the 30%-invalid row's all pairs, by tag."""
     def compare(acc, words, k, num_acc):
         got = tcount.sort_windows(acc, words, k, num_acc)
         want = tcount.sort_windows_ref(acc, words)
-        return got, int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+        err = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+        v_got = None
+        if num_acc is not None and num_acc > 0:
+            v_got = tcount.sort_valid_windows(acc, words, k, num_acc)
+            v_want = tcount.sort_valid_windows_ref(acc, words, num_acc)
+            check(v_got[0].shape == v_want[0].shape, "sort_valid_windows: wrong length")
+            err += int((v_got[0] != v_want[0]).sum()) + int((v_got[1] != v_want[1]).sum())
+        return got, v_got, err
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    sorted_main = None
-    for tag, n, k, num_acc in (("fused batch", n_main, INGEST_K, num_acc_main),
-                               ("a chunk call", 1 << 24, INGEST_K, 1)):
-        acc, words = sort_pairs(n, k, num_acc, gen, device, invalid=6 if num_acc > 1 else 1,
-                                by_word=True)   # the fused batch: ~30% invalid
-        got, err = compare(acc, words, k, num_acc)
-        word_digits, acc_digits = tcount.sort_digits(k, num_acc)
-        passes = word_digits + acc_digits
+    def timed(fn):
+        """ms of fn and the peak device memory while it runs (the inputs
+        and the row's sorted pairs held)."""
         torch.cuda.reset_peak_memory_stats(device)
-        ms = cuda_ms(lambda: tcount.sort_windows(acc, words, k, num_acc), 3)
-        peak = torch.cuda.max_memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        library = cuda_ms(lambda: tcount.sort_windows_ref(acc, words), 3)
-        lib_peak = torch.cuda.max_memory_allocated(device)
-        # The function's bound -- bytes: both arrays in, both out, once;
-        # operations: each of a pair's 16 key bytes looked at once. What
-        # this least-significant-digit design can reach is reported beside
-        # it: the passes' own traffic (40 bytes a pair and pass: both
-        # arrays read and written, the key read once more for the
-        # histogram) and the passes' own operations.
-        lsd_ms = passes * n * 40 / HBM_BYTES_PER_S * 1e3
-        lsd_ops_ms = passes * n * SORT_OPS_PER_PASS / INT32_OPS_PER_S * 1e3
-        record("radix_sort_pairs", f"{tag} n={n} k={k} num_acc={num_acc}, {passes} passes",
-               err, ms, library,
-               f" ({n / ms / 1e6:.2f} G pairs/s; the passes' traffic alone {lsd_ms:.2f} ms, "
-               f"their operations {lsd_ops_ms:.2f} ms; "
-               f"peak {peak / 1e9:.2f} GB; torch.sort twice {library:.3f} ms, peak "
-               f"{lib_peak / 1e9:.2f} GB)",
-               2 * nbytes_of(acc, words), n * 16)
-        if sorted_main is None:
-            sorted_main = got
-            results["radix_sort_pairs"]["library_ms"] = library
-            results["radix_sort_pairs"]["lsd_pass_traffic_ms"] = lsd_ms
-            results["radix_sort_pairs"]["lsd_pass_operations_ms"] = lsd_ops_ms
-        del acc, words, got
+        ms = cuda_ms(fn, 3)
+        return ms, torch.cuda.max_memory_allocated(device)
+
+    k, outputs = INGEST_K, {}
+    n_main = ingest["rows"] * (ingest["blen"] - k + 1)
+    for tag in ("the fused batch", "30% invalid", "a chunk call"):
+        if tag == "the fused batch":
+            num_acc = ingest["num_acc"]
+            acc, words = fused_batch_pairs(ingest["rows"], ingest["blen"] - k + 1,
+                                           ingest["live_rows"], ingest["valid_per_row"],
+                                           num_acc, gen, device, k)
+        elif tag == "30% invalid":
+            num_acc = ingest["num_acc"]
+            acc, words = sort_pairs(n_main, k, num_acc, gen, device, invalid=6, by_word=True)
+        else:
+            num_acc = 1
+            acc, words = sort_pairs(1 << 24, k, 1, gen, device, invalid=1, by_word=True)
+        n = acc.shape[0]
+        got, v_got, err = compare(acc, words, k, num_acc)
+        kept = int(((acc >= 0) & (acc < num_acc)).sum())
+        valid_ms, valid_peak = timed(lambda: tcount.sort_valid_windows(acc, words, k, num_acc))
+        lib_valid, lib_valid_peak = timed(
+            lambda: tcount.sort_valid_windows_ref(acc, words, num_acc))
+        lib_all, lib_all_peak = timed(lambda: tcount.sort_windows_ref(acc, words))
+        plan = tcount.sort_plan(k, (num_acc - 1).bit_length())
+        acc_bytes = tcount.sort_acc_bytes((num_acc - 1).bit_length())
+        pass_ms = sort_traffic(n, kept, plan, acc_bytes) / HBM_BYTES_PER_S * 1e3
+        pass_ops_ms = (n + len(plan) * kept * SORT_OPS_PER_PASS) / INT32_OPS_PER_S * 1e3
+        note = ""
+        if tag == "the fused batch":
+            # The same two launches with the kept count known and the buffers
+            # made beforehand: the difference is what the wrapper's copy of
+            # the kept count to the host (and its allocations) costs.
+            case = sort_case(tag, acc, words, num_acc, True)
+            lib = kernels.get_lib()
+            launches_ms = cuda_ms(lambda: check(
+                case.call(lib, torch.cuda.current_stream(device).cuda_stream) == 0,
+                "radix_sort_pairs launch failed"), 3)
+            del case
+            note = (f"; the two launches alone {launches_ms:.4f} ms, so the count's copy to "
+                    f"the host and the allocations {valid_ms - launches_ms:.4f} ms")
+        if tag == "30% invalid":
+            all_ms, all_peak = timed(lambda: tcount.sort_windows(acc, words, k, num_acc))
+            note = (f"; all pairs: kernel {all_ms:.4f} ms, peak {all_peak / 1e9:.2f} GB, "
+                    f"torch.sort twice {lib_all:.3f} ms, peak {lib_all_peak / 1e9:.2f} GB")
+        # The function's bound -- bytes: every accession read once, the kept
+        # words read once, the kept pairs written once; operations: the
+        # accession's test and each of a kept pair's 16 key bytes looked at
+        # once. This design's own traffic and operations stand beside it.
+        record("radix_sort_pairs",
+               f"{tag} n={n} kept={kept} k={k} num_acc={num_acc}, valid only, {len(plan)} passes",
+               err, valid_ms, lib_valid,
+               f" ({kept / valid_ms / 1e6:.2f} G kept pairs/s; the passes' traffic alone "
+               f"{pass_ms:.3f} ms, their operations {pass_ops_ms:.3f} ms; peak "
+               f"{valid_peak / 1e9:.2f} GB; compaction + torch.sort twice {lib_valid:.3f} ms, "
+               f"peak {lib_valid_peak / 1e9:.2f} GB; torch.sort twice over all pairs "
+               f"{lib_all:.3f} ms{note})",
+               n * 8 + kept * 24, n + kept * 16)
+        if tag == "the fused batch":
+            results["radix_sort_pairs"].update(
+                library_ms=lib_valid, library_all_pairs_ms=lib_all, lsd_pass_traffic_ms=pass_ms,
+                lsd_pass_operations_ms=pass_ops_ms, peak_bytes=valid_peak,
+                sync_ms=valid_ms - launches_ms)
+            outputs[tag] = v_got
+        if tag == "30% invalid":
+            outputs[tag] = got
+        del acc, words, got, v_got
         torch.cuda.empty_cache()
     n_cmp = 0
     sizes = [2, 3, 31, 32, 33, 255, 257, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1,
@@ -1183,20 +1298,20 @@ def sort_checks(device: torch.device, gen, n_main: int, num_acc_main: int, recor
                                     gen, device)
             if num_acc is None:
                 acc -= 1 << 39            # negative accessions: the sign digit of both keys
-            _, err = compare(acc, words, k, num_acc)
+            _, _, err = compare(acc, words, k, num_acc)
             record("radix_sort_pairs", f"n={n} k={k} num_acc={num_acc}", err, log=False)
             n_cmp += 1
     acc, words = sort_pairs(1 << 20, INGEST_K, 14, gen, device)
     for tag, a, w in (("all equal", torch.zeros_like(acc), torch.full_like(words, 5)),
                       ("sorted", *tcount.sort_windows_ref(acc, words)),
                       ("one accession digit only", acc, torch.zeros_like(words))):
-        _, err = compare(a, w, INGEST_K, 14)
+        _, _, err = compare(a, w, INGEST_K, 14)
         record("radix_sort_pairs", tag, err, log=False)
         n_cmp += 1
-    lines.append(f"radix_sort_pairs ({n_cmp} comparisons: n = 2 .. 3 tiles + 5 and 2^20 at "
-                 "k = 15, 16, 31, 32 and all 16 bytes, num_acc 1, 3, 14, 300; all equal; "
-                 "sorted; one digit) == torch.sort twice")
-    return sorted_main
+    lines.append(f"radix_sort_pairs ({n_cmp} inputs, sort_windows and sort_valid_windows each: "
+                 "n = 2 .. 3 tiles + 5 and 2^20 at k = 15, 16, 31, 32 and all 16 bytes, "
+                 "num_acc 1, 3, 14, 300; all equal; sorted; one digit) == plain")
+    return outputs
 
 
 def transpose_bits_checks(device: torch.device, gen, record, lines: list) -> dict:
@@ -1335,48 +1450,52 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
     del packed, vw, words, valid
     torch.cuda.empty_cache()
 
-    # select_runs and bloom_set_bits over the fused batch's window count:
-    # sorted (acc, word) pairs from a pool (runs of ~8), invalid tail.
-    n, num_acc = R * (blen - k + 1), ingest["num_acc"]
-    # radix_sort_pairs first: its output at this size feeds the two kernels
-    # after it.
-    acc_s, words_s = sort_checks(device, gen, n, num_acc, record, lines, results)
-    sel, nv = tcount.select_runs(acc_s, words_s, num_acc, MIN_COUNT)
-    ref_sel, ref_nv = tcount.select_runs_ref(acc_s, words_s, num_acc, MIN_COUNT)
-    err = max(max_abs_err(sel, ref_sel), max_abs_err(nv, ref_nv))
-    check(int(nv.sum()) > 0, "select_runs selected nothing")
-    del ref_sel, ref_nv
-    out_nv = torch.zeros_like(nv)
-    ms = cuda_ms(lambda: kernels.launch(
-        "select_runs", acc_s.data_ptr(), words_s.data_ptr(), sel.data_ptr(), out_nv.data_ptr(),
-        n, num_acc, MIN_COUNT, stream()), 10)
-    plain = cuda_ms(lambda: tcount.select_runs_ref(acc_s, words_s, num_acc, MIN_COUNT), 2)
-    # Bytes: the sorted pairs in, the flags and counts out. Operations:
-    # about 10 a position (two compares with the neighbours, the run length).
-    record("select_runs", f"n={n} num_acc={num_acc} min_count={MIN_COUNT}", err, ms, plain,
-           f" ({n / ms / 1e6:.1f} G positions/s)",
-           nbytes_of(acc_s, words_s, sel, nv), 10 * n)
-
+    # select_runs and bloom_set_bits over radix_sort_pairs' outputs: first
+    # the fused batch's valid windows, which the main path hands them (the
+    # kernels line's row), then all 237 M pairs at 30% invalid (an invalid
+    # tail; the row of PRs 5 and 6).
+    num_acc = ingest["num_acc"]
     L, nh = ingest["log2_len"], ingest["num_hash"]
     slot = torch.tensor(list(range(num_acc)) + [-1], dtype=torch.int32, device=device)
-    got = tcount.bloom_set_bits(acc_s, words_s, sel, slot, k, nh, L)
-    want = tcount.bloom_set_bits_ref(acc_s, words_s, sel, slot, k, nh, L)
-    err = max_abs_err(got, want)
-    ms = cuda_ms(lambda: kernels.launch(
-        "bloom_set_bits", acc_s.data_ptr(), words_s.data_ptr(), sel.data_ptr(), slot.data_ptr(),
-        got.data_ptr(), n, num_acc, k, nh, L, got.shape[1], stream()), 10)
-    plain = cuda_ms(lambda: tcount.bloom_set_bits_ref(acc_s, words_s, sel, slot, k, nh, L), 2)
-    n_sel = int(nv.sum())
-    # Bytes: the flag of every position, the (accession, word) pair of the
-    # selected ones alone (the rest are never read), the filter images out
-    # once. Operations: murmur for the selected words, 3 a position to skip
-    # the rest.
-    pair_bytes = acc_s.element_size() + words_s.element_size()
-    record("bloom_set_bits", f"n={n} selected={n_sel} num_acc={num_acc} L={L} nh={nh}",
-           err, ms, plain, f" ({n_sel * nh / ms / 1e6:.1f} G bits/s)",
-           nbytes_of(sel, slot, got) + n_sel * pair_bytes,
-           n_sel * murmur_ops(k, nh) + 3 * n)
-    del acc_s, words_s, sel, nv, got, want
+    for tag, (acc_s, words_s) in sort_checks(device, gen, ingest, record, lines,
+                                             results).items():
+        n = acc_s.shape[0]
+        sel, nv = tcount.select_runs(acc_s, words_s, num_acc, MIN_COUNT)
+        ref_sel, ref_nv = tcount.select_runs_ref(acc_s, words_s, num_acc, MIN_COUNT)
+        err = max(max_abs_err(sel, ref_sel), max_abs_err(nv, ref_nv))
+        check(int(nv.sum()) > 0, "select_runs selected nothing")
+        del ref_sel, ref_nv
+        out_nv = torch.zeros_like(nv)
+        ms = cuda_ms(lambda: kernels.launch(
+            "select_runs", acc_s.data_ptr(), words_s.data_ptr(), sel.data_ptr(),
+            out_nv.data_ptr(), n, num_acc, MIN_COUNT, stream()), 10)
+        plain = cuda_ms(lambda: tcount.select_runs_ref(acc_s, words_s, num_acc, MIN_COUNT), 2)
+        # Bytes: the sorted pairs in, the flags and counts out. Operations:
+        # about 10 a position (two compares with the neighbours, the run
+        # length).
+        record("select_runs", f"{tag} n={n} num_acc={num_acc} min_count={MIN_COUNT}", err, ms,
+               plain, f" ({n / ms / 1e6:.1f} G positions/s)",
+               nbytes_of(acc_s, words_s, sel, nv), 10 * n)
+
+        got = tcount.bloom_set_bits(acc_s, words_s, sel, slot, k, nh, L)
+        want = tcount.bloom_set_bits_ref(acc_s, words_s, sel, slot, k, nh, L)
+        err = max_abs_err(got, want)
+        ms = cuda_ms(lambda: kernels.launch(
+            "bloom_set_bits", acc_s.data_ptr(), words_s.data_ptr(), sel.data_ptr(),
+            slot.data_ptr(), got.data_ptr(), n, num_acc, k, nh, L, got.shape[1], stream()), 10)
+        plain = cuda_ms(lambda: tcount.bloom_set_bits_ref(acc_s, words_s, sel, slot, k, nh, L),
+                        2)
+        n_sel = int(nv.sum())
+        # Bytes: the flag of every position, the (accession, word) pair of
+        # the selected ones alone (the rest are never read), the filter
+        # images out once. Operations: murmur for the selected words, 3 a
+        # position to skip the rest.
+        pair_bytes = acc_s.element_size() + words_s.element_size()
+        record("bloom_set_bits", f"{tag} n={n} selected={n_sel} num_acc={num_acc} L={L} nh={nh}",
+               err, ms, plain, f" ({n_sel * nh / ms / 1e6:.1f} G bits/s)",
+               nbytes_of(sel, slot, got) + n_sel * pair_bytes,
+               n_sel * murmur_ops(k, nh) + 3 * n)
+        del acc_s, words_s, sel, nv, got, want
     torch.cuda.empty_cache()
 
     # bloom_set_bits at num_acc * 2^L = 2^32 bits: bit offsets past 2^31.
@@ -1932,14 +2051,16 @@ def main(argv: list[str] | None = None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "bytes": r["bytes"],
             "operations": r["operations"], "share_of_bound": r["bound_ms"] / r["ms"],
             "library_ms": r.get("library_ms"),
-            **{key: r[key] for key in ("lsd_pass_traffic_ms", "lsd_pass_operations_ms")
+            **{key: r[key] for key in ("library_all_pairs_ms", "lsd_pass_traffic_ms",
+                                       "lsd_pass_operations_ms", "peak_bytes", "sync_ms")
                if key in r},
             "launches": {path: counts[k] for path, counts in paths.items() if counts[k]}}))
     # The byte entry of bit_transpose: its launches count under that kernel.
     print(json.dumps(results["transpose_bits_device"]))
     print(card)
-    # library_ms: torch.sort twice computes radix_sort_pairs' function; no
-    # single PyTorch call computes any of the others.
+    # library_ms: compaction + torch.sort twice computes radix_sort_pairs'
+    # function on the main path (the valid windows, sorted); no single
+    # PyTorch call computes any of the others.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],

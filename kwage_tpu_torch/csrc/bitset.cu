@@ -15,17 +15,23 @@
 // and every seed h < nh, bit b = murmur3_32(words_s[i], h) & (2^L - 1)
 // is set as bit b & 31 of out[s, b >> 5]. wps = max(1, 2^L / 32).
 //
-// Bound: atomics into the image (one 4-byte atomicOr per (k-mer, seed)
-// at a random address); at L <= 23 an image of 1 MiB or less sits in L2,
-// above it every atomic is a DRAM sector read-modify-write.
+// Bound: integer operations (murmur over the selected words: ~350 for
+// k = 31 and 4 seeds), then the atomics into the image (one 4-byte
+// atomicOr per (k-mer, seed) at a random address; an image of a few MiB
+// sits in L2). The flags are one byte a position; the pairs are read for
+// the selected positions alone.
 //
-// Design (simple and right first): one thread per sorted position,
-// grid-stride. An unselected position costs one predicate and no atomic,
-// so no compaction pass is needed (XLA paid its scatter for dropped
-// rows). The bits go straight into packed words: no byte image, no pack
-// pass. atomicOr is order-free, so the image is bit-identical from run to
-// run. Word offsets are int64: num_acc * 2^L may pass 2^32 bits (the JAX
-// version capped it at 2^31 and fell back per accession or to the host).
+// Design: murmur on compacted positions. The first version ran one thread
+// per position, so a warp paid the whole murmur whenever any of its 32
+// lanes was selected (at the ingest's ~8% selected: 93% of warps, 8% of
+// lanes busy). Now a block takes a tile of 16,384 positions, each thread
+// reads its 64 flags as four 16-byte loads, and the block compacts the
+// selected positions into shared memory (per-thread popcounts, then warp
+// and block prefixes); then every thread of the block hashes one selected
+// word at a time: slot_of_acc from shared memory, murmur_blocks once, the
+// nh seeds, atomicOr. The order of the positions in the list does not
+// matter: atomicOr is order-free, so the image is the same bits on every
+// run. Word offsets are int64: num_acc * 2^L may pass 2^32 bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,28 +41,95 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 16;                     // flags a 16-byte load
+constexpr int kChunks = 4;                     // 16-byte loads a thread and tile
+constexpr int kTile = kChunks * kThreads * kChunk;   // positions a tile: 16384
+constexpr int kSlotCap = 1024;                 // slot_of_acc entries staged
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void bloom_set_bits_kernel(const int64_t* __restrict__ acc,
-                                      const int64_t* __restrict__ words,
-                                      const uint8_t* __restrict__ selected,
-                                      const int32_t* __restrict__ slot_of_acc,
-                                      uint32_t* __restrict__ out, int64_t n,
-                                      int64_t num_acc, int k, int nh,
-                                      uint32_t mask, int64_t wps) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    if (!selected[i]) continue;
-    int64_t a = acc[i];
-    if (a < 0 || a > num_acc) a = num_acc;
-    const int64_t slot = slot_of_acc[a];
-    if (slot < 0) continue;
-    uint32_t blocks[kw::kMaxKmerBlocks];
-    kw::murmur_blocks((uint64_t)words[i], k, blocks);
-    uint32_t* image = out + slot * wps;
-    for (int s = 0; s < nh; ++s) {
-      const uint32_t bit = kw::murmur_seed(blocks, k, (uint32_t)s) & mask;
-      atomicOr(image + (bit >> 5), 1u << (bit & 31));
+// Bits b of the result: byte b of `v` is not 0.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint4 v) {
+  const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      bits |= (uint32_t)(((x[q] >> (8 * b)) & 0xffu) != 0) << (4 * q + b);
+  return bits;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_set_bits_kernel(const int64_t* __restrict__ acc, const int64_t* __restrict__ words,
+                      const uint8_t* __restrict__ selected,
+                      const int32_t* __restrict__ slot_of_acc, uint32_t* __restrict__ out,
+                      int64_t n, int64_t num_acc, int k, int nh, uint32_t mask, int64_t wps) {
+  __shared__ uint16_t s_list[kTile];
+  __shared__ uint32_t s_wsum[kWarps];
+  __shared__ int32_t s_slot[kSlotCap];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool staged = num_acc < kSlotCap;
+  if (staged)
+    for (int j = t; j <= num_acc; j += kThreads) s_slot[j] = slot_of_acc[j];
+  const bool aligned = ((uintptr_t)selected & 15) == 0;
+
+  for (int64_t tile0 = (int64_t)blockIdx.x * kTile; tile0 < n;
+       tile0 += (int64_t)gridDim.x * kTile) {
+    // This thread's flags: 16 at tile0 + 4096 c + 16 t for each chunk c.
+    uint64_t bits = 0;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int64_t start = tile0 + c * kThreads * kChunk + t * kChunk;
+      uint32_t b16 = 0;
+      if (aligned && start + kChunk <= n) {
+        b16 = nonzero_bytes(*reinterpret_cast<const uint4*>(selected + start));
+      } else {
+        for (int b = 0; b < kChunk; ++b)
+          if (start + b < n && selected[start + b]) b16 |= 1u << b;
+      }
+      bits |= (uint64_t)b16 << (16 * c);
     }
+    // Compact: this thread's selected positions go to s_list[offset ...].
+    const uint32_t count = __popcll(bits);
+    uint32_t inc = count;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t up = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += up;
+    }
+    if (lane == 31) s_wsum[warp] = inc;
+    __syncthreads();
+    uint32_t offset = inc - count, total = 0;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) {
+      if (j < warp) offset += s_wsum[j];
+      total += s_wsum[j];
+    }
+    while (bits) {
+      const int q = __ffsll(bits) - 1;
+      bits &= bits - 1;
+      s_list[offset++] = (uint16_t)((q >> 4) * kThreads * kChunk + t * kChunk + (q & 15));
+    }
+    __syncthreads();
+
+    // Hash: one selected position a thread at a time.
+    for (uint32_t j = t; j < total; j += kThreads) {
+      const int64_t i = tile0 + s_list[j];
+      int64_t a = acc[i];
+      const uint64_t word = (uint64_t)words[i];   // loaded beside the accession
+      if (a < 0 || a > num_acc) a = num_acc;
+      const int64_t slot = staged ? s_slot[a] : slot_of_acc[a];
+      if (slot < 0) continue;
+      uint32_t blocks[kw::kMaxKmerBlocks];
+      kw::murmur_blocks(word, k, blocks);
+      uint32_t* image = out + slot * wps;
+      for (int s = 0; s < nh; ++s) {
+        const uint32_t bit = kw::murmur_seed(blocks, k, (uint32_t)s) & mask;
+        atomicOr(image + (bit >> 5), 1u << (bit & 31));
+      }
+    }
+    __syncthreads();   // s_list and s_wsum are the next tile's
   }
 }
 
@@ -72,9 +145,12 @@ extern "C" int kw_bloom_set_bits(const void* acc, const void* words,
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const uint32_t mask = (uint32_t)((1ull << log2_len) - 1);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
-  bloom_set_bits_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t grid = tiles < 8LL * sms ? tiles : 8LL * sms;
+  bloom_set_bits_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int64_t*)acc, (const int64_t*)words, (const uint8_t*)selected,
       (const int32_t*)slot_of_acc, (uint32_t*)out, n, num_acc, (int)k,
       (int)nh, mask, wps);

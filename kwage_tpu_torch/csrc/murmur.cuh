@@ -21,16 +21,10 @@
 
 namespace kw {
 
-constexpr int kMaxKmerBlocks = 9;  // k <= 32: 8 full blocks + a tail
+constexpr int kMaxKmerBlocks = 8;  // k <= 32: 8 full blocks, or 7 and a tail
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
-}
-
-// "ACGT"[code] for the base i (0-based from the 5' end) of a 2k-bit word.
-__device__ __forceinline__ uint32_t base_ascii(uint64_t word, int k, int i) {
-  const uint32_t code = (uint32_t)(word >> (2 * (k - 1 - i))) & 3u;
-  return (0x54474341u >> (8 * code)) & 0xffu;  // bytes 'A' 'C' 'G' 'T'
 }
 
 __device__ __forceinline__ uint32_t mix_k1(uint32_t k1) {
@@ -40,22 +34,24 @@ __device__ __forceinline__ uint32_t mix_k1(uint32_t k1) {
 }
 
 // Seed-independent message words of one k-mer: blocks[0 .. k/4) are the
-// full 4-byte blocks, blocks[k/4] the tail when k % 4 != 0.
+// full 4-byte blocks, blocks[k/4] the tail when k % 4 != 0. The word is
+// shifted so that its 5' base fills the top two bits; block b's four 2-bit
+// codes are then byte 7 - b, spread to four selector nibbles, and one byte
+// permute maps them to "ACGT" (the message bytes, 5' base first). The loops
+// run over the eight blocks a k <= 32 can have, with guards, so every
+// index is a constant and the blocks stay in registers.
 __device__ __forceinline__ void murmur_blocks(uint64_t word, int k,
                                               uint32_t blocks[kMaxKmerBlocks]) {
   const int nblocks = k >> 2;
-  for (int b = 0; b < nblocks; ++b) {
-    uint32_t m = 0;
+  const uint64_t aligned = word << (64 - 2 * k);
 #pragma unroll
-    for (int byte = 0; byte < 4; ++byte)
-      m |= base_ascii(word, k, 4 * b + byte) << (8 * byte);
+  for (int b = 0; b < 8; ++b) {
+    const uint32_t codes = (uint32_t)(aligned >> (56 - 8 * b)) & 0xffu;
+    const uint32_t sel = ((codes >> 6) & 3u) | ((codes >> 4) & 3u) << 4 |
+                         ((codes >> 2) & 3u) << 8 | (codes & 3u) << 12;
+    uint32_t m = __byte_perm(0x54474341u, 0u, sel);  // bytes 'A' 'C' 'G' 'T'
+    if (b == nblocks) m &= (1u << (8 * (k & 3))) - 1u;  // the tail's k % 4 bases
     blocks[b] = mix_k1(m);
-  }
-  if (k & 3) {
-    uint32_t m = 0;
-    for (int t = 0; t < (k & 3); ++t)
-      m ^= base_ascii(word, k, 4 * nblocks + t) << (8 * t);
-    blocks[nblocks] = mix_k1(m);
   }
 }
 
@@ -63,12 +59,16 @@ __device__ __forceinline__ uint32_t murmur_seed(
     const uint32_t blocks[kMaxKmerBlocks], int k, uint32_t seed) {
   const int nblocks = k >> 2;
   uint32_t h = seed;
-  for (int b = 0; b < nblocks; ++b) {
-    h ^= blocks[b];
-    h = rotl32(h, 13);
-    h = h * 5u + 0xe6546b64u;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    if (b < nblocks) {
+      h ^= blocks[b];
+      h = rotl32(h, 13);
+      h = h * 5u + 0xe6546b64u;
+    } else if (b == nblocks && (k & 3)) {
+      h ^= blocks[b];
+    }
   }
-  if (k & 3) h ^= blocks[nblocks];
   h ^= (uint32_t)k;  // the length: k bytes of ASCII
   h ^= h >> 16;
   h *= 0x85ebca6bu;

@@ -50,9 +50,13 @@ _ENTRIES = {
     "canonical_kmers_ascii": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     # (words, out, n, k, nh, mask, stream)
     "murmur32": [_VP, _VP, _I64, _I64, _I64, _I64, _VP],
-    # (acc, words, acc_a, words_a, acc_b, words_b, hist, totals, n,
-    #  word_digits, acc_digits, stream): one call runs every pass
-    "radix_sort_pairs": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
+    # (acc, words, hist, kept, n, limit, word_bits, acc_bits, widths,
+    #  passes, stream): every pass's digit counts in one read
+    "radix_sort_hist": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _I64, _VP],
+    # (acc, words, acc_a, acc_b, words_a, words_b, acc_out, hist, lookback,
+    #  counters, n, n_kept, limit, word_bits, acc_bits, widths, passes,
+    #  lookback_entries, stream): one call runs every pass
+    "radix_sort_pairs": [_VP] * 10 + [_I64] * 8 + [_VP],
     # (acc_s, words_s, selected, num_valid, n, num_acc, min_count, stream)
     "select_runs": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
     # (acc_s, words_s, selected, slot_of_acc, out, n, num_acc, k, nh,
@@ -71,9 +75,9 @@ _ENTRIES = {
     "subject_table": [_VP, _VP, _I64, _I64, _I64, _VP],
 }
 
-# Entry points that launch another entry's kernel on another input layout;
-# their launches count under that kernel's name.
-_KERNEL_OF = {"canonical_kmers_ascii": "canonical_kmers"}
+# Entry points that launch another entry's kernel on another input layout,
+# or a step of it; their launches count under that kernel's name.
+_KERNEL_OF = {"canonical_kmers_ascii": "canonical_kmers", "radix_sort_hist": "radix_sort_pairs"}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

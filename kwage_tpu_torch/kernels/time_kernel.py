@@ -3,18 +3,24 @@
     python -m kwage_tpu_torch.kernels.time_kernel KERNEL [other_version.cu ...]
 
 KERNEL is ``kmers`` (``csrc/kmers.cu``), ``select_runs``
-(``csrc/counting.cu``) or ``bit_transpose`` (``csrc/bit_transpose.cu``).
-Each source (this tree's first, then the files named) is compiled alone
-with ``nvcc`` for ``sm_90a`` into ``build/kwage_tpu_torch/`` and bound with
-``ctypes``; these files have a plain C interface and no other source of the
-package in them. Every version runs the kernel's cases below, must give the
-first version's bytes, and is timed with CUDA events in the order
-first .. last, last .. first; both readings are printed. A timed run
-replays a CUDA graph of 20 launches, so the host's launch rate (5-6 us a
-launch, above these kernels' time at the small shapes) is not in it. To
-time an earlier commit's kernel: ``git show
-<commit>:kwage_tpu_torch/csrc/counting.cu > build/counting_old.cu`` and
-name that file. Exit code 1 when two versions disagree.
+(``csrc/counting.cu``), ``bit_transpose`` (``csrc/bit_transpose.cu``),
+``sort`` (``csrc/sort.cu``), ``bitset`` (``csrc/bitset.cu``) or ``roof``
+(``csrc/variants/int_roof.cu``, the card's integer rate). Each source (this
+tree's first, then the files named) is compiled alone with ``nvcc`` for
+``sm_90a`` (``-I csrc/``, for ``murmur.cuh``; a header beside the source
+wins) into ``build/kwage_tpu_torch/`` and bound with ``ctypes``; these
+files have a plain C interface and no other source of the package in them.
+Every version runs the kernel's cases below, must give the first version's
+bytes, and is timed with CUDA events in the order first .. last, last ..
+first; both readings are printed. A timed run of a small case replays a
+CUDA graph of 20 launches, so the host's launch rate (5-6 us a launch,
+above these kernels' time at the small shapes) is not in it; the cases of
+milliseconds are launched a few times in a row. To time an earlier
+commit's kernel: ``git show <commit>:kwage_tpu_torch/csrc/counting.cu >
+build/counting_old.cu`` and name that file (for ``bitset.cu``, put that
+commit's ``murmur.cuh`` beside it). Where a C entry's arguments changed
+(``radix_sort_pairs``), each version is called with its own. Exit code 1
+when two versions disagree.
 
 Cases. ``kmers``: the ASCII entry at SriRachA's batch shapes ([512, 256] at
 k = 21 and 11, [4, 32768] and [512, 32768] at k = 21), at the one-query
@@ -26,45 +32,90 @@ build's one-accession calls at n = 2^20, 2^18, 2^16, 2^14 and 4096
 ``bit_transpose``: a pack chunk [2048, 65,536], the ingest's [32, 65,536],
 the squares and strips between [2048, 1024] and [32, 32] around the point
 where the small-matrix kernel takes over, and the ragged [64, 130] and
-[2080, 33].
+[2080, 33]. ``sort`` (k = 31): 236,978,176 windows of 14 accessions, 30%
+invalid, all pairs and the valid pairs only (a version that cannot drop
+windows sorts all, and its valid prefix is compared); the fused batch's
+own layout, 67,200,000 valid windows (rows of 120 valid of 226) of
+236,978,176, valid only; 2^24 windows of one accession, half invalid,
+valid only.
+``bitset``: phase 4's shape (236,978,176 sorted windows, 5-fold runs
+selected, 14 filters, L = 21) at 4 seeds and at 1 (the atomics alone),
+and 4 filters of 2^30 bits (offsets past 2^31). ``roof``: chains of int32
+IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
+the SM clock it ran at and the operations a clock and SM.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import subprocess
 import sys
+from typing import Callable
 
 import torch
 
-from . import _ENTRIES, BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
+from . import _ENTRIES, _I64, _VP, BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
 
 GRAPH_LAUNCHES = 20
+# C entries this tool alone calls: (out, grid, steps, mode, stream).
+_OWN_ENTRIES = {"int_roof": [_VP, _I64, _I64, _I64, _VP]}
+# Entries whose arguments changed: name -> (the entry only the current
+# version has, the earlier version's argument types).
+_EARLIER = {
+    # (acc, words, acc_a, words_a, acc_b, words_b, hist, totals, n,
+    #  word_digits, acc_digits, stream)
+    "radix_sort_pairs": ("radix_sort_hist", [_VP] * 8 + [_I64] * 3 + [_VP]),
+}
 
 
 def load(source: str, entries: tuple[str, ...]) -> ctypes.CDLL:
-    with open(source, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Compile ``source`` alone into a shared library (cached by its bytes
+    and those of a ``murmur.cuh`` beside it) and bind the ``entries`` it
+    exports."""
+    tag = hashlib.sha256()
+    for path in (source, os.path.join(os.path.dirname(source), "murmur.cuh")):
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                tag.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libtime_kernel_{tag}.so")
+    so = os.path.join(BUILD_DIR, f"libtime_kernel_{tag.hexdigest()[:16]}.so")
     if not os.path.exists(so):
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", so, source],
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-shared", "-o", so, source],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         print(f"{source}:\n{res.stdout}", flush=True)   # ptxas: registers, spills
         res.check_returncode()
     lib = ctypes.CDLL(so)
     for name in entries:
+        if not hasattr(lib, "kw_" + name):
+            continue
         fn = getattr(lib, "kw_" + name)
-        fn.argtypes = _ENTRIES[name]
+        fn.argtypes = _ENTRIES.get(name) or _OWN_ENTRIES[name]
+        if name in _EARLIER and not hasattr(lib, "kw_" + _EARLIER[name][0]):
+            fn.argtypes = _EARLIER[name][1]
         fn.restype = ctypes.c_int
     return lib
 
 
-def cuda_ms(call, reps: int) -> float:
+def cuda_ms(call, reps: int, graph: bool = True) -> float:
     """Mean ms of one launch of ``call(stream)`` over ``reps`` replays of a
-    graph of GRAPH_LAUNCHES launches."""
+    graph of GRAPH_LAUNCHES launches; ``graph`` False: over ``reps``
+    launches in a row after one warm-up (cases of milliseconds)."""
+    if not graph:
+        stream = torch.cuda.current_stream().cuda_stream
+        if call(stream):
+            raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            if call(stream):
+                raise RuntimeError("launch failed")
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
     side = torch.cuda.Stream()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
@@ -82,10 +133,26 @@ def cuda_ms(call, reps: int) -> float:
     return start.elapsed_time(end) / (reps * GRAPH_LAUNCHES)
 
 
-# A case is (label, call(lib, stream) -> CUDA error code, the tensors the
-# call writes as (tensor, fill value), replays of the graph in a timed
-# run). The outputs are filled before each version's checked launch;
-# ``num_valid`` with zeros, since select_runs adds into it.
+@dataclasses.dataclass
+class Case:
+    """``call(lib, stream)`` -> CUDA error code; ``outputs``: the tensors
+    the call writes, as (tensor, fill value), filled before each version's
+    checked launch (``num_valid`` with zeros, since select_runs adds into
+    it); ``reps``: replays of the graph (or launches) in a timed run;
+    ``result(lib)``: the tensors to compare, where they are not the
+    outputs; ``ops``: the operations of one launch, for a rate;
+    ``note(ms)``: text printed after the fastest reading."""
+    label: str
+    call: Callable
+    outputs: list
+    reps: int
+    result: Callable | None = None
+    ops: int | None = None
+    graph: bool = True
+    note: Callable | None = None
+
+
+# A case generator yields Cases.
 
 def kmers_cases(device, gen):
     acgtn = torch.tensor(list(b"ACGTacgtN"), dtype=torch.uint8, device=device)
@@ -113,7 +180,8 @@ def kmers_cases(device, gen):
                 return lib.kw_canonical_kmers(
                     packed.data_ptr(), vw.data_ptr(), words.data_ptr(), valid.data_ptr(), R,
                     L // 16, L // 32, L, k, st)
-        yield f"{layout} [{R}, {L}] k={k}", call, [(words, -7), (valid, 9)], 20 if R * L <= 1 << 17 else 2
+        yield Case(f"{layout} [{R}, {L}] k={k}", call, [(words, -7), (valid, 9)],
+                   20 if R * L <= 1 << 17 else 2)
 
 
 def select_runs_cases(device, gen):
@@ -134,7 +202,7 @@ def select_runs_cases(device, gen):
                 return lib.kw_select_runs(acc_s.data_ptr(), words_s.data_ptr(),
                                           selected.data_ptr(), num_valid.data_ptr(), n,
                                           num_acc, min_count, st)
-            yield (f"n={n} num_acc={num_acc} min_count={min_count}", call,
+            yield Case(f"n={n} num_acc={num_acc} min_count={min_count}", call,
                    [(selected, 9), (num_valid, 0)], 20 if n <= 1 << 20 else 2)
         del acc_s, words_s, selected
         torch.cuda.empty_cache()
@@ -148,7 +216,160 @@ def bit_transpose_cases(device, gen):
 
         def call(lib, st, x=x, out=out, F=F, W=W):
             return lib.kw_bit_transpose(x.data_ptr(), out.data_ptr(), F, W, st)
-        yield f"[{F}, {W}]", call, [(out, 9)], 20 if F * W <= 1 << 21 else 2
+        yield Case(f"[{F}, {W}]", call, [(out, 9)], 20 if F * W <= 1 << 21 else 2)
+
+
+SORT_K, SORT_NUM_ACC = 31, 14
+FUSED_ROWS, FUSED_NWIN = 1 << 20, 226          # the ingest's fused batch
+FUSED_LIVE_ROWS, FUSED_LIVE_WIN = 560_000, 120   # 14 x 40,000 reads, 150 bp
+
+
+def fused_batch_pairs(rows: int, nwin: int, live_rows: int, valid_per_row: int,
+                      num_acc: int, gen, device, k: int = SORT_K):
+    """int64 (acc, word) windows laid out as the ingest's fused batch: rows
+    of ``nwin`` windows; the first ``live_rows`` hold reads of accessions
+    0 .. num_acc - 1 in equal runs of rows, the first ``valid_per_row``
+    windows of a live row valid; every other window carries num_acc. The
+    words: about 400,000 distinct k-mers an accession (a 400 kbp genome),
+    drawn at random."""
+    row = torch.arange(rows, device=device)
+    acc = torch.where(row < live_rows, row // -(-live_rows // num_acc),
+                      num_acc)[:, None].repeat(1, nwin)
+    acc[:, valid_per_row:] = num_acc
+    acc = acc.reshape(-1)
+    distinct = 400_000
+    pool = torch.randint(0, 1 << (2 * k), (num_acc * distinct,), device=device, generator=gen)
+    pick = torch.randint(0, distinct, acc.shape, device=device, generator=gen)
+    return acc, pool[acc.clamp(max=num_acc - 1) * distinct + pick]
+
+
+def _ingest_pairs(device, gen, layout: str):
+    """int64 (acc, word) windows, k = 31. "random": 236,978,176 windows of
+    14 accessions from a pool (runs of ~8), a word kept to one accession,
+    30% invalid; "fused": the fused batch's layout (fused_batch_pairs),
+    rows of 226 windows of which the first 120 are valid in 560,000 rows
+    of 14 accessions; "chunk": 2^24 windows of one accession, half
+    invalid."""
+    if layout == "fused":
+        return fused_batch_pairs(FUSED_ROWS, FUSED_NWIN, FUSED_LIVE_ROWS, FUSED_LIVE_WIN,
+                                 SORT_NUM_ACC, gen, device)
+    n, num_acc, invalid = ((FUSED_ROWS * FUSED_NWIN, SORT_NUM_ACC, 6) if layout == "random"
+                           else (1 << 24, 1, 1))
+    pool = torch.randint(0, 1 << (2 * SORT_K), (n // 8,), device=device, generator=gen)
+    pick = torch.randint(0, n // 8, (n,), device=device, generator=gen)
+    return (pick % (num_acc + invalid)).clamp_(max=num_acc), pool[pick]
+
+
+def sort_case(label, acc, words, num_acc, valid_only):
+    """One sort of (acc, words) through either version of csrc/sort.cu over
+    buffers made once: the current one's two entries (histogram, passes;
+    ``valid_only`` drops the windows outside [0, num_acc)), or an earlier
+    one's single entry (8-bit digits; all pairs, its valid prefix compared)."""
+    from ..ops.counting import _ACC_DTYPES, SORT_TILE, sort_acc_bytes, sort_plan
+
+    device, n = acc.device, acc.shape[0]
+    limit = num_acc if valid_only else 0
+    n_kept = int(((acc >= 0) & (acc < num_acc)).sum()) if valid_only else n
+    acc_bits = (num_acc - 1 if valid_only else num_acc).bit_length()
+    plan = sort_plan(SORT_K, acc_bits)
+    passes, widths = len(plan), sum(w << (4 * p) for p, (_, w) in enumerate(plan))
+    empty = lambda m, dtype=torch.int64: torch.empty(m, dtype=dtype, device=device)  # noqa: E731
+    hist, kept, counters = empty(sum(1 << w for _, w in plan), torch.int32), empty(1), \
+        empty(16, torch.int32)
+    words_a, words_b, acc_out = empty(n_kept), empty(n_kept), torch.zeros_like(empty(n_kept))
+    ab = sort_acc_bytes(acc_bits)
+    acc_a = acc_b = None
+    if ab:
+        acc_a, acc_b = empty(n_kept, _ACC_DTYPES[ab]), empty(n_kept, _ACC_DTYPES[ab])
+    entries = max(-(-(n if p == 0 else n_kept) // SORT_TILE) << w for p, (_, w) in enumerate(plan))
+    lookback = empty(entries)
+    old_digits = (-(-2 * SORT_K // 8), -(-num_acc.bit_length() // 8))
+    old = [(empty(n), empty(n)), (empty(n), empty(n))]
+    old_hist, old_totals = empty(256 * -(-n // SORT_TILE), torch.int32), empty(256, torch.int32)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+
+    def call(lib, st):
+        if hasattr(lib, "kw_radix_sort_hist"):
+            return (lib.kw_radix_sort_hist(acc.data_ptr(), words.data_ptr(), hist.data_ptr(),
+                                           kept.data_ptr(), n, limit, 2 * SORT_K, acc_bits,
+                                           widths, passes, st)
+                    or lib.kw_radix_sort_pairs(
+                        acc.data_ptr(), words.data_ptr(), ptr(acc_a), ptr(acc_b),
+                        words_a.data_ptr(), words_b.data_ptr(), acc_out.data_ptr(),
+                        hist.data_ptr(), lookback.data_ptr(), counters.data_ptr(), n, n_kept,
+                        limit, 2 * SORT_K, acc_bits, widths, passes, entries, st))
+        return lib.kw_radix_sort_pairs(acc.data_ptr(), words.data_ptr(), old[0][0].data_ptr(),
+                                       old[0][1].data_ptr(), old[1][0].data_ptr(),
+                                       old[1][1].data_ptr(), old_hist.data_ptr(),
+                                       old_totals.data_ptr(), n, *old_digits, st)
+
+    def result(lib):
+        if hasattr(lib, "kw_radix_sort_hist"):
+            return [acc_out, words_a]
+        a, w = old[(sum(old_digits) - 1) & 1]
+        return [a[:n_kept], w[:n_kept]]
+    return Case(f"{label}: {n_kept} of {n} pairs kept, {passes} passes (earlier version: "
+                f"{sum(old_digits)})", call, [], 3, result, graph=False)
+
+
+def sort_cases(device, gen):
+    acc, words = _ingest_pairs(device, gen, "random")
+    yield sort_case("30% invalid, all pairs", acc, words, SORT_NUM_ACC, False)
+    yield sort_case("30% invalid, valid only", acc, words, SORT_NUM_ACC, True)
+    del acc, words
+    torch.cuda.empty_cache()
+    acc, words = _ingest_pairs(device, gen, "fused")
+    yield sort_case("the fused batch's layout, valid only", acc, words, SORT_NUM_ACC, True)
+    del acc, words
+    torch.cuda.empty_cache()
+    acc, words = _ingest_pairs(device, gen, "chunk")
+    yield sort_case("2^24 windows of one accession, valid only", acc, words, 1, True)
+
+
+def bitset_cases(device, gen):
+    from ..ops.counting import select_runs, sort_windows, words_per_filter
+
+    acc, words = _ingest_pairs(device, gen, "random")
+    acc_s, words_s = sort_windows(acc, words, SORT_K, SORT_NUM_ACC)
+    del acc, words
+    sel, nv = select_runs(acc_s, words_s, SORT_NUM_ACC, 5)
+    shapes = [(acc_s, words_s, sel, SORT_NUM_ACC, 21, 4), (acc_s, words_s, sel, SORT_NUM_ACC, 21, 1)]
+    n = 1 << 20
+    small = (torch.randint(0, 5, (n,), device=device, generator=gen),
+             torch.randint(0, 1 << 62, (n,), device=device, generator=gen),
+             torch.rand((n,), device=device, generator=gen) < 0.5)
+    shapes.append((*small, 4, 30, 3))
+    for a, w, f, num_acc, L, nh in shapes:
+        slot = torch.tensor(list(range(num_acc)) + [-1], dtype=torch.int32, device=device)
+        out = torch.empty((num_acc, words_per_filter(L)), dtype=torch.int32, device=device)
+
+        def call(lib, st, a=a, w=w, f=f, slot=slot, out=out, num_acc=num_acc, L=L, nh=nh):
+            return lib.kw_bloom_set_bits(a.data_ptr(), w.data_ptr(), f.data_ptr(),
+                                         slot.data_ptr(), out.data_ptr(), a.shape[0], num_acc,
+                                         SORT_K, nh, L, out.shape[1], st)
+        yield Case(f"n={a.shape[0]} selected={int(f.sum())} num_acc={num_acc} L={L} nh={nh}",
+                   call, [(out, 0)], 5, graph=False)
+
+
+def roof_cases(device, gen):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid, steps = 8 * sms, 20_000
+    clocks = torch.zeros(3, dtype=torch.int64, device=device)
+
+    def per_clock(ms):
+        """The SM clock of the last launch (block 0's cycles over its
+        nanoseconds) and the rate in operations a clock and SM."""
+        cycles, ns = clocks[:2].tolist()
+        ghz = cycles / ns
+        return f", SM clock {ghz:.4f} GHz, {ops / (ms * 1e6 * ghz * sms):.2f} a clock and SM"
+
+    ops = grid * 256 * 8 * 2 * steps
+    for mode, label in ((0, "IMAD + LOP3"), (1, "IMAD"), (2, "LOP3")):
+        def call(lib, st, mode=mode):
+            return lib.kw_int_roof(clocks.data_ptr(), grid, steps, mode, st)
+        yield Case(f"{label}: {grid} blocks x 256 threads x 8 chains x {steps} steps", call,
+                   [(clocks, 0)], 3, result=lambda lib: [], ops=ops, graph=False,
+                   note=per_clock)
 
 
 # kernel -> (source in csrc/, its C entries, its cases)
@@ -156,6 +377,9 @@ KERNELS = {
     "kmers": ("kmers.cu", ("canonical_kmers", "canonical_kmers_ascii"), kmers_cases),
     "select_runs": ("counting.cu", ("select_runs",), select_runs_cases),
     "bit_transpose": ("bit_transpose.cu", ("bit_transpose",), bit_transpose_cases),
+    "sort": ("sort.cu", ("radix_sort_hist", "radix_sort_pairs"), sort_cases),
+    "bitset": ("bitset.cu", ("bloom_set_bits",), bitset_cases),
+    "roof": (os.path.join("variants", "int_roof.cu"), ("int_roof",), roof_cases),
 }
 
 
@@ -173,26 +397,31 @@ def main(argv: list[str]) -> int:
     stream = torch.cuda.current_stream(device).cuda_stream
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    for label, call, outputs, reps in cases(device, gen):
+    for case in cases(device, gen):
         results = []
         for lib in libs:
-            for t, fill in outputs:
+            for t, fill in case.outputs:
                 t.fill_(fill)
-            if call(lib, stream):
+            if case.call(lib, stream):
                 raise RuntimeError("launch failed")
-            results.append([t.clone() for t, _ in outputs])
+            results.append([t.clone() for t in case.result(lib)] if case.result else
+                           [t.clone() for t, _ in case.outputs])
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for r in results[1:] for a, b in zip(r, results[0]))
         del results
         order = list(range(len(libs))) + list(reversed(range(len(libs))))
         times = [[] for _ in libs]
         for i in order:
-            times[i].append(cuda_ms(lambda st, lib=libs[i]: call(lib, st), reps))
-        print(f"{argv[0]} {label}: " + "; ".join(
-            f"{os.path.basename(s)} {t[0]:.4f} / {t[1]:.4f} ms" for s, t in zip(sources, times))
-            + f"; outputs equal: {same}", flush=True)
+            times[i].append(cuda_ms(lambda st, lib=libs[i]: case.call(lib, st), case.reps,
+                                    case.graph))
+        rate = (lambda t: f" ({case.ops / t / 1e9:.3f} T ops/s"
+                f"{case.note(t) if case.note else ''})") if case.ops else (lambda t: "")
+        print(f"{argv[0]} {case.label}: " + "; ".join(
+            f"{os.path.basename(s)} {t[0]:.4f} / {t[1]:.4f} ms{rate(min(t))}"
+            for s, t in zip(sources, times)) + f"; outputs equal: {same}", flush=True)
         if not same:
             return 1
+        torch.cuda.empty_cache()
     return 0
 
 

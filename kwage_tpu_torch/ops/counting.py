@@ -13,16 +13,19 @@ The JAX module's pipeline, on int64 k-mer words (``ops.kmers``):
      its bits straight into the packed filter images.
 
 The sort orders int64 (accession, word) pairs by accession, then by word,
-both as signed values; invalid windows carry accession num_acc, so they
-sink to the end. The JAX package leaves it to XLA's ``jax.lax.sort``; on a
-CUDA tensor the port runs its own least-significant-digit radix sort
-(``csrc/sort.cu``: 8-bit digits, a histogram, a scan and a stable scatter a
-digit, over the bytes of the word that k can fill and the bytes of the
-accession that num_acc can fill). Equal pairs cannot be told apart, so its
-output equals that of the plain version, ``sort_windows_ref`` (the
-library's stable sort, twice; CPU tensors and the comparisons), bit for
-bit. At k = 32 the word fills all 64 bits and orders as a signed value,
-which both versions do alike.
+both as signed values. Invalid windows carry accession num_acc; the count
+keeps only the valid ones (``sort_valid_windows``), so what follows the
+sort walks no padding. The JAX package leaves it to XLA's
+``jax.lax.sort`` and sorts the invalid windows to the end; on a CUDA
+tensor the port runs its own one-sweep least-significant-digit radix sort
+(``csrc/sort.cu``: one read counts every pass's digits, then one kernel a
+pass with a decoupled look-back and a staged scatter, over the bits of the
+word that k can fill and of the accession that num_acc can fill, as
+``sort_plan`` cuts them). Equal pairs cannot be told apart, so its output
+equals that of the plain versions (``sort_windows_ref``: the library's
+stable sort, twice; CPU tensors and the comparisons), bit for bit. At
+k = 32 the word fills all 64 bits and orders as a signed value, which both
+versions do alike.
 
 Exactness: the counts are TRUE counts (see the JAX module's docstring);
 integer atomics and atomicOr are order-free, so every result is the same
@@ -41,7 +44,8 @@ from .kmers import canonical_kmers_packed, pack_to_device
 
 # --- the sort -------------------------------------------------------------------
 
-SORT_TILE = 4096   # pairs a block of csrc/sort.cu takes (kTile)
+SORT_TILE = 4096   # pairs a block of csrc/sort.cu takes a pass (kTile)
+SORT_TOP_WIDTH = 10   # the widest top digit a plan merges (1024 bins)
 
 
 def sort_windows_ref(acc: torch.Tensor, words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -52,57 +56,128 @@ def sort_windows_ref(acc: torch.Tensor, words: torch.Tensor) -> tuple[torch.Tens
     return acc_s, words_s[order2]
 
 
-def sort_digits(k: int | None, num_acc: int | None) -> tuple[int, int]:
-    """(word bytes, accession bytes) that can differ between two pairs: a
-    k-mer word fills 2k bits, an accession in [0, num_acc] the bits of
-    num_acc. None: all 8 bytes (any int64, the sign included)."""
-    word_digits = 8 if k is None else -(-2 * k // 8)
-    acc_digits = 8 if num_acc is None else -(-int(num_acc).bit_length() // 8)
-    return word_digits, acc_digits
+def sort_valid_windows_ref(acc: torch.Tensor, words: torch.Tensor,
+                           num_acc: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain sort_valid_windows: the pairs with 0 <= acc < num_acc, by
+    (acc, word)."""
+    keep = (acc >= 0) & (acc < num_acc)
+    return sort_windows_ref(acc[keep], words[keep])
+
+
+def sort_plan(k: int | None, acc_bits: int) -> list[tuple[int, int]]:
+    """The radix sort's digits, (shift, width) from bit 0 of the key acc:word:
+    the word's 2k bits (k None: 64) below the accession's ``acc_bits``. Each
+    digit is 8 bits but the top one, which takes up to SORT_TOP_WIDTH bits
+    where that saves a pass: k = 31 and 4 accession bits are 7 digits of 8
+    and one of 10. One pass a digit."""
+    total = (64 if k is None else 2 * k) + acc_bits
+    plan, shift = [], 0
+    while shift < total:
+        width = total - shift if total - shift <= SORT_TOP_WIDTH else 8
+        plan.append((shift, width))
+        shift += width
+    return plan
+
+
+def sort_acc_bytes(acc_bits: int) -> int:
+    """Bytes an accession rides in between the passes: none for one
+    accession, then uint8, uint16, else int64 (csrc/sort.cu acc_bytes_of)."""
+    return 0 if acc_bits == 0 else 1 if acc_bits <= 8 else 2 if acc_bits <= 16 else 8
+
+
+_ACC_DTYPES = {1: torch.uint8, 2: torch.int16, 8: torch.int64}
+
+
+def _check_pairs(acc: torch.Tensor, words: torch.Tensor, k: int | None) -> None:
+    if acc.dtype != torch.int64 or words.dtype != torch.int64 or acc.shape != words.shape \
+            or acc.dim() != 1:
+        raise ValueError("expected int64 acc and words of one shape [n]")
+    if k is not None and not 1 <= k <= 32:
+        raise ValueError(f"bad k={k}")
+    if acc.device != words.device:
+        raise ValueError("acc and words must share a device")
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {acc.device}")
+    if acc.shape[0] >= 1 << 32:
+        raise ValueError(f"radix_sort_pairs takes n < 2^32 pairs, not {acc.shape[0]}")
+
+
+def _radix_sort(acc: torch.Tensor, words: torch.Tensor, k: int | None, acc_bits: int,
+                limit: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The radix_sort_pairs kernels over CUDA tensors: one histogram read
+    of every pass's digits, then one kernel a pass (csrc/sort.cu). ``limit``
+    > 0 keeps the pairs with 0 <= acc < limit (the kept count is copied to
+    the host once); 0 keeps all."""
+    n, device = acc.shape[0], acc.device
+    acc, words = acc.contiguous(), words.contiguous()
+    plan = sort_plan(k, acc_bits)
+    passes = len(plan)
+    widths = sum(w << (4 * p) for p, (_, w) in enumerate(plan))
+    word_bits = 64 if k is None else 2 * k
+    stream = torch.cuda.current_stream(device).cuda_stream
+    hist = torch.empty(sum(1 << w for _, w in plan), dtype=torch.int32, device=device)
+    kept = torch.empty(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        kernels.launch("radix_sort_hist", acc.data_ptr(), words.data_ptr(), hist.data_ptr(),
+                       kept.data_ptr(), n, limit, word_bits, acc_bits, widths, passes, stream)
+        n_kept = int(kept) if limit else n
+        acc_out = (torch.zeros if acc_bits == 0 else torch.empty)(
+            n_kept, dtype=torch.int64, device=device)
+        words_a = torch.empty(n_kept, dtype=torch.int64, device=device)
+        if n_kept == 0:
+            return acc_out, words_a
+        words_b = torch.empty_like(words_a) if passes > 1 else None
+        ab = sort_acc_bytes(acc_bits)
+        acc_a = torch.empty(n_kept, dtype=_ACC_DTYPES[ab], device=device) \
+            if ab and passes > 1 else None
+        acc_b = torch.empty_like(acc_a) if acc_a is not None and passes > 2 else None
+        entries = max(-(-(n if p == 0 else n_kept) // SORT_TILE) << w
+                      for p, (_, w) in enumerate(plan))
+        lookback = torch.empty(entries, dtype=torch.int64, device=device)
+        counters = torch.empty(16, dtype=torch.int32, device=device)
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        kernels.launch("radix_sort_pairs", acc.data_ptr(), words.data_ptr(), ptr(acc_a),
+                       ptr(acc_b), words_a.data_ptr(), ptr(words_b), acc_out.data_ptr(),
+                       hist.data_ptr(), lookback.data_ptr(), counters.data_ptr(), n, n_kept,
+                       limit, word_bits, acc_bits, widths, passes, entries, stream)
+    return acc_out, words_a
 
 
 def sort_windows(acc: torch.Tensor, words: torch.Tensor, k: int | None = None,
                  num_acc: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """int64 (acc, word) pairs [n] ordered by (acc, word), both signed:
-    (acc_s, words_s). ``k``: the words are k-mer words, 0 <= word < 4^k
-    (k = 32: any int64); ``num_acc``: 0 <= acc <= num_acc. They tell the
-    radix sort which bytes can differ; the caller answers for them (a
-    pair outside them is ordered by its low bytes alone). CUDA tensors:
-    the radix_sort_pairs kernels, which take 32 bytes of scratch a pair
-    (two ping-pong buffers; one when a single byte differs) beside the 16
-    of the result; CPU tensors: sort_windows_ref."""
-    if acc.dtype != torch.int64 or words.dtype != torch.int64 or acc.shape != words.shape \
-            or acc.dim() != 1:
-        raise ValueError("expected int64 acc and words of one shape [n]")
-    if (k is not None and not 1 <= k <= 32) or (num_acc is not None and num_acc < 0):
-        raise ValueError(f"bad k={k} or num_acc={num_acc}")
-    if acc.device != words.device:
-        raise ValueError("acc and words must share a device")
+    (acc_s, words_s), all n of them. ``k``: the words are k-mer words,
+    0 <= word < 4^k (k = 32: any int64); ``num_acc``: 0 <= acc <= num_acc
+    (None: any int64). They tell the radix sort which key bits can differ,
+    and the accession rides in the bits of num_acc: the caller answers for
+    them. CUDA tensors: the radix_sort_pairs kernels; CPU tensors:
+    sort_windows_ref."""
+    _check_pairs(acc, words, k)
+    if num_acc is not None and num_acc < 0:
+        raise ValueError(f"bad num_acc={num_acc}")
     if acc.device.type == "cpu":
         return sort_windows_ref(acc, words)
-    if acc.device.type != "cuda":
-        raise ValueError(f"unsupported device {acc.device}")
-    n = acc.shape[0]
-    if n >= 1 << 32:
-        raise ValueError(f"radix_sort_pairs takes n < 2^32 pairs, not {n}")
-    word_digits, acc_digits = sort_digits(k, num_acc)
-    if n <= 1 or word_digits + acc_digits == 0:
+    if acc.shape[0] <= 1:
         return acc.clone(), words.clone()
-    acc, words = acc.contiguous(), words.contiguous()
-    passes = word_digits + acc_digits
-    # Pass p writes pair p & 1; the last pass's pair is the result.
-    pairs = [(torch.empty_like(acc), torch.empty_like(words)) for _ in range(min(passes, 2))]
-    if passes == 1:
-        pairs.append(pairs[0])
-    hist = torch.empty(256 * -(-n // SORT_TILE), dtype=torch.int32, device=acc.device)
-    totals = torch.empty(256, dtype=torch.int32, device=acc.device)
-    with torch.cuda.device(acc.device):
-        kernels.launch("radix_sort_pairs", acc.data_ptr(), words.data_ptr(),
-                       pairs[0][0].data_ptr(), pairs[0][1].data_ptr(),
-                       pairs[1][0].data_ptr(), pairs[1][1].data_ptr(),
-                       hist.data_ptr(), totals.data_ptr(), n, word_digits, acc_digits,
-                       torch.cuda.current_stream(acc.device).cuda_stream)
-    return pairs[(passes - 1) & 1]
+    return _radix_sort(acc, words, k, 64 if num_acc is None else int(num_acc).bit_length(), 0)
+
+
+def sort_valid_windows(acc: torch.Tensor, words: torch.Tensor, k: int | None,
+                       num_acc: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The valid windows, 0 <= acc < num_acc, of int64 (acc, word) pairs [n],
+    ordered by (acc, word), both signed: (acc_s, words_s) of length n_valid,
+    the valid prefix of what sort_windows returns. ``k`` as for
+    sort_windows. CUDA tensors: the radix_sort_pairs kernels, which drop the
+    other windows in their first read and copy n_valid to the host once;
+    CPU tensors: sort_valid_windows_ref."""
+    _check_pairs(acc, words, k)
+    if num_acc < 1:
+        raise ValueError(f"bad num_acc={num_acc}")
+    if acc.device.type == "cpu":
+        return sort_valid_windows_ref(acc, words, num_acc)
+    if acc.shape[0] == 0:
+        return acc.clone(), words.clone()
+    return _radix_sort(acc, words, k, (int(num_acc) - 1).bit_length(), int(num_acc))
 
 
 # --- select_runs ----------------------------------------------------------------
@@ -240,10 +315,11 @@ def filter_words_to_bytes(words, log2_filter_len: int) -> np.ndarray:
 def count_multi_core(words: torch.Tensor, valid: torch.Tensor, acc_ids: torch.Tensor,
                      min_count: int, num_acc: int, k: int | None = None):
     """Windows [R, nwin] of reads [R] in accessions acc_ids -> (acc_s,
-    words_s, selected, num_valid [num_acc]), all on the device. ``k``: the
-    k-mer length the words were made with (None: any int64)."""
+    words_s, selected, num_valid [num_acc]), all on the device: the valid
+    windows alone, sorted. ``k``: the k-mer length the words were made with
+    (None: any int64)."""
     acc = torch.where(valid, acc_ids.to(torch.int64)[:, None], num_acc)
-    acc_s, words_s = sort_windows(acc.reshape(-1), words.reshape(-1), k, num_acc)
+    acc_s, words_s = sort_valid_windows(acc.reshape(-1), words.reshape(-1), k, num_acc)
     selected, num_valid = select_runs(acc_s, words_s, num_acc, min_count)
     return acc_s, words_s, selected, num_valid
 
@@ -274,12 +350,12 @@ def count_and_threshold(words: torch.Tensor, valid: torch.Tensor, min_count: int
     """Exact thresholding of one accession's windows: (words_s, selected,
     num_valid, num_windows). ``selected`` marks the first occurrence of
     each word whose count is >= min_count; num_windows counts the valid
-    windows (duplicates included), which form the prefix of the sorted
-    arrays. ``k``: the k-mer length of the words (None: any int64)."""
+    windows (duplicates included), which are all the sorted arrays hold.
+    ``k``: the k-mer length of the words (None: any int64)."""
     zeros = torch.zeros(1, dtype=torch.int32, device=words.device)
     acc_s, words_s, selected, num_valid = count_multi_core(
         words.reshape(1, -1), valid.reshape(1, -1), zeros, min_count, 1, k)
-    return words_s, selected, int(num_valid[0]), int(valid.sum())
+    return words_s, selected, int(num_valid[0]), words_s.shape[0]
 
 
 def count_kmers(reads_ascii: np.ndarray, k: int, min_count: int, device: torch.device):

@@ -251,8 +251,8 @@ def build_bloom_device(
         if starts.numel() == 0:
             return
         words = tensor_to_words_u64(words_s[starts])
-        # Each sorted run ends at the next start; the last one where the
-        # valid prefix ends (invalid windows sort last).
+        # Each sorted run ends at the next start; the last one at the end
+        # (the sort keeps the valid windows alone).
         starts = starts.cpu().numpy()
         counts = np.append(starts[1:], num_windows) - starts
         if acc_words.size:
@@ -423,7 +423,8 @@ def dispatch_device_batch(prep: DeviceBatchPrep, opts: BuildOptions):
     """Upload the packed block and run the fused count: canonical_kmers,
     the sort, select_runs. Returns device tensors (acc_s, words_s,
     selected, num_valid), or None when the batch has no fused rows.
-    Kernel launches are asynchronous: this returns before they finish."""
+    Kernel launches are asynchronous: this returns before they finish, but
+    for the sort's count of valid windows (one small copy to the host)."""
     if prep.packed is None:
         return None
     device = resolve_device()

@@ -239,6 +239,29 @@ def test_count_multi_matches_jax(min_count):
 
 
 @pytest.mark.parametrize("min_count", [1, 3])
+@pytest.mark.parametrize("k", [15, 16, 31])
+def test_count_multi_keeps_the_valid_windows_only(k, min_count):
+    """The fused count hands select_runs and bloom_set_bits the valid
+    windows alone (padding rows, N bases and read tails dropped by the
+    sort): kwage_tpu's sorted arrays up to its valid prefix, and the same
+    selection."""
+    num_acc = 4
+    b, acc = _accession_batch(k + min_count, num_acc)
+    acc_s, hi_s, lo_s, sel, nv = _jax_count(b, acc, k, min_count, num_acc)
+    n_valid = int((np.asarray(acc_s) < num_acc).sum())
+    assert 0 < n_valid < acc_s.shape[0]
+    t_acc, t_words, t_sel, t_nv = tc.count_kmers_multi(b, torch.from_numpy(acc), k, min_count,
+                                                       num_acc)
+    assert t_acc.shape == t_words.shape == t_sel.shape == (n_valid,)
+    np.testing.assert_array_equal(t_acc.numpy(), np.asarray(acc_s)[:n_valid])
+    np.testing.assert_array_equal(tk.tensor_to_words_u64(t_words),
+                                  _jax_words(hi_s, lo_s)[:n_valid])
+    np.testing.assert_array_equal(t_sel.numpy(), np.asarray(sel)[:n_valid])
+    assert not np.asarray(sel)[n_valid:].any()
+    np.testing.assert_array_equal(t_nv.numpy(), np.asarray(nv))
+
+
+@pytest.mark.parametrize("min_count", [1, 3])
 def test_single_accession_count_and_filter_match_jax(min_count):
     """count_kmers / build_filter_device against count_kmers_device /
     build_filter_device over one ASCII batch."""

@@ -116,6 +116,18 @@ def test_ascii_entry_counts_as_canonical_kmers(monkeypatch):
     assert after == {**before, "canonical_kmers": before["canonical_kmers"] + 2}
 
 
+def test_sort_entries_count_as_radix_sort_pairs(monkeypatch):
+    """sort.cu's two entries (the histogram, the passes) are steps of one
+    kernel: both count under radix_sort_pairs, and no other count moves."""
+    monkeypatch.setattr(kernels, "_LIB", _OkLib())
+    before = kernels.launch_counts()
+    kernels.launch("radix_sort_hist", *[0] * 4, 10, 14, 62, 4, 0, 8, 0)
+    kernels.launch("radix_sort_pairs", *[0] * 10, 10, 10, 14, 62, 4, 0, 8, 1024, 0)
+    after = kernels.launch_counts()
+    assert "radix_sort_hist" not in after
+    assert after == {**before, "radix_sort_pairs": before["radix_sort_pairs"] + 2}
+
+
 def test_sriracha_entries_count_apart(monkeypatch):
     """sriracha.cu's two probe entries launch one templated kernel but
     count apart, so a run shows which route it took."""
