@@ -119,6 +119,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import socket
 import sys
 import tempfile
@@ -1067,6 +1068,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+GRAPH_LAUNCHES = 20
+
+
+def graph_ms(launch, reps: int) -> float:
+    """Mean ms of one ``launch(stream)`` over ``reps`` replays of a CUDA
+    graph of GRAPH_LAUNCHES of them: the host's cost of a ctypes launch
+    (5-6 us) is not in it, where ``cuda_ms``'s launches in a row carry it."""
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(GRAPH_LAUNCHES):
+            launch(side.cuda_stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * GRAPH_LAUNCHES)
+
+
 def bound(nbytes: float, nops: float) -> dict:
     """The least time the card could take: the bytes the function must move
     (each input read once, each output written once) over the memory rate,
@@ -1111,43 +1136,159 @@ def search_inputs(R, W, nq, nk, n_valid, gen, device):
     return db, idx, valid
 
 
-def total_hits_checks(db, idx, valid, n_valid, results: dict, lines: list, stream) -> None:
-    """search_total_hits against its plain version at the search rows'
-    shape (timed: the kernels line's row) and on a column shard whose
-    width is no multiple of 32. The thresholds sit at each query's mean
-    count (a k-mer's seed-AND keeps a bit with probability 2^-nh), so
-    about half the columns pass."""
+def search_chunk() -> int:
+    """k-mer positions a block of csrc/search.cu's search_counts and
+    search_total_hits takes (kWarps x kKmersPerWarp)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), SOURCES["search_counts"])
+    with open(path) as f:
+        c = dict(re.findall(r"constexpr int (k\w+) = (\d+);", f.read()))
+    return int(c["kWarps"]) * int(c["kKmersPerWarp"])
+
+
+def search_own_traffic(valid: torch.Tensor, W: int, total_hits: bool) -> int:
+    """Bytes of the chunked kernels' own traffic beyond the function's: the
+    entry zeroes the counts (the output, or total_hits' scratch), every
+    chunk with a valid k-mer adds at most W*32 counts into them, and
+    total_hits' compare kernel reads them back. In L2 at these sizes; the
+    bound never includes it."""
     nq, nk = valid.shape
-    tcount = torch.tensor([max(1, n >> NUM_HASH) for n in n_valid], dtype=torch.int32,
-                          device=db.device)
-    for tag, shard in (("main", db), ("W=131", db[:, :131].contiguous())):
-        R, W = shard.shape
-        got = ts.search_total_hits(shard, idx, valid, tcount)
-        want = ts.total_hits_ref(shard, idx, valid, tcount)
+    chunk = search_chunk()
+    padded = torch.nn.functional.pad(valid, (0, (-nk) % chunk))
+    busy = int(padded.view(nq, -1, chunk).any(dim=2).sum()) if nk else 0
+    counts = nq * W * 32 * 4
+    return counts + busy * W * 32 * 4 + (counts if total_hits else 0)
+
+
+def search_launcher(name, db, idx, valid, out, tcount=None):
+    """``launch(stream)`` of search kernel ``name`` on these tensors; the
+    total_hits entry gets a scratch of its own (zeroed by the entry)."""
+    W, (nq, nk, nh) = db.shape[1], idx.shape
+    held = [db, idx, valid, out]
+    if tcount is not None:
+        held[3:] = [tcount, out, torch.empty(kernels.search_scratch_words(nq, W),
+                                             dtype=torch.int32, device=db.device)]
+    ptrs = [t.data_ptr() for t in held]
+    return lambda stream, held=held: kernels.launch(name, *ptrs, nq, nk, nh, W, stream)
+
+
+def search_row(name, tag, launch, ref, n_valid, W, nbytes, nops, own, results, lines) -> None:
+    """Time one search kernel two ways, a CUDA graph's replays (the
+    kernels line's reading) and launches in a row (the host's launch cost
+    in it); print both; a kernel's first row is its result."""
+    ms = graph_ms(launch, 10)
+    launch_ms = cuda_ms(lambda: launch(torch.cuda.current_stream().cuda_stream), 20)
+    plain = cuda_ms(ref, 5)
+    gathered = sum(n_valid) * NUM_HASH * W * 4
+    lines.append(f"{name} {tag}: kernel {ms:.4f} ms graph / {launch_ms:.4f} ms launches "
+                 f"({gathered / ms / 1e6:.1f} GB/s gathered) plain {plain:.3f} ms")
+    if name not in results:
+        results[name] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain, "launch_ms": launch_ms,
+                         "shape": f"{tag}, nh={NUM_HASH}, {sum(n_valid)} valid k-mers",
+                         "own_traffic_ms": own / HBM_BYTES_PER_S * 1e3, **bound(nbytes, nops)}
+
+
+# (tag, R, W, valid k-mers a query): the bench's fused shape, then R*W = 2^32.
+SEARCH_SHAPES = [("main", 1 << LOG2_FILTER_LEN, 512, [1, 3, 1024, 1000, 777, 512, 129, 0]),
+                 ("R=2^26", 1 << 26, 64, [1, 2, 256, 200])]
+
+
+def search_checks(device, gen, results: dict, lines: list, shapes=SEARCH_SHAPES) -> None:
+    """The three searches against their plain versions: at the bench's
+    fused shape (the kernels line's rows; W=512, 8 queries of 1024
+    positions, 3446 valid k-mers), on a mesh column shard whose width is no
+    multiple of 4 (W=131: search_counts' and search_total_hits' 4-byte
+    path), and at R*W = 2^32 words (int64 offsets), each timed. Then the
+    chunked kernels' edges (search_edge_checks). The thresholds of
+    search_total_hits sit at each query's mean count (a k-mer's seed-AND
+    keeps a bit with probability 2^-nh), so about half the columns pass."""
+    def compare(name, got, want, tag):
         err = max_abs_err(got, want)
-        check(err == 0, f"search_total_hits differs from its plain version at {tag} ({err})")
-        check(0 < int(got.sum()) < nq * W * 32, f"search_total_hits {tag}: all or no column")
-        out = torch.zeros_like(got)
-        ms = cuda_ms(lambda: kernels.launch(
-            "search_total_hits", shard.data_ptr(), idx.data_ptr(), valid.data_ptr(),
-            tcount.data_ptr(), out.data_ptr(), nq, nk, NUM_HASH, W, stream()), 20)
-        plain = cuda_ms(lambda: ts.total_hits_ref(shard, idx, valid, tcount), 5)
-        gathered = sum(n_valid) * NUM_HASH * W * 4
-        lines.append(f"search_total_hits {tag} R={R} W={W} nq={nq} nk={nk}: kernel {ms:.4f} ms "
-                     f"({gathered / ms / 1e6:.1f} GB/s gathered) plain {plain:.3f} ms")
-        if tag == "main":
-            # Bytes: search_counts' gathers, the indices, flags and thresholds
-            # in, one integer a query out. Operations: search_counts' (one AND
-            # a gathered word, about 5 a k-mer and word for the counters) and
-            # a compare a column.
-            results["search_total_hits"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "shape": f"R={R} W={W} nq={nq} nk={nk} nh={NUM_HASH}, {sum(n_valid)} valid k-mers",
-                **bound(gathered + nbytes_of(idx, valid, tcount, got),
-                        sum(n_valid) * W * (NUM_HASH + 5) + nq * W * 32)}
-        else:
-            results["search_total_hits"]["max_abs_err"] = max(
-                results["search_total_hits"]["max_abs_err"], err)
+        check(err == 0, f"{name} differs from its plain version at {tag} (max err {err})")
+        if name in results:
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    for tag, R, W, n_valid in shapes:
+        nq, nk = len(n_valid), max(n_valid)
+        db, idx, valid = search_inputs(R, W, nq, nk, n_valid, gen, device)
+        tc = torch.tensor([max(1, n >> NUM_HASH) for n in n_valid], dtype=torch.int32,
+                          device=device)
+        views = [(tag, db)] + ([("W=131", db[:, :131].contiguous())] if tag == "main" else [])
+        for vtag, shard in views:
+            Wv = shard.shape[1]
+            label = f"{vtag} R={R} W={Wv} nq={nq} nk={nk}"
+            gathered = sum(n_valid) * NUM_HASH * Wv * 4
+            for name, fn, ref in (("search_complete", ts.search_complete, ts.complete_ref),
+                                  ("search_counts", ts.search_counts, ts.counts_ref),
+                                  ("search_total_hits", ts.search_total_hits,
+                                   ts.total_hits_ref)):
+                extra = (tc,) if name == "search_total_hits" else ()
+                got, want = fn(shard, idx, valid, *extra), ref(shard, idx, valid, *extra)
+                compare(name, got, want, label)
+                if name == "search_total_hits":
+                    check(0 < int(got.sum()) < nq * Wv * 32,
+                          f"search_total_hits {label}: all or no column")
+                    out = torch.zeros_like(got)
+                else:
+                    out = torch.empty_like(got)
+                # Bytes: the rows this run's valid k-mers gather (each once),
+                # the indices, the flags (and thresholds) and the output.
+                # Operations: one AND a gathered word; for the counts about 5
+                # more a k-mer and word to add it into carry-save planes;
+                # total_hits also a compare a column.
+                per_word = NUM_HASH + (0 if name == "search_complete" else 5)
+                nops = sum(n_valid) * Wv * per_word + (
+                    nq * Wv * 32 if name == "search_total_hits" else 0)
+                own = (0 if name == "search_complete" else
+                       search_own_traffic(valid, Wv, name == "search_total_hits"))
+                search_row(name, label, search_launcher(name, shard, idx, valid, out, *extra),
+                           lambda: ref(shard, idx, valid, *extra), n_valid, Wv,
+                           gathered + nbytes_of(idx, valid, got, *extra), nops, own,
+                           results, lines)
+            del shard
+        del db, idx, valid
+        torch.cuda.empty_cache()
+    search_edge_checks(device, gen, compare, lines)
+
+
+def search_edge_checks(device, gen, compare, lines: list) -> None:
+    """search_counts and search_total_hits (and search_complete) against
+    their plain versions where the chunked kernels have edges: nk around
+    and between chunks (0, 1, chunk - 1, chunk, chunk + 1, 45, 200),
+    flags with holes (a random 70%) and as prefixes, a query with no valid
+    k-mer, widths on both load paths (W % 4 == 0 and not: 1, 3, 4, 131,
+    512) and a db that starts 4 bytes past a 16-byte boundary."""
+    chunk = search_chunk()
+    R, nq = 1 << 14, 5
+    base = random_words((R * 512 + 1,), gen, device)
+    n = 0
+    for W in (1, 3, 4, 131, 512):
+        for nk in (0, 1, chunk - 1, chunk, chunk + 1, 45, 200):
+            for holes in (False, True):
+                idx = torch.randint(0, R, (nq, nk, NUM_HASH), dtype=torch.int32, device=device,
+                                    generator=gen)
+                if holes:
+                    valid = torch.rand((nq, nk), device=device, generator=gen) < 0.7
+                else:
+                    valid = torch.zeros((nq, nk), dtype=torch.bool, device=device)
+                    for q, m in enumerate((nk, 0, 1, (nk + 1) // 2, nk - 1)):
+                        valid[q, :max(m, 0)] = True
+                valid[1] = False
+                tc = torch.tensor([1, 1, 2, max(1, nk // 20), max(1, nk // 40)],
+                                  dtype=torch.int32, device=device)
+                for offset in (0, 1) if W % 4 == 0 else (0,):
+                    db = base[offset:offset + R * W].view(R, W)
+                    label = f"R={R} W={W} nk={nk} holes={holes} offset={offset * 4} B"
+                    compare("search_counts", ts.search_counts(db, idx, valid),
+                            ts.counts_ref(db, idx, valid), label)
+                    compare("search_total_hits", ts.search_total_hits(db, idx, valid, tc),
+                            ts.total_hits_ref(db, idx, valid, tc), label)
+                    compare("search_complete", ts.search_complete(db, idx, valid),
+                            ts.complete_ref(db, idx, valid), label)
+                    n += 1
+    lines.append(f"search_counts, search_total_hits, search_complete at {n} edge shapes "
+                 f"(W = 1, 3, 4, 131, 512; nk = 0, 1, {chunk - 1}, {chunk}, {chunk + 1}, 45, "
+                 "200; flags with holes and prefixes, a query with none; db 4 B off a "
+                 "16-byte boundary) == plain")
 
 
 SORT_TILE = tcount.SORT_TILE   # pairs a block of csrc/sort.cu takes a pass
@@ -1374,43 +1515,7 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                  f"({2 * x.numel() * 4 / ms / 1e6:.1f} GB/s) plain {plain:.3f} ms")
     del x, got, want
 
-    # Search at the bench's fused shape, then at R*W = 2^32 words (int64 offsets).
-    shapes = [("main", 1 << LOG2_FILTER_LEN, 512, [1, 3, 1024, 1000, 777, 512, 129, 0]),
-              ("R=2^26", 1 << 26, 64, [1, 2, 256, 200])]
-    for tag, R, W, n_valid in shapes:
-        nk = max(n_valid)
-        db, idx, valid = search_inputs(R, W, len(n_valid), nk, n_valid, gen, device)
-        for name, fn, ref in (("search_complete", ts.search_complete, ts.complete_ref),
-                              ("search_counts", ts.search_counts, ts.counts_ref)):
-            got, want = fn(db, idx, valid), ref(db, idx, valid)
-            err = max_abs_err(got, want)
-            check(err == 0, f"{name} differs from its plain version at {tag} (max err {err})")
-            args = (db.data_ptr(), idx.data_ptr(), valid.data_ptr(), got.data_ptr(),
-                    len(n_valid), nk, NUM_HASH, W)
-            ms = cuda_ms(lambda: kernels.launch(name, *args, stream()), 20)
-            plain = cuda_ms(lambda: ref(db, idx, valid), 5)
-            gathered = sum(n_valid) * NUM_HASH * W * 4
-            lines.append(f"{name} {tag} R={R} W={W} nq={len(n_valid)} nk={nk}: kernel "
-                         f"{ms:.4f} ms ({gathered / ms / 1e6:.1f} GB/s gathered) "
-                         f"plain {plain:.3f} ms")
-            prev = results.get(name)
-            if prev is None:
-                # Bytes: the rows this run's valid k-mers gather (each once),
-                # the indices, the flags and the output. Operations: one AND
-                # a gathered word, and for the counts about 5 more a k-mer
-                # and word to add it into carry-save planes.
-                per_word = NUM_HASH + (5 if name == "search_counts" else 0)
-                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                 "shape": f"R={R} W={W} nq={len(n_valid)} nk={nk} nh={NUM_HASH}, "
-                                          f"{sum(n_valid)} valid k-mers",
-                                 **bound(gathered + nbytes_of(idx, valid, got),
-                                         sum(n_valid) * W * per_word)}
-            else:
-                prev["max_abs_err"] = max(prev["max_abs_err"], err)
-        if tag == "main":
-            total_hits_checks(db, idx, valid, n_valid, results, lines, stream)
-        del db, idx, valid
-        torch.cuda.empty_cache()
+    search_checks(device, gen, results, lines)
 
     def record(name, tag, err, ms=None, plain=None, note="", nbytes=0, nops=0, log=True):
         """One comparison; ``ms`` None: checked, not timed. A kernel's first
@@ -2052,7 +2157,8 @@ def main(argv: list[str] | None = None) -> int:
             "operations": r["operations"], "share_of_bound": r["bound_ms"] / r["ms"],
             "library_ms": r.get("library_ms"),
             **{key: r[key] for key in ("library_all_pairs_ms", "lsd_pass_traffic_ms",
-                                       "lsd_pass_operations_ms", "peak_bytes", "sync_ms")
+                                       "lsd_pass_operations_ms", "peak_bytes", "sync_ms",
+                                       "launch_ms", "own_traffic_ms")
                if key in r},
             "launches": {path: counts[k] for path, counts in paths.items() if counts[k]}}))
     # The byte entry of bit_transpose: its launches count under that kernel.

@@ -12,6 +12,8 @@ Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; ``launch`` raises when that is not 0
 and otherwise adds one to the kernel's launch count. The counts let a run
 show that its main path went through the kernels (``launch_counts``).
+One exported function launches nothing: ``kw_search_scratch_words``, the
+size of the scratch ``search_total_hits`` takes (``search_scratch_words``).
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ _ENTRIES = {
     # (db, idx, valid, out, nq, nk, nh, W, stream)
     "search_complete": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     "search_counts": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
-    # (db, idx, valid, tcount, out, nq, nk, nh, W, stream)
-    "search_total_hits": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
+    # (db, idx, valid, tcount, out, scratch, nq, nk, nh, W, stream); scratch:
+    # search_scratch_words(nq, W) int32 words
+    "search_total_hits": [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     # (packed, valid_words, words, valid, R, w16, w32, length, k, stream)
     "canonical_kmers": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _VP],
     # (ascii, words, valid, R, stride, length, k, stream)
@@ -161,6 +164,8 @@ def get_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.kw_error_string.argtypes = [ctypes.c_int]
             lib.kw_error_string.restype = ctypes.c_char_p
+            lib.kw_search_scratch_words.argtypes = [_I64, _I64]
+            lib.kw_search_scratch_words.restype = ctypes.c_int64
             _LIB = lib
         return _LIB
 
@@ -176,6 +181,12 @@ def launch(name: str, *args) -> None:
             f"({lib.kw_error_string(err).decode()})")
     with _LOCK:
         _LAUNCHES[_KERNEL_OF.get(name, name)] += 1
+
+
+def search_scratch_words(nq: int, W: int) -> int:
+    """int32 words of scratch the search_total_hits entry takes for nq
+    queries over W word columns (its counts, int32 [nq, W*32])."""
+    return get_lib().kw_search_scratch_words(nq, W)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,8 +4,9 @@
 
 KERNEL is ``kmers`` (``csrc/kmers.cu``), ``select_runs``
 (``csrc/counting.cu``), ``bit_transpose`` (``csrc/bit_transpose.cu``),
-``sort`` (``csrc/sort.cu``), ``bitset`` (``csrc/bitset.cu``) or ``roof``
-(``csrc/variants/int_roof.cu``, the card's integer rate). Each source (this
+``sort`` (``csrc/sort.cu``), ``bitset`` (``csrc/bitset.cu``), ``search``
+(``csrc/search.cu``) or ``roof`` (``csrc/variants/int_roof.cu``, the
+card's integer rate). Each source (this
 tree's first, then the files named) is compiled alone with ``nvcc`` for
 ``sm_90a`` (``-I csrc/``, for ``murmur.cuh``; a header beside the source
 wins) into ``build/kwage_tpu_torch/`` and bound with ``ctypes``; these
@@ -19,8 +20,8 @@ milliseconds are launched a few times in a row. To time an earlier
 commit's kernel: ``git show <commit>:kwage_tpu_torch/csrc/counting.cu >
 build/counting_old.cu`` and name that file (for ``bitset.cu``, put that
 commit's ``murmur.cuh`` beside it). Where a C entry's arguments changed
-(``radix_sort_pairs``), each version is called with its own. Exit code 1
-when two versions disagree.
+(``radix_sort_pairs``; ``search_total_hits`` gained a scratch), each
+version is called with its own. Exit code 1 when two versions disagree.
 
 Cases. ``kmers``: the ASCII entry at SriRachA's batch shapes ([512, 256] at
 k = 21 and 11, [4, 32768] and [512, 32768] at k = 21), at the one-query
@@ -40,7 +41,12 @@ own layout, 67,200,000 valid windows (rows of 120 valid of 226) of
 valid only.
 ``bitset``: phase 4's shape (236,978,176 sorted windows, 5-fold runs
 selected, 14 filters, L = 21) at 4 seeds and at 1 (the atomics alone),
-and 4 filters of 2^30 bits (offsets past 2^31). ``roof``: chains of int32
+and 4 filters of 2^30 bits (offsets past 2^31). ``search``: ``search_complete``,
+``search_counts`` and ``search_total_hits`` at phase 4's shape (R = 2^22,
+W = 512, 8 queries of 1024 positions with 1, 3, 1024, 1000, 777, 512, 129
+and 0 valid, nh = 5), on its W = 131 and W = 128 column shards, on 64
+queries with all 1024 k-mers valid, and at R = 2^26, W = 64; each line
+ends with the share of the function's byte bound. ``roof``: chains of int32
 IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
 the SM clock it ran at and the operations a clock and SM.
 """
@@ -68,6 +74,8 @@ _EARLIER = {
     # (acc, words, acc_a, words_a, acc_b, words_b, hist, totals, n,
     #  word_digits, acc_digits, stream)
     "radix_sort_pairs": ("radix_sort_hist", [_VP] * 8 + [_I64] * 3 + [_VP]),
+    # (db, idx, valid, tcount, out, nq, nk, nh, W, stream): no scratch
+    "search_total_hits": ("search_scratch_words", [_VP] * 5 + [_I64] * 4 + [_VP]),
 }
 
 
@@ -372,6 +380,69 @@ def roof_cases(device, gen):
                    note=per_clock)
 
 
+HBM_BYTES_PER_S = 3.35e12
+SEARCH_NH = 5
+SEARCH_MAIN = [1, 3, 1024, 1000, 777, 512, 129, 0]   # chip_smoke.py phase 4's valid k-mers
+
+
+def _search_shape(tag, db, n_valid, gen):
+    """The three searches over ``db`` for queries of n_valid valid k-mers
+    (a prefix of max(n_valid) positions each), nh = 5, thresholds at each
+    query's mean count."""
+    device, (R, W) = db.device, db.shape
+    nq, nk = len(n_valid), max(n_valid)
+    idx = torch.randint(0, R, (nq, nk, SEARCH_NH), dtype=torch.int32, device=device,
+                        generator=gen)
+    idx[0, 0, 0] = R - 1
+    valid = torch.zeros((nq, nk), dtype=torch.bool, device=device)
+    for q, n in enumerate(n_valid):
+        valid[q, :n] = True
+    tcount = torch.tensor([max(1, n >> SEARCH_NH) for n in n_valid], dtype=torch.int32,
+                          device=device)
+    scratch = torch.empty(nq * W * 32, dtype=torch.int32, device=device)  # total_hits' counts
+    gathered = sum(n_valid) * SEARCH_NH * W * 4
+    for name, cols, fill in (("search_complete", W, -7), ("search_counts", W * 32, -7),
+                             ("search_total_hits", 1, 0)):
+        out = torch.empty((nq, cols), dtype=torch.int32, device=device)
+        nbytes = gathered + 4 * idx.numel() + valid.numel() + 4 * out.numel()
+        bound = (nbytes + (4 * nq if cols == 1 else 0)) / HBM_BYTES_PER_S * 1e3
+
+        def call(lib, st, name=name, out=out):
+            ptrs = [db.data_ptr(), idx.data_ptr(), valid.data_ptr()]
+            if name == "search_total_hits":
+                ptrs += [tcount.data_ptr(), out.data_ptr()]
+                if hasattr(lib, "kw_search_scratch_words"):
+                    ptrs.append(scratch.data_ptr())
+            else:
+                ptrs.append(out.data_ptr())
+            return getattr(lib, "kw_" + name)(*ptrs, nq, nk, SEARCH_NH, W, st)
+        yield Case(f"{tag} R={R} W={W} nq={nq} nk={nk} valid={sum(n_valid)}: {name}", call,
+                   [(out, fill)], 20,
+                   note=lambda ms, bound=bound: f"{bound / ms:.3f} of the {bound:.4f} ms "
+                                                "byte bound")
+
+
+def search_cases(device, gen):
+    """The three searches of csrc/search.cu at phase 4's shape (R = 2^22,
+    W = 512, 8 queries of 1024 positions, 3446 valid k-mers, nh = 5), on
+    the mesh's column shards of it (W = 131: the 4-byte path; W = 128), on
+    a server batch (64 queries, all 1024 k-mers valid) and at R = 2^26,
+    W = 64 (offsets past 2^31 words). The note: the share of the function's
+    byte bound (the rows the valid k-mers gather, idx, valid, the
+    thresholds and the output, over 3.35 TB/s)."""
+    main = torch.empty((1 << 22, 512), dtype=torch.int32, device=device).random_(
+        -2**31, 2**31, generator=gen)
+    yield from _search_shape("main", main, SEARCH_MAIN, gen)
+    for w in (131, 128):
+        yield from _search_shape(f"W={w} shard", main[:, :w].contiguous(), SEARCH_MAIN, gen)
+    yield from _search_shape("server", main, [1024] * 64, gen)
+    del main
+    torch.cuda.empty_cache()
+    wide = torch.empty((1 << 26, 64), dtype=torch.int32, device=device).random_(
+        -2**31, 2**31, generator=gen)
+    yield from _search_shape("R=2^26", wide, [1, 2, 256, 200], gen)
+
+
 # kernel -> (source in csrc/, its C entries, its cases)
 KERNELS = {
     "kmers": ("kmers.cu", ("canonical_kmers", "canonical_kmers_ascii"), kmers_cases),
@@ -380,6 +451,8 @@ KERNELS = {
     "sort": ("sort.cu", ("radix_sort_hist", "radix_sort_pairs"), sort_cases),
     "bitset": ("bitset.cu", ("bloom_set_bits",), bitset_cases),
     "roof": (os.path.join("variants", "int_roof.cu"), ("int_roof",), roof_cases),
+    "search": ("search.cu", ("search_complete", "search_counts", "search_total_hits"),
+               search_cases),
 }
 
 
@@ -414,8 +487,10 @@ def main(argv: list[str]) -> int:
         for i in order:
             times[i].append(cuda_ms(lambda st, lib=libs[i]: case.call(lib, st), case.reps,
                                     case.graph))
-        rate = (lambda t: f" ({case.ops / t / 1e9:.3f} T ops/s"
-                f"{case.note(t) if case.note else ''})") if case.ops else (lambda t: "")
+        def rate(t):
+            text = (f"{case.ops / t / 1e9:.3f} T ops/s" if case.ops else "") + (
+                case.note(t) if case.note else "")
+            return f" ({text})" if text else ""
         print(f"{argv[0]} {case.label}: " + "; ".join(
             f"{os.path.basename(s)} {t[0]:.4f} / {t[1]:.4f} ms{rate(min(t))}"
             for s, t in zip(sources, times)) + f"; outputs equal: {same}", flush=True)

@@ -152,7 +152,9 @@ def total_hits_ref(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
 def _launch_search(name: str, db, idx, valid, out: torch.Tensor,
                    threshold_count: torch.Tensor | None = None) -> torch.Tensor:
     """Check the arguments and launch search kernel ``name`` into ``out``
-    (int32, nq rows) on the current stream of db's device."""
+    (int32, nq rows) on the current stream of db's device. What the checks
+    need from the device (idx's range, the least threshold) comes back in
+    one host read."""
     nq, nk, nh = idx.shape
     R, W = db.shape
     if db.dtype != torch.int32 or idx.dtype != torch.int32 or valid.dtype != torch.bool:
@@ -163,20 +165,32 @@ def _launch_search(name: str, db, idx, valid, out: torch.Tensor,
         raise ValueError("db, idx and valid must share a device")
     if db.device.type != "cuda":
         raise ValueError(f"unsupported device {db.device}")
+    probes = list(torch.aminmax(idx)) if idx.numel() else []
+    if threshold_count is not None and threshold_count.numel():
+        probes.append(threshold_count.min())
+    values = torch.stack(probes).tolist() if probes else []
+    if threshold_count is not None and threshold_count.numel() and values[-1] < 1:
+        raise ValueError("threshold_count must be >= 1")
     if nq == 0 or W == 0:
         return out
     if nh == 0:
         raise ValueError("num_hash must be >= 1")
-    if idx.numel():
-        lo, hi = torch.aminmax(idx)
-        if int(lo) < 0 or int(hi) >= R:
-            raise IndexError(f"slice index out of range [0, {R}): {int(lo)}..{int(hi)}")
+    if idx.numel() and (values[0] < 0 or values[1] >= R):
+        raise IndexError(f"slice index out of range [0, {R}): {values[0]}..{values[1]}")
     db, idx, valid = db.contiguous(), idx.contiguous(), valid.contiguous()
-    extra = () if threshold_count is None else (threshold_count.data_ptr(),)
+    ptrs = [db.data_ptr(), idx.data_ptr(), valid.data_ptr()]
     with torch.cuda.device(db.device):
-        kernels.launch(
-            name, db.data_ptr(), idx.data_ptr(), valid.data_ptr(), *extra, out.data_ptr(),
-            nq, nk, nh, W, torch.cuda.current_stream(db.device).cuda_stream)
+        if threshold_count is None:
+            ptrs.append(out.data_ptr())
+        else:
+            # search_total_hits' counts [nq, W*32]; back in the
+            # stream-ordered cache once the launch is queued.
+            scratch = torch.empty(kernels.search_scratch_words(nq, W), dtype=torch.int32,
+                                  device=db.device)
+            ptrs += [threshold_count.contiguous().data_ptr(), out.data_ptr(),
+                     scratch.data_ptr()]
+        kernels.launch(name, *ptrs, nq, nk, nh, W,
+                       torch.cuda.current_stream(db.device).cuda_stream)
     return out
 
 
@@ -194,7 +208,8 @@ def search_complete(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) ->
 
 def search_counts(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Threshold < 1: per-filter hit counts int32 [nq, W*32].
-    CUDA tensors: the search_counts kernel; CPU tensors: counts_ref."""
+    CUDA tensors: the search_counts kernel (num_hash <= 128); CPU tensors:
+    counts_ref."""
     if db.device.type == "cpu":
         return counts_ref(db, idx, valid)
     return _launch_search("search_counts", db, idx, valid,
@@ -206,19 +221,18 @@ def search_total_hits(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
     """Per-query number of bit columns of ``db`` (all W*32 of them) whose
     hit count is >= threshold_count[q]: int32 [nq]. ``threshold_count`` is
     int32 [nq], every entry >= 1, so all-zero padding columns never count.
-    CUDA tensors: the search_total_hits kernel (the counts stay in
-    registers and shared memory); CPU tensors: total_hits_ref."""
+    CUDA tensors: the search_total_hits kernel (num_hash <= 128; the counts
+    stay in its scratch, never returned); CPU tensors: total_hits_ref."""
     if threshold_count.dtype != torch.int32 or threshold_count.shape != (idx.shape[0],):
         raise ValueError(f"expected threshold_count int32 [{idx.shape[0]}]")
     if threshold_count.device != db.device:
         raise ValueError("threshold_count must lie on db's device")
-    if threshold_count.numel() and int(threshold_count.min()) < 1:
-        raise ValueError("threshold_count must be >= 1")
     if db.device.type == "cpu":
+        if threshold_count.numel() and int(threshold_count.min()) < 1:
+            raise ValueError("threshold_count must be >= 1")
         return total_hits_ref(db, idx, valid, threshold_count)
     out = torch.zeros(idx.shape[0], dtype=torch.int32, device=db.device)
-    return _launch_search("search_total_hits", db, idx, valid, out,
-                          threshold_count.contiguous())
+    return _launch_search("search_total_hits", db, idx, valid, out, threshold_count)
 
 
 # --- chunked / multi-file search ----------------------------------------------

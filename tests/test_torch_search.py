@@ -2,6 +2,9 @@
 search) against the JAX package's kernels and the host engine. Integer
 data: every comparison is exact."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -203,6 +206,112 @@ def test_resident_searcher_spent_budget_streams_in_bounded_slabs(tmp_path, monke
         {q: r for q, r in want.items() if r})
 
 
+# --- the decomposition of csrc/search.cu's search_counts / search_total_hits ---
+
+def _kernel_constants() -> dict[str, int]:
+    """The block shape of the chunked search kernels, read from the source."""
+    path = os.path.join(os.path.dirname(ts.__file__), os.pardir, "csrc", "search.cu")
+    with open(path) as f:
+        return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", f.read())}
+
+
+def _plane_add(acc: list, x: list) -> None:
+    """acc += x, numbers in bit planes (plane j: bit j of a uint32 array's
+    32 counts), ripple carry, as the kernel's plane_add; acc must hold the
+    sum (no carry out of its top plane)."""
+    carry = np.zeros_like(acc[0])
+    for j in range(len(acc)):
+        a, b = acc[j], (x[j] if j < len(x) else np.zeros_like(acc[0]))
+        acc[j] = a ^ b ^ carry
+        carry = (a & b) | (carry & (a ^ b))
+    assert not carry.any()
+
+
+def _emulate_chunks(db, idx, valid, tcount, order_seed):
+    """numpy emulation of the kernels' decomposition, blocks in a random
+    order: a block is (query, tile of kTileWords columns, chunk of kWarps x
+    kKmersPerWarp k-mer positions); its valid k-mers, compacted, go to warp
+    (slot % kWarps); each warp adds its seed-AND words into kWarpPlanes bit
+    planes, the block adds the warps' planes into kPlanes and expands them
+    to integer counts added into a zeroed [nq, W*32]. With ``tcount``, a
+    second pass, a block a (query, tile), compares the tile's complete
+    counts and adds its hits to out[q]. -> (counts, out)."""
+    c = _kernel_constants()
+    warps, per_warp, tile = c["kWarps"], c["kKmersPerWarp"], c["kTileWords"]
+    chunk = warps * per_warp
+    nq, nk, _ = idx.shape
+    W = db.shape[1]
+    tiles, chunks = -(-W // tile), -(-nk // chunk)
+    counts = np.zeros((nq, W * 32), np.int32)
+    out = np.zeros(nq, np.int32)
+    bits = np.arange(32, dtype=np.uint32)
+    for b in np.random.default_rng(order_seed).permutation(tiles * chunks * nq):
+        t, rest = b % tiles, b // tiles
+        ch, q = rest % chunks, rest // chunks
+        k0, w0 = ch * chunk, t * tile
+        w1 = min(w0 + tile, W)
+        pos = np.nonzero(valid[q, k0:k0 + chunk])[0]
+        if len(pos):
+            zeros = lambda n: [np.zeros(w1 - w0, np.uint32) for _ in range(n)]  # noqa: E731
+            planes = [zeros(c["kWarpPlanes"]) for _ in range(warps)]
+            for s, p in enumerate(pos):
+                assert s // warps < per_warp
+                m = np.bitwise_and.reduce(db[idx[q, k0 + p], w0:w1], axis=0)
+                _plane_add(planes[s % warps], [m])
+            total = zeros(c["kPlanes"])
+            for w in range(warps):
+                _plane_add(total, planes[w])
+            expanded = sum(((total[j][:, None] >> bits) & 1).astype(np.int32) << j
+                           for j in range(len(total)))
+            counts[q, 32 * w0:32 * w1] += expanded.reshape(-1)
+    if tcount is not None:
+        for b in np.random.default_rng(order_seed + 1).permutation(tiles * nq):
+            t, q = b % tiles, b // tiles
+            cols = slice(32 * t * tile, 32 * min((t + 1) * tile, W))
+            out[q] += int((counts[q, cols] >= tcount[q]).sum())
+    return counts, out
+
+
+def _chunk_inputs(W, nk, holes, seed, R=256, nq=4, nh=5):
+    """Queries of nk positions: with ``holes`` the valid flags are random
+    (padding inside a query), else each query a valid prefix (nk, about
+    half, one, none); query 1 has no valid k-mer either way."""
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 1 << 32, size=(R, W), dtype=np.uint32)
+    idx = rng.integers(0, R, size=(nq, nk, nh), dtype=np.int32)
+    if holes:
+        valid = rng.random((nq, nk)) < 0.7
+    else:
+        valid = np.zeros((nq, nk), dtype=bool)
+        for q, n in enumerate((nk, 0, 1, (nk + 1) // 2)):
+            valid[q, :n] = True
+    valid[1] = False
+    tcount = np.array([1, 2, max(1, nk // 20), max(1, nk // 40)], dtype=np.int32)
+    return db, idx, valid, tcount
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 131])
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("nk", [0, 1, 31, 32, 33, 45, 200])
+def test_chunk_emulation_matches_refs_and_jax(nk, holes, W):
+    """The chunked kernels' decomposition (chunks, carry-save planes a warp
+    and a block, the merge in any order, the compare a (query, tile)) gives
+    counts_ref's counts and total_hits_ref's totals, and the JAX
+    counts_kernel's counts (nk > 0: the JAX kernel reads k-mer 0)."""
+    db, idx, valid, tcount = _chunk_inputs(W, nk, holes, seed=nk * 10 + W + holes)
+    counts, total = _emulate_chunks(db, idx, valid, tcount, order_seed=nk + W)
+    args_t = (ts.words_to_tensor(db, CPU), torch.from_numpy(idx), torch.from_numpy(valid))
+    np.testing.assert_array_equal(counts, ts.counts_ref(*args_t).numpy())
+    np.testing.assert_array_equal(
+        total, ts.total_hits_ref(*args_t, torch.from_numpy(tcount)).numpy())
+    if nk:
+        want = np.asarray(jax_search.search_counts(jnp.asarray(db), jnp.asarray(idx),
+                                                   jnp.asarray(valid)))
+        np.testing.assert_array_equal(counts, want)
+    if nk >= 32 and not holes:
+        assert total[0] > 0 and counts[0].max() > 1   # the thresholds are not vacuous
+
+
 @pytest.mark.cuda
 def test_search_kernels_match_ref(cuda_device):
     for R, W, nq, nk, nh in ((256, 3, 4, 45, 5), (1 << 16, 100, 5, 300, 3)):
@@ -211,3 +320,16 @@ def test_search_kernels_match_ref(cuda_device):
                 torch.from_numpy(valid).to(cuda_device))
         assert torch.equal(ts.search_complete(*args), ts.complete_ref(*args))
         assert torch.equal(ts.search_counts(*args), ts.counts_ref(*args))
+    # The chunked kernels' edges: nk around the chunk, holes, a query with
+    # no valid k-mer, widths on both load paths (W % 4 == 0 or not).
+    for W in (1, 3, 4, 131, 512):
+        for nk in (0, 1, 31, 32, 33, 45, 200):
+            for holes in (False, True):
+                db, idx, valid, tcount = _chunk_inputs(W, nk, holes, seed=nk + W)
+                args = (ts.words_to_tensor(db, cuda_device),
+                        torch.from_numpy(idx).to(cuda_device),
+                        torch.from_numpy(valid).to(cuda_device))
+                tc = torch.from_numpy(tcount).to(cuda_device)
+                assert torch.equal(ts.search_counts(*args), ts.counts_ref(*args))
+                assert torch.equal(ts.search_total_hits(*args, tc),
+                                   ts.total_hits_ref(*args, tc))
