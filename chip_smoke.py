@@ -62,12 +62,16 @@ one line each; any failure raises and exits non-zero:
               (search) and num_acc * 2^L >= 2^32 bits (bloom_set_bits);
               CUDA-event times of both. The ingest kernels also at
               k = 15, 16, 31 and 32 on a small block, packed and ASCII, and
-              canonical_kmers at k = 1-32 on lengths that end inside a word.
+              canonical_kmers at k = 1-32 on lengths that end inside a word,
+              murmur32 and slice_indices at every k = 1-32 and nh = 1-9.
               select_runs and bit_transpose, which work in tiles, at the
               sizes, runs, accession boundaries, look-aheads and ragged
               widths that meet a tile's edge (``tiled_edge_checks``).
               search_total_hits at the search rows' shape and on a shard
-              whose width is no multiple of 32. radix_sort_pairs (both
+              whose width is no multiple of 32; search_complete also where
+              its answer is not trivial (dense rows: words that stay
+              all-ones, words that go to 0 and words between, in each
+              tile). radix_sort_pairs (both
               entries: all pairs, and the valid windows only) at the fused
               batch's layout (the main path's call), at its window count
               with 30% invalid, and at 2^24 windows, each beside compaction
@@ -143,7 +147,13 @@ from kwage_tpu_torch.io.bloom_file import BloomFilterRecord, read_bloom_file, wr
 from kwage_tpu_torch.io.dbz_file import open_database
 from kwage_tpu_torch.io.inventory import write_inventory
 from kwage_tpu_torch.io.status import read_status_file
-from kwage_tpu_torch.kernels.time_kernel import fused_batch_pairs, sort_case
+from kwage_tpu_torch.kernels.time_kernel import (
+    HBM_BYTES_PER_S,
+    INT32_OPS_PER_S,
+    fused_batch_pairs,
+    murmur_ops,
+    sort_case,
+)
 from kwage_tpu_torch.native import available as native_available
 from kwage_tpu_torch.native import canonical_kmers_native, murmur32_native
 from kwage_tpu_torch.ops import counting as tcount
@@ -234,16 +244,6 @@ SOURCES = {
     "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
     "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
 }
-# The card's peaks: 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet); int32
-# operations: two pipes, IMAD on the FMA pipe and LOP3 (and the adds and
-# shifts) on the integer ALU, each 64 lanes a clock and SM, at 132 SMs and
-# 1.98 GHz. Chains of IMAD alone and of LOP3 alone each ran at 63.3-63.8 a
-# clock and SM at 1.98-1.995 GHz on an H100 80GB HBM3 at 700.00 W (``python
-# -m kwage_tpu_torch.kernels.time_kernel roof``, csrc/variants/int_roof.cu);
-# their mix reached 87-88 a clock and SM, not the 128 of both pipes full, so
-# the peak is what two full pipes dispatch, not that reading.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 2 * 64 * 132 * 1.98e9
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "e2e")
 GOLDEN_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 
@@ -1102,15 +1102,6 @@ def bound(nbytes: float, nops: float) -> dict:
             "bytes": int(nbytes), "operations": int(nops)}
 
 
-def murmur_ops(k: int, nh: int) -> int:
-    """Integer operations of murmur3-32 over one k-mer's decoded bases for
-    nh seeds: 10 a message block of 4 bases to decode them (a shift, the
-    codes spread to nibbles, one byte permute) and 3 to mix it, then 3 a
-    block and 12 for the finish and mask a seed."""
-    blocks = -(-k // 4)
-    return 13 * blocks + nh * (3 * blocks + 12)
-
-
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1137,26 +1128,27 @@ def search_inputs(R, W, nq, nk, n_valid, gen, device):
 
 
 def search_chunk() -> int:
-    """k-mer positions a block of csrc/search.cu's search_counts and
-    search_total_hits takes (kWarps x kKmersPerWarp)."""
+    """k-mer positions a block of csrc/search.cu's searches takes (kWarps x
+    kKmersPerWarp)."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), SOURCES["search_counts"])
     with open(path) as f:
         c = dict(re.findall(r"constexpr int (k\w+) = (\d+);", f.read()))
     return int(c["kWarps"]) * int(c["kKmersPerWarp"])
 
 
-def search_own_traffic(valid: torch.Tensor, W: int, total_hits: bool) -> int:
+def search_own_traffic(name: str, valid: torch.Tensor, W: int) -> int:
     """Bytes of the chunked kernels' own traffic beyond the function's: the
-    entry zeroes the counts (the output, or total_hits' scratch), every
-    chunk with a valid k-mer adds at most W*32 counts into them, and
-    total_hits' compare kernel reads them back. In L2 at these sizes; the
-    bound never includes it."""
+    entry sets the output (search_complete: to all-ones, W words a query;
+    the counts, or total_hits' scratch: to 0, W*32 a query), every chunk
+    with a valid k-mer merges at most that many words into it with
+    atomics, and total_hits' compare kernel reads the counts back. In L2 at
+    these sizes; the bound never includes it."""
     nq, nk = valid.shape
     chunk = search_chunk()
     padded = torch.nn.functional.pad(valid, (0, (-nk) % chunk))
     busy = int(padded.view(nq, -1, chunk).any(dim=2).sum()) if nk else 0
-    counts = nq * W * 32 * 4
-    return counts + busy * W * 32 * 4 + (counts if total_hits else 0)
+    words = W if name == "search_complete" else W * 32
+    return (nq + busy + (nq if name == "search_total_hits" else 0)) * words * 4
 
 
 def search_launcher(name, db, idx, valid, out, tcount=None):
@@ -1238,16 +1230,57 @@ def search_checks(device, gen, results: dict, lines: list, shapes=SEARCH_SHAPES)
                 per_word = NUM_HASH + (0 if name == "search_complete" else 5)
                 nops = sum(n_valid) * Wv * per_word + (
                     nq * Wv * 32 if name == "search_total_hits" else 0)
-                own = (0 if name == "search_complete" else
-                       search_own_traffic(valid, Wv, name == "search_total_hits"))
+                own = search_own_traffic(name, valid, Wv)
                 search_row(name, label, search_launcher(name, shard, idx, valid, out, *extra),
                            lambda: ref(shard, idx, valid, *extra), n_valid, Wv,
                            gathered + nbytes_of(idx, valid, got, *extra), nops, own,
                            results, lines)
             del shard
+        if tag == "main":
+            complete_dense_checks(db, idx, valid, gen, compare, lines)
         del db, idx, valid
         torch.cuda.empty_cache()
     search_edge_checks(device, gen, compare, lines)
+
+
+def dense_rows(rows: torch.Tensor, gen) -> torch.Tensor:
+    """Rows whose complete match is not trivial: word columns w % 4 == 0
+    all-ones, w % 4 == 1 random at 1 - 2^-5 fill, w % 4 >= 2 the same OR
+    a fixed mask that no AND clears (0x01010101 << (w % 7))."""
+    fill = random_words(rows.shape, gen, rows.device)
+    for _ in range(4):
+        fill |= random_words(rows.shape, gen, rows.device)
+    col = torch.arange(rows.shape[1], device=rows.device)
+    fixed = (0x01010101 * torch.pow(2, col % 7)).to(torch.int32)
+    return torch.where(col % 4 == 0, -1, torch.where(col % 4 == 1, fill, fill | fixed))
+
+
+def complete_dense_checks(db, idx, valid, gen, compare, lines: list) -> None:
+    """search_complete where its answer is not trivial: on random rows at
+    ~50% fill the AND of more than a few k-mers is 0 in every word, so a
+    kernel that wrote zeros would pass. Every row the queries gather is
+    made dense (dense_rows; db is changed in place), so each tile holds
+    words that stay all-ones, words that go to 0 for the long queries and
+    words between; every query with a valid k-mer must have a word that is
+    neither 0 nor all-ones in the plain version's answer, and the kernel
+    must equal it, at the main shape and on the W=131 shard."""
+    rows = torch.unique(idx[valid].long())
+    db[rows] = dense_rows(db[rows], gen)
+    nq, nk = valid.shape
+    for shard in (db, db[:, :131].contiguous()):
+        W = shard.shape[1]
+        got, want = ts.search_complete(shard, idx, valid), ts.complete_ref(shard, idx, valid)
+        label = f"dense rows R={shard.shape[0]} W={W} nq={nq} nk={nk}"
+        compare("search_complete", got, want, label)
+        between = ((want != 0) & (want != -1)).any(dim=1)
+        check(bool((between == valid.any(dim=1)).all()),
+              f"search_complete {label}: a query with valid k-mers has only 0 and all-ones words")
+        check(bool((want[~valid.any(dim=1)] == -1).all()), f"{label}: a query with none")
+        out = torch.empty_like(got)
+        ms = graph_ms(search_launcher("search_complete", shard, idx, valid, out), 10)
+        lines.append(f"search_complete {label}: kernel {ms:.4f} ms graph, == plain; words "
+                     f"all-ones {int((want == -1).sum())}, 0 {int((want == 0).sum())}, "
+                     f"between {int(((want != 0) & (want != -1)).sum())} of {want.numel()}")
 
 
 def search_edge_checks(device, gen, compare, lines: list) -> None:
@@ -1862,6 +1895,26 @@ def small_block_checks(device: torch.device, seed: int, results: dict, lines: li
                   f"k={k} length={length}: validity at the first or last base")
     lines.append("canonical_kmers (packed and ASCII) at k=1, 15, 16, 17, 31, 32 on lengths "
                  "17, 33, 255, 257, 289, 1000 with N at the first, last, 16th, 32nd base == plain")
+    # murmur32 at every instance of its kernel: k = 1..32 x nh = 1..8, and
+    # nh = 9 (the instance with nh at run time), on 4099 words of 2k random
+    # bits; its entry refuses an output 4 bytes off a 16-byte boundary.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+    n = 4099
+    full = ((random_words((n,), gen, device).long() << 32)
+            | (random_words((n,), gen, device).long() & 0xFFFFFFFF))
+    for k in range(1, 33):
+        flat = full if k == 32 else full & ((1 << (2 * k)) - 1)
+        for nh in range(1, 10):
+            ref = th.murmur32_ref(flat, k, nh)
+            errs["murmur32"] += (diff(th.murmur32(flat, k, nh), ref)
+                                 + diff(th.slice_indices(flat, k, nh, 13), ref & ((1 << 13) - 1)))
+    buf = torch.empty(n * 4 + 1, dtype=torch.int32, device=device)
+    check(kernels.get_lib().kw_murmur32(full.data_ptr(), buf[1:].data_ptr(), n, 31, 4,
+                                        0xFFFFFFFF, torch.cuda.current_stream(device).cuda_stream)
+          != 0, "murmur32 took an output off a 16-byte boundary")
+    lines.append(f"murmur32 and slice_indices at k = 1-32 x nh = 1-9 on {n} words == plain; an "
+                 "output 4 bytes off a 16-byte boundary refused")
     for name, err in errs.items():
         check(err == 0, f"{name} differs from its plain version on the small block ({err})")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)

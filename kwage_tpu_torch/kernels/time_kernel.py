@@ -5,8 +5,8 @@
 KERNEL is ``kmers`` (``csrc/kmers.cu``), ``select_runs``
 (``csrc/counting.cu``), ``bit_transpose`` (``csrc/bit_transpose.cu``),
 ``sort`` (``csrc/sort.cu``), ``bitset`` (``csrc/bitset.cu``), ``search``
-(``csrc/search.cu``) or ``roof`` (``csrc/variants/int_roof.cu``, the
-card's integer rate). Each source (this
+(``csrc/search.cu``), ``murmur`` (``csrc/murmur.cu``) or ``roof``
+(``csrc/variants/int_roof.cu``, the card's integer rate). Each source (this
 tree's first, then the files named) is compiled alone with ``nvcc`` for
 ``sm_90a`` (``-I csrc/``, for ``murmur.cuh``; a header beside the source
 wins) into ``build/kwage_tpu_torch/`` and bound with ``ctypes``; these
@@ -18,8 +18,8 @@ CUDA graph of 20 launches, so the host's launch rate (5-6 us a launch,
 above these kernels' time at the small shapes) is not in it; the cases of
 milliseconds are launched a few times in a row. To time an earlier
 commit's kernel: ``git show <commit>:kwage_tpu_torch/csrc/counting.cu >
-build/counting_old.cu`` and name that file (for ``bitset.cu``, put that
-commit's ``murmur.cuh`` beside it). Where a C entry's arguments changed
+build/counting_old.cu`` and name that file (for ``bitset.cu`` and
+``murmur.cu``, put that commit's ``murmur.cuh`` beside it). Where a C entry's arguments changed
 (``radix_sort_pairs``; ``search_total_hits`` gained a scratch), each
 version is called with its own. Exit code 1 when two versions disagree.
 
@@ -46,17 +46,26 @@ and 4 filters of 2^30 bits (offsets past 2^31). ``search``: ``search_complete``,
 W = 512, 8 queries of 1024 positions with 1, 3, 1024, 1000, 777, 512, 129
 and 0 valid, nh = 5), on its W = 131 and W = 128 column shards, on 64
 queries with all 1024 k-mers valid, and at R = 2^26, W = 64; each line
-ends with the share of the function's byte bound. ``roof``: chains of int32
+ends with the share of the function's byte bound. ``murmur``: ``murmur32``
+as slice indices at the ingest's shape (n = 2^23 distinct words, k = 31,
+nh = 4, L = 21) and at ``entry()``'s (n = 226, nh = 5, L = 14); each line
+ends with the share of the function's bound (the larger of its integer
+operations over the two pipes' issue limit and its bytes), and before the cases each
+version's SASS mix at k = 31, nh = 4 is printed (``cuobjdump -sass``:
+instructions by opcode, the ALU pipe's and the FMA pipe's, and the time
+the ALU pipe's alone take at 2^23 k-mers). ``roof``: chains of int32
 IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
 the SM clock it ran at and the operations a clock and SM.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import subprocess
 import sys
 from typing import Callable
@@ -66,6 +75,18 @@ import torch
 from . import _ENTRIES, _I64, _VP, BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
 
 GRAPH_LAUNCHES = 20
+# The card's peaks: 3.35 TB/s of HBM3 (NVIDIA H100 SXM data sheet); int32
+# operations: two pipes, IMAD on the FMA pipe and LOP3 (and the adds and
+# shifts) on the integer ALU, each 64 lanes a clock and SM, at 132 SMs and
+# 1.98 GHz. Chains of IMAD alone and of LOP3 alone each ran at 63.3-63.8 a
+# clock and SM at 1.98-1.995 GHz on an H100 80GB HBM3 at 700.00 W (``roof``,
+# csrc/variants/int_roof.cu); their mix reached 87-88 a clock and SM, not
+# the 128 of both pipes full, so the peak is what two full pipes dispatch,
+# not that reading. ONE_PIPE_OPS_PER_S: one pipe at that 63.5, the floor of
+# a kernel whose operations mostly issue to one pipe.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 2 * 64 * 132 * 1.98e9
+ONE_PIPE_OPS_PER_S = 63.5 * 132 * 1.98e9
 # C entries this tool alone calls: (out, grid, steps, mode, stream).
 _OWN_ENTRIES = {"int_roof": [_VP, _I64, _I64, _I64, _VP]}
 # Entries whose arguments changed: name -> (the entry only the current
@@ -93,7 +114,7 @@ def load(source: str, entries: tuple[str, ...]) -> ctypes.CDLL:
     if not os.path.exists(so):
         res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-shared", "-o", so, source],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        print(f"{source}:\n{res.stdout}", flush=True)   # ptxas: registers, spills
+        print(f"{source}:\n{ptxas_report(res.stdout)}", flush=True)
         res.check_returncode()
     lib = ctypes.CDLL(so)
     for name in entries:
@@ -105,6 +126,32 @@ def load(source: str, entries: tuple[str, ...]) -> ctypes.CDLL:
             fn.argtypes = _EARLIER[name][1]
         fn.restype = ctypes.c_int
     return lib
+
+
+def murmur_ops(k: int, nh: int) -> int:
+    """Integer operations of murmur3-32 over one k-mer's decoded bases for
+    nh seeds, masked. The decode: 2 to bit-reverse and shift the word, 5 a
+    pair of 4-base message blocks to spread their 2-bit codes to nibbles
+    (one byte permute, two shift-and-mask steps), 1 a block to map them to
+    ASCII and 3 to mix it, 1 to cut the tail block. A seed: 3 a full block
+    (xor, rotate, multiply-add), 1 for the tail, 10 for the finish and the
+    mask (the length, three shift-xors, two multiplies, the and)."""
+    blocks, tail = -(-k // 4), k % 4 != 0
+    decode = 2 + 5 * -(-blocks // 2) + 4 * blocks + tail
+    return decode + nh * (3 * (k // 4) + tail + 10)
+
+
+def ptxas_report(text: str, most: int = 24) -> str:
+    """nvcc's output; where ptxas reports more than ``most`` kernels (the
+    instances of a template), one line: their count, the range of their
+    registers and their spills."""
+    kernels = re.findall(r"Compiling entry function '(\S+)'", text)
+    if len(kernels) <= most:
+        return text
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores", text)})
+    return (f"ptxas: {len(kernels)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"spill stores {spills} bytes")
 
 
 def cuda_ms(call, reps: int, graph: bool = True) -> float:
@@ -380,7 +427,6 @@ def roof_cases(device, gen):
                    note=per_clock)
 
 
-HBM_BYTES_PER_S = 3.35e12
 SEARCH_NH = 5
 SEARCH_MAIN = [1, 3, 1024, 1000, 777, 512, 129, 0]   # chip_smoke.py phase 4's valid k-mers
 
@@ -443,6 +489,62 @@ def search_cases(device, gen):
     yield from _search_shape("R=2^26", wide, [1, 2, 256, 200], gen)
 
 
+MURMUR_K = 31
+
+
+def murmur_cases(device, gen):
+    """murmur32 as slice indices, k = 31: the ingest's 2^23 distinct words
+    at nh = 4, L = 21, and entry()'s 226 at nh = 5, L = 14. The note: the
+    share of the function's bound (the larger of murmur_ops over the two
+    pipes' issue limit and 8 bytes in and 4 * nh out a word over 3.35
+    TB/s)."""
+    for n, nh, L in ((1 << 23, 4, 21), (226, 5, 14)):
+        words = torch.randint(0, 1 << 62, (n,), device=device, generator=gen)
+        out = torch.empty((n, nh), dtype=torch.int32, device=device)
+        ops = n * murmur_ops(MURMUR_K, nh)
+        bound = max(ops / INT32_OPS_PER_S, (8 * n + 4 * n * nh) / HBM_BYTES_PER_S) * 1e3
+
+        def call(lib, st, words=words, out=out, n=n, nh=nh, L=L):
+            return lib.kw_murmur32(words.data_ptr(), out.data_ptr(), n, MURMUR_K, nh,
+                                   (1 << L) - 1, st)
+        yield Case(f"n={n} k={MURMUR_K} nh={nh} L={L}", call, [(out, -7)], 20, ops=ops,
+                   note=lambda ms, bound=bound: f", {bound / ms:.3f} of the {bound:.3g} ms "
+                                                "bound")
+
+
+# Opcodes (before the first '.') by the pipe they issue to; IMAD's forms
+# (IMAD.SHL, IMAD.MOV, IMAD.WIDE, IMAD.IADD) go to the FMA pipe.
+ALU_OPS = {"LOP3", "SHF", "PRMT", "IADD3", "LEA", "ISETP", "SEL", "IABS", "IMNMX"}
+FMA_OPS = {"IMAD", "IMUL"}
+
+
+def sass_mix(so: str, kernel: str, instance: str) -> str:
+    """The SASS of ``kernel`` in the library ``so`` (its ``instance``
+    where it has several, a pattern of the mangled name): instructions by
+    opcode, the ALU and FMA pipes' shares, and the ms the ALU pipe's alone
+    take for 2^23 threads over one pipe's rate (each thread runs the body
+    once at that size)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    funcs = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = opcode.findall(body)
+    names = [f for f in funcs if kernel in f]
+    if len(names) > 1:
+        names = [f for f in names if re.search(instance, f)]
+    if len(names) != 1:
+        return f"{kernel} ({instance}): {len(names)} functions match"
+    ops = collections.Counter(op.split(".")[0] for op in funcs[names[0]])
+    alu = sum(v for k, v in ops.items() if k in ALU_OPS)
+    fma = sum(v for k, v in ops.items() if k in FMA_OPS)
+    return (f"{names[0]}: {sum(ops.values())} instructions, ALU pipe {alu}, FMA pipe {fma}; "
+            f"ALU alone at 2^23: {alu * (1 << 23) / ONE_PIPE_OPS_PER_S * 1e3:.4f} ms; "
+            + ", ".join(f"{k} {v}" for k, v in ops.most_common()))
+
+
 # kernel -> (source in csrc/, its C entries, its cases)
 KERNELS = {
     "kmers": ("kmers.cu", ("canonical_kmers", "canonical_kmers_ascii"), kmers_cases),
@@ -453,7 +555,10 @@ KERNELS = {
     "roof": (os.path.join("variants", "int_roof.cu"), ("int_roof",), roof_cases),
     "search": ("search.cu", ("search_complete", "search_counts", "search_total_hits"),
                search_cases),
+    "murmur": ("murmur.cu", ("murmur32",), murmur_cases),
 }
+# kernel -> (the kernel's name in the SASS, the instance to show)
+SASS = {"murmur": ("murmur32_kernel", f"ILi{MURMUR_K}E(Li4E)?E")}
 
 
 def main(argv: list[str]) -> int:
@@ -464,6 +569,9 @@ def main(argv: list[str]) -> int:
     source, entries, cases = KERNELS[argv[0]]
     sources = [os.path.join(CSRC_DIR, source), *argv[1:]]
     libs = [load(s, entries) for s in sources]
+    if argv[0] in SASS:
+        for lib in libs:
+            print(sass_mix(lib._name, *SASS[argv[0]]), flush=True)
     device = torch.device("cuda")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

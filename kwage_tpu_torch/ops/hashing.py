@@ -6,7 +6,8 @@ uint64 bit pattern; k = 32 fills all 64 bits). Hashes are int32 tensors
 holding the uint32 bit patterns.
 
 - ``murmur32``: the kernel wrapper. On a CUDA tensor it launches
-  ``csrc/murmur.cu`` (or raises); on a CPU tensor it runs ``murmur32_ref``.
+  ``csrc/murmur.cu`` (or raises; it takes under 2^31 outputs, n x seeds);
+  on a CPU tensor it runs ``murmur32_ref``.
 - ``murmur32_ref``: the plain version, in int32 wrap arithmetic with
   masked logical shifts (torch has no uint32 arithmetic).
 - ``slice_indices``: murmur masked to 2^L slice rows, one launch.
@@ -80,6 +81,8 @@ def _launch_murmur(words: torch.Tensor, k: int, num_seeds: int, mask: int) -> to
         raise ValueError(f"need 1 <= k <= 32 and num_seeds >= 1 (k={k}, nh={num_seeds})")
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
+    if words.shape[0] * num_seeds >= 1 << 31:
+        raise ValueError(f"the kernel takes under 2^31 outputs ({words.shape[0]} x {num_seeds})")
     words = words.contiguous()
     out = torch.empty((words.shape[0], num_seeds), dtype=torch.int32, device=words.device)
     if words.numel():

@@ -200,7 +200,8 @@ def _empty_out(db: torch.Tensor, idx: torch.Tensor, cols: int) -> torch.Tensor:
 
 def search_complete(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Threshold == 1.0: packed complete-match mask int32 [nq, W].
-    CUDA tensors: the search_complete kernel; CPU tensors: complete_ref."""
+    CUDA tensors: the search_complete kernel (num_hash <= 128); CPU
+    tensors: complete_ref."""
     if db.device.type == "cpu":
         return complete_ref(db, idx, valid)
     return _launch_search("search_complete", db, idx, valid, _empty_out(db, idx, db.shape[1]))

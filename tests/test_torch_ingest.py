@@ -178,7 +178,7 @@ def test_canonical_kmers_rejects_bad_input():
 
 # --- hashing ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [3, 4, 15, 31, 32])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32])
 @pytest.mark.parametrize("nh", [1, 5, 8])
 def test_murmur32_matches_jax_and_native(k, nh):
     rng = np.random.default_rng(k * 10 + nh)
@@ -194,6 +194,75 @@ def test_murmur32_matches_jax_and_native(k, nh):
         idx = th.slice_indices(tk.words_u64_to_tensor(words, CPU), k, nh, L)
         want = jh.slice_indices_device(jnp.asarray(hi), jnp.asarray(lo), k, nh, L)
         np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+
+
+_REV8 = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], dtype=np.uint8)
+_U32 = np.uint32
+
+
+def _byte_perm(x, sel):
+    """CUDA's __byte_perm(x, 0, sel) on uint32 arrays, for selector nibbles
+    0-7 (no sign mode): byte n of the result is byte (nibble n of sel) of
+    the 8 bytes {0, x}."""
+    x, sel = np.broadcast_arrays(_U32(x), _U32(sel))
+    src = np.stack([(x >> _U32(8 * j)) & _U32(0xFF) for j in range(4)] + [np.zeros_like(x)] * 4)
+    out = np.zeros(x.shape, _U32)
+    for n in range(4):
+        pick = ((sel >> _U32(4 * n)) & _U32(7)).astype(np.int64)
+        out |= np.take_along_axis(src, pick[None], 0)[0] << _U32(8 * n)
+    return out
+
+
+def _rotl(x, r):
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def _murmur_k_emulation(words, k, nh):
+    """numpy emulation of csrc/murmur.cuh's murmur_blocks_k<K> and
+    murmur_seed_k<K> (the murmur32 kernel's instances): the word's bits
+    reversed, so that block b is byte b and each base's two bits are
+    swapped; two blocks' bytes spread to nibbles a byte permute and two
+    masked shifts; one byte permute a block to ASCII ("AGCT" for the
+    swapped codes). -> uint32 [n, nh]."""
+    rev = _REV8[words.view(np.uint8)].view(np.uint64).byteswap()
+    r = rev >> np.uint64(64 - 2 * k)
+    nblocks = (k + 3) // 4
+    blocks = []
+    for b in range(0, nblocks, 2):
+        half = (r >> np.uint64(32 if b >= 4 else 0)).astype(_U32)
+        s = _byte_perm(half, 0x4342 if b & 2 else 0x4140)
+        s = (s | (s << _U32(4))) & _U32(0x0F0F0F0F)
+        s = (s | (s << _U32(2))) & _U32(0x33333333)
+        for j, sel in ((b, s), (b + 1, s >> _U32(16))):
+            if j < nblocks:
+                m = _byte_perm(0x54434741, sel)
+                if k & 3 and j == k // 4:
+                    m &= _U32((1 << (8 * (k & 3))) - 1)
+                blocks.append(_rotl(m * _U32(0xCC9E2D51), 15) * _U32(0x1B873593))
+    h = np.broadcast_to(np.arange(nh, dtype=_U32), (words.shape[0], nh)).copy()
+    for b in range(k // 4):
+        h = _rotl(h ^ blocks[b][:, None], 13) * _U32(5) + _U32(0xE6546B64)
+    if k & 3:
+        h ^= blocks[k // 4][:, None]
+    h ^= _U32(k)
+    h = (h ^ (h >> _U32(16))) * _U32(0x85EBCA6B)
+    h = (h ^ (h >> _U32(13))) * _U32(0xC2B2AE35)
+    return h ^ (h >> _U32(16))
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_murmur_k_emulation_matches_native_and_ref(k):
+    """The murmur32 kernel's decode with k fixed at compile time (bit
+    reversal, nibble spread, byte permutes), emulated, gives the native
+    hash and murmur32_ref at every k the kernel has an instance for."""
+    rng = np.random.default_rng(k)
+    top = np.uint64(2**64 - 1) if k == 32 else np.uint64((1 << (2 * k)) - 1)
+    words = rng.integers(0, 2**64, size=200, dtype=np.uint64) & top
+    words[:3] = [0, top, 1]
+    got = _murmur_k_emulation(words, k, 3)
+    np.testing.assert_array_equal(got, murmur32_native(words, k, 3))
+    np.testing.assert_array_equal(
+        got, tensor_to_words(th.murmur32_ref(tk.words_u64_to_tensor(words, CPU), k, 3)))
 
 
 # --- counting and filter bits -------------------------------------------------------
@@ -641,6 +710,20 @@ def test_ingest_kernels_match_ref(cuda_device):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         words = got[0].reshape(-1)
         assert torch.equal(th.murmur32(words, k, 5), th.murmur32_ref(words, k, 5))
+    # Every instance of the murmur32 kernel: k = 1..32 x nh = 1..8 (nh = 9:
+    # the instance with nh at run time); an output off a 16-byte boundary
+    # is refused.
+    rng = np.random.default_rng(5)
+    for k in range(1, 33):
+        top = np.uint64(2**64 - 1) if k == 32 else np.uint64((1 << (2 * k)) - 1)
+        words = tk.words_u64_to_tensor(
+            rng.integers(0, 2**64, size=1000, dtype=np.uint64) & top, cuda_device)
+        for nh in range(1, 10):
+            assert torch.equal(th.murmur32(words, k, nh), th.murmur32_ref(words, k, nh))
+        out = torch.empty(words.numel() * 4 + 1, dtype=torch.int32, device=cuda_device)
+        with pytest.raises(RuntimeError, match="murmur32 launch failed"):
+            kernels.launch("murmur32", words.data_ptr(), out[1:].data_ptr(), words.numel(), k,
+                           4, 0xFFFFFFFF, torch.cuda.current_stream(cuda_device).cuda_stream)
         ascii = torch.from_numpy(_every_byte_batch(k)).to(cuda_device)
         got = tk.canonical_kmers(ascii, k)
         want = tk.canonical_kmers_ascii_ref(ascii, k)

@@ -206,7 +206,7 @@ def test_resident_searcher_spent_budget_streams_in_bounded_slabs(tmp_path, monke
         {q: r for q, r in want.items() if r})
 
 
-# --- the decomposition of csrc/search.cu's search_counts / search_total_hits ---
+# --- the decomposition of csrc/search.cu's chunked search kernels ---
 
 def _kernel_constants() -> dict[str, int]:
     """The block shape of the chunked search kernels, read from the source."""
@@ -312,6 +312,70 @@ def test_chunk_emulation_matches_refs_and_jax(nk, holes, W):
         assert total[0] > 0 and counts[0].max() > 1   # the thresholds are not vacuous
 
 
+def _dense(db, seed):
+    """Rows whose complete match is not trivial: the low byte of every word
+    set (no AND clears it), the other bits at 1 - 2^-4 fill."""
+    rng = np.random.default_rng(seed)
+    fill = np.bitwise_or.reduce(rng.integers(0, 1 << 32, size=(4, *db.shape), dtype=np.uint32))
+    return fill | np.uint32(0xFF)
+
+
+def _emulate_complete(db, idx, valid, order_seed):
+    """numpy emulation of search_complete's decomposition, blocks in a
+    random order: a block is (query, tile of kTileWords columns, chunk of
+    kWarps x kKmersPerWarp k-mer positions); its valid k-mers, compacted, go
+    to warp (slot % kWarps), a slot past them holds all-ones; each warp
+    ANDs its slots' seed-AND words, the block ANDs the warps' words, and a
+    block with a valid k-mer ANDs the result into out [nq, W], all-ones
+    before."""
+    c = _kernel_constants()
+    warps, per_warp, tile = c["kWarps"], c["kKmersPerWarp"], c["kTileWords"]
+    chunk = warps * per_warp
+    nq, nk, _ = idx.shape
+    W = db.shape[1]
+    tiles, chunks = -(-W // tile), -(-nk // chunk)
+    out = np.full((nq, W), 0xFFFFFFFF, np.uint32)
+    for b in np.random.default_rng(order_seed).permutation(tiles * chunks * nq):
+        t, rest = b % tiles, b // tiles
+        ch, q = rest % chunks, rest // chunks
+        k0, w0 = ch * chunk, t * tile
+        w1 = min(w0 + tile, W)
+        pos = np.nonzero(valid[q, k0:k0 + chunk])[0]
+        if not len(pos):
+            continue
+        slots = np.full((warps, per_warp, w1 - w0), 0xFFFFFFFF, np.uint32)
+        for s, p in enumerate(pos):
+            slots[s % warps, s // warps] = np.bitwise_and.reduce(db[idx[q, k0 + p], w0:w1],
+                                                                 axis=0)
+        warp_words = np.bitwise_and.reduce(slots, axis=1)
+        out[q, w0:w1] &= np.bitwise_and.reduce(warp_words, axis=0)
+    return out
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 131])
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("nk", [0, 1, 31, 32, 33, 45, 200])
+def test_complete_emulation_matches_refs_and_jax(nk, holes, W):
+    """search_complete's decomposition (chunks, all-ones in the dead slots,
+    the AND a warp and a block, the merge into an all-ones output in any
+    order) gives complete_ref's mask and the JAX complete_kernel's (nk > 0:
+    the JAX kernel reads k-mer 0), and all-ones for query 1, which has no
+    valid k-mer. Dense rows, so that the answer is not all zeros."""
+    seed = nk * 10 + W + holes
+    db, idx, valid, _ = _chunk_inputs(W, nk, holes, seed=seed)
+    db = _dense(db, seed)
+    got = _emulate_complete(db, idx, valid, order_seed=nk + W)
+    args_t = (ts.words_to_tensor(db, CPU), torch.from_numpy(idx), torch.from_numpy(valid))
+    np.testing.assert_array_equal(got, ts.tensor_to_words(ts.complete_ref(*args_t)))
+    assert (got[1] == 0xFFFFFFFF).all()
+    if nk:
+        want = np.asarray(jax_search.search_complete(jnp.asarray(db), jnp.asarray(idx),
+                                                     jnp.asarray(valid)))
+        np.testing.assert_array_equal(got, want)
+    if valid.any():   # not trivial: words between 0 and all-ones
+        assert ((got != 0) & (got != 0xFFFFFFFF)).any()
+
+
 @pytest.mark.cuda
 def test_search_kernels_match_ref(cuda_device):
     for R, W, nq, nk, nh in ((256, 3, 4, 45, 5), (1 << 16, 100, 5, 300, 3)):
@@ -321,7 +385,8 @@ def test_search_kernels_match_ref(cuda_device):
         assert torch.equal(ts.search_complete(*args), ts.complete_ref(*args))
         assert torch.equal(ts.search_counts(*args), ts.counts_ref(*args))
     # The chunked kernels' edges: nk around the chunk, holes, a query with
-    # no valid k-mer, widths on both load paths (W % 4 == 0 or not).
+    # no valid k-mer, widths on both load paths (W % 4 == 0 or not); the
+    # complete match also on dense rows.
     for W in (1, 3, 4, 131, 512):
         for nk in (0, 1, 31, 32, 33, 45, 200):
             for holes in (False, True):
@@ -333,3 +398,6 @@ def test_search_kernels_match_ref(cuda_device):
                 assert torch.equal(ts.search_counts(*args), ts.counts_ref(*args))
                 assert torch.equal(ts.search_total_hits(*args, tc),
                                    ts.total_hits_ref(*args, tc))
+                assert torch.equal(ts.search_complete(*args), ts.complete_ref(*args))
+                dense = (ts.words_to_tensor(_dense(db, nk + W), cuda_device), *args[1:])
+                assert torch.equal(ts.search_complete(*dense), ts.complete_ref(*dense))
