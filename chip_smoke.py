@@ -32,6 +32,14 @@ one line each; any failure raises and exits non-zero:
               truth, every .db the host pack, a ``kwage --device`` search of
               genome reads the host engine's bytes; the golden corpus
               reproduces the golden .db digests.
+11. remote -- phase 6's accessions again, through the cross-host work
+              queue: ``kwage-maestro-torch --coordinator`` with its 2 local
+              pull workers (threads) and one ``kwage-maestro-torch
+              --worker`` process, all with --device-build
+              --device-transpose on the card: every .bloom and .db equals
+              phase 6's bytes (and the ground truth), every accession is
+              done; the wall beside phase 6's and each process's peak
+              device memory.
 7. entry   -- the port's ``entry()`` forward on the card equals the plain
               versions' result on the CPU.
 9. mesh    -- the sharded search (``parallel.sharded_search``) over phase
@@ -57,6 +65,13 @@ one line each; any failure raises and exits non-zero:
               (the same CLI without ``--device``, one thread) byte for byte, and
               the subjects hit only by 20 kbp reads must list exactly those.
               Mbp/s, the device path's profile and the host's Mbp/s.
+10. sriracha mesh -- phase 8's runs again, through search_reads_device
+              on a mesh of 4 logical slots of the card (each batch's reads
+              split over the slots, each slot on its own stream; also over
+              every card where there are several), then through
+              ``kwage-sriracha-torch --device`` with the card listed 4
+              times as the visible devices: each TSV equals phase 8's
+              bytes; walls, Mbp/s and profiles beside phase 8's.
 4. kernels -- every kernel against its plain PyTorch version on the card,
               bit for bit, at the paths' shapes and at R*W > 2^31 words
               (search) and num_acc * 2^L >= 2^32 bits (bloom_set_bits);
@@ -90,7 +105,8 @@ one line each; any failure raises and exits non-zero:
               three shapes), and on rows around the 2^14-word tile; both
               probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
               (k = 11): the LUT / hash crossover.
-5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 7, 8);
+5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 11, 7,
+              8, 10); the worker process of phase 11 reports its own counts;
               each path's counts are zeroed just before it and read just
               after.
 
@@ -125,8 +141,10 @@ import json
 import os
 import re
 import socket
+import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -162,6 +180,7 @@ from kwage_tpu_torch.ops import kmers as tk
 from kwage_tpu_torch.ops import search as ts
 from kwage_tpu_torch.ops import transpose as tt
 from kwage_tpu_torch.parallel import maestro as torch_maestro
+from kwage_tpu_torch.parallel import mesh as tmesh
 from kwage_tpu_torch.parallel.mesh import make_search_mesh
 from kwage_tpu_torch.parallel.sharded_search import ShardedDatabase, search_sharded_groups
 from kwage_tpu_torch.parallel.maestro import (
@@ -176,6 +195,13 @@ from kwage_tpu_torch.pipeline.make_bloom import BuildOptions, build_bloom_from_f
 from kwage_tpu_torch.search.resident import MeshResidentSearcher, SearchServer
 from kwage_tpu_torch.search.resident import render as render_searcher
 from kwage_tpu_torch.sriracha import device as tsr
+from kwage_tpu_torch.sriracha.engine import (
+    SrirachaOptions,
+    StreamStats,
+    format_results,
+    iter_reads_range,
+    load_subject_kmers,
+)
 from kwage_tpu_torch.utils.runtime import card_identity, resolve_device
 
 NUM_FILTER = 2048          # the reference's quota file (options.h:137-157)
@@ -203,6 +229,8 @@ SR_READS, SR_LONG, SR_LONG_BP = 1_000_000, 64, 20_000
 SR_LONG_ONLY = 4           # the last 4 subjects: hit by 20 kbp reads only
 # (run, k, threshold, reads): (A) the bucketed hash tables, (B) the LUTs.
 SR_RUNS = [("A", 21, 0.8, SR_READS), ("B", 11, 0.8, SR_READS)]
+READ_MESH_SLOTS = 4        # phase 10: logical slots of the card for SriRachA's reads
+REMOTE_BATCH = 4           # phase 11: accessions a device worker pulls at once
 # Paths (each driven with the launch counts zeroed just before it) and
 # the kernels each must launch.
 PATH_KERNELS = {
@@ -214,6 +242,10 @@ PATH_KERNELS = {
     "entry": ("canonical_kmers", "murmur32", "search_counts"),
     "sriracha": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
                  "subject_table"),
+    "sriracha_mesh": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
+                      "subject_table"),
+    "remote": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
+               "bit_transpose"),
 }
 # The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -708,19 +740,24 @@ def _refused(targets):
 
 
 @contextlib.contextmanager
-def no_library_sort():
+def no_library_sort(compaction: bool = True):
     """torch.sort, Tensor.sort and argsort of a CUDA tensor raise inside.
-    While ``sort_valid_windows`` runs, so do torch.nonzero, argwhere,
-    masked_select, unique and indexing by a boolean mask: those wrappers
-    are installed for each such call alone, so the rest of the ingest runs
-    without them. Yields a dict whose "sorts" counts the sort_valid_windows
-    calls it watched."""
+    With ``compaction``, while ``sort_valid_windows`` runs, so do
+    torch.nonzero, argwhere, masked_select, unique and indexing by a
+    boolean mask: those wrappers are installed for each such call alone, so
+    the rest of the ingest runs without them (one thread at a time: threads
+    that sort at once would undo each other's wrappers). Yields a dict
+    whose "sorts" counts the sort_valid_windows calls it watched."""
     watch = {"sorts": 0}
     sort_valid_windows = tcount.sort_valid_windows
+    lock = threading.Lock()
 
     @functools.wraps(sort_valid_windows)
     def watched(*args, **kwargs):
-        watch["sorts"] += 1
+        with lock:
+            watch["sorts"] += 1
+        if not compaction:
+            return sort_valid_windows(*args, **kwargs)
         with _refused((*COMPACTING, (torch.Tensor, "__getitem__"))):
             return sort_valid_windows(*args, **kwargs)
 
@@ -845,7 +882,6 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     os.makedirs(golden)
     run_maestro_golden(golden)
 
-    del truth
     small = [truth_params[a] for a in accs[: ingest[0][2]]]
     print(f"phase 6 ingest: {len(accs)} accessions, {total_bp / 1e6:.1f} Mbp of {READ_LEN} bp "
           f"reads (data + ground truth {t_data:.1f} s); kwage-maestro-torch --device-build "
@@ -861,7 +897,10 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     return {"rows": max(64, 1 << int(np.ceil(np.log2(rows)))),
             "blen": max(128, -(-READ_LEN // 128) * 128), "num_acc": count,
             "live_rows": rows, "valid_per_row": READ_LEN - INGEST_K + 1,
-            "log2_len": small[0].log_2_filter_len, "num_hash": small[0].num_hash}
+            "log2_len": small[0].log_2_filter_len, "num_hash": small[0].num_hash,
+            # what phase 11 runs again and holds its output to
+            "run": {"accs": accs, "truth": truth, "src": src, "bp": total_bp, "wall_s": t_dev,
+                    "dbs": [os.path.basename(db) for db in dbs]}}
 
 
 # --- phase 7: entry() -----------------------------------------------------------------
@@ -987,13 +1026,15 @@ def sriracha_profile(time_reads: bool = False):
 
 
 def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
-                 profile: bool = False) -> None:
+                 profile: bool = False) -> dict:
     """Phase 8 through the port's kwage-sriracha-torch --device, each run
     against the host engine's bytes; on a card, each run must launch its
     route's kernel and not the other's. ``profile``: also time the read
     iterator and the SRIRACHA_STEPS functions, trace the device
-    (``step_profile``) and print the breakdown."""
-    data = {}
+    (``step_profile``) and print the breakdown. Returns, by run tag, what
+    phase 10 runs again and holds its output to: (k, threshold, queries,
+    reads, bases, the --device TSV's path, its wall seconds, its profile)."""
+    data, done = {}, {}
     for tag, k, t, n_reads in runs:
         if n_reads not in data:  # a run cut to fewer reads gets data of its own
             t0 = time.perf_counter()
@@ -1011,6 +1052,7 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
             rc = torch_sriracha_main(args + ["--device", "-o", os.path.join(work, "dev.tsv")])
             t_dev = time.perf_counter() - t0
         check(rc == 0, f"kwage-sriracha-torch exited {rc}")
+        os.replace(os.path.join(work, "dev.tsv"), os.path.join(work, f"dev_{tag}.tsv"))
         if profile:
             print(f"profile: run {tag} kwage-sriracha-torch --device {t_dev:.3f} s under the "
                   f"step timers and the profiler; device busy {report['busy_s']:.4f} s, idle "
@@ -1023,7 +1065,7 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
         rc = torch_sriracha_main(args + ["-o", os.path.join(work, "host.tsv")])
         t_host = time.perf_counter() - t0
         check(rc == 0, f"host sriracha exited {rc}")
-        with open(os.path.join(work, "dev.tsv"), "rb") as f:
+        with open(os.path.join(work, f"dev_{tag}.tsv"), "rb") as f:
             dev = f.read()
         with open(os.path.join(work, "host.tsv"), "rb") as f:
             host = f.read()
@@ -1051,6 +1093,191 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
               f"{prof.get('spans')} spans); host engine {t_host:.2f} s "
               f"({bp / 1e6 / t_host:.2f} Mbp/s); TSV == host bytes, {len(rows)} rows, "
               f"{perfect} with score 1", flush=True)
+        done[tag] = (k, t, queries, path, bp, os.path.join(work, f"dev_{tag}.tsv"), t_dev, shown)
+    return done
+
+
+# --- phase 10: SriRachA over a mesh of slots ----------------------------------------------
+
+def run_sriracha_mesh(work: str, device: torch.device, phase8: dict,
+                      slots: int = READ_MESH_SLOTS) -> None:
+    """Phase 10 over phase 8's data (``phase8``: run_sriracha's result):
+    each run through the port's search_reads_device on a mesh of ``slots``
+    logical slots of the card (and on every card where there are several),
+    then once through ``kwage-sriracha-torch --device`` with the card listed
+    ``slots`` times as the visible devices. Every TSV must equal phase 8's
+    single-device bytes (which equal the host engine's)."""
+    cards = [torch.device(device.type, i) for i in range(torch.cuda.device_count())] \
+        if device.type == "cuda" else [device]
+    meshes = [("slots", [device] * slots)] + ([("cards", cards)] if len(cards) > 1 else [])
+    seen = []
+    read_slots = tsr.read_slots
+
+    def recorded(*args, **kwargs):
+        seen.append(read_slots(*args, **kwargs))
+        return seen[-1]
+
+    tsr.read_slots = recorded
+    try:
+        for tag, (k, t, queries, path, bp, tsv, t_one, prof_one) in phase8.items():
+            with open(tsv, "rb") as f:
+                want = f.read()
+            opt = SrirachaOptions(kmer_len=k, kmer_match_threshold=t)
+            for name, mesh in meshes:
+                prof: dict = {}
+                del seen[:]
+                t0 = time.perf_counter()
+                subjects = load_subject_kmers([queries], k)
+                results = tsr.search_reads_device(iter_reads_range(path, 0, 1), subjects, opt,
+                                                  StreamStats(), mesh=mesh, profile=prof)
+                got = (format_results(path, subjects, results) + "//\n").encode()
+                wall = time.perf_counter() - t0
+                check(got == want, f"run {tag} on a mesh of {len(mesh)} ({name}): TSV differs "
+                      f"from phase 8's")
+                check([len(x) for x in seen] == [len(mesh)], f"run {tag}: slots {seen}")
+                shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
+                print(f"phase 10 sriracha mesh run {tag}: search_reads_device on {len(mesh)} "
+                      f"{name} {wall:.2f} s ({bp / 1e6 / wall:.2f} Mbp/s, profile {shown}, "
+                      f"{prof['spans']} spans) beside phase 8's one device {t_one:.2f} s "
+                      f"({bp / 1e6 / t_one:.2f} Mbp/s, profile {prof_one}); TSV == phase 8's",
+                      flush=True)
+            del seen[:]
+            out = os.path.join(work, f"mesh_{tag}.tsv")
+            saved = tmesh.default_devices
+            tmesh.default_devices = lambda: [device] * slots
+            try:
+                with sriracha_profile() as prof:
+                    t0 = time.perf_counter()
+                    rc = torch_sriracha_main(["-k", str(k), "-t", str(t), "-i", queries, path,
+                                              "--device", "-o", out])
+                    wall = time.perf_counter() - t0
+            finally:
+                tmesh.default_devices = saved
+            check(rc == 0, f"kwage-sriracha-torch --device over {slots} slots exited {rc}")
+            with open(out, "rb") as f:
+                check(f.read() == want, f"run {tag}: the CLI's TSV over {slots} slots differs "
+                      f"from phase 8's")
+            check([len(x) for x in seen] == [slots], f"run {tag}: the CLI took slots {seen}")
+            shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
+            print(f"phase 10 sriracha mesh run {tag}: kwage-sriracha-torch --device with "
+                  f"{slots} default devices {wall:.2f} s ({bp / 1e6 / wall:.2f} Mbp/s, profile "
+                  f"{shown}); TSV == phase 8's", flush=True)
+    finally:
+        tsr.read_slots = read_slots
+
+
+# --- phase 11: the ingest through the cross-host work queue ------------------------------
+
+# The --worker process: it reaches the card (and loads the kernels) first,
+# says so in the file argv[1], waits for the coordinator's port argv[2],
+# then runs kwage-maestro-torch with the rest of argv. It prints its peak
+# device memory and its kernel launches to stderr.
+REMOTE_WORKER = """
+import json, socket, sys, time
+import torch
+from kwage_tpu_torch import kernels
+from kwage_tpu_torch.cli.maestro import main
+from kwage_tpu_torch.utils.runtime import resolve_device
+ready, port, argv = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+dev = resolve_device()
+if dev.type == "cuda":
+    torch.zeros(1, device=dev)
+    kernels.get_lib()
+open(ready, "w").close()
+deadline = time.time() + 300
+while True:
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+        break
+    except OSError:
+        if time.time() > deadline:
+            raise
+        time.sleep(0.05)
+rc = main(argv)
+peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+print(f"worker peak device memory {peak} B", file=sys.stderr)
+print("worker launches " + json.dumps(kernels.launch_counts()), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def run_remote_ingest(work: str, device: torch.device, phase6: dict) -> dict:
+    """Phase 11 over phase 6's accessions (``phase6``: run_ingest's
+    ``run``): ``kwage-maestro-torch --coordinator`` with its 2 local
+    workers and one ``kwage-maestro-torch --worker`` process, all with
+    --device-build --device-transpose on the same card (the worker process
+    is up before the coordinator starts). Every .bloom and .db must equal
+    phase 6's bytes (the .bloom files its exact ground truth too) and the
+    status file must show every accession done. Returns the worker
+    process's kernel launches (this process counts its own)."""
+    remote = os.path.join(work, "remote")
+    os.makedirs(remote)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    common = ["--meta", os.path.join(work, "inv.bin"), "--scratch", remote,
+              "--status", os.path.join(remote, "status.bin"), "--source-dir", phase6["src"],
+              "-k", str(INGEST_K), "--min-kmer-count", str(MIN_COUNT), "--device-build",
+              "--device-transpose", "--device-batch", str(REMOTE_BATCH), "--save.bloom"]
+    ready, log = os.path.join(remote, "worker.ready"), os.path.join(remote, "worker.log")
+    with open(log, "w") as err:
+        worker = subprocess.Popen(
+            [sys.executable, "-c", REMOTE_WORKER, ready, str(port), *common,
+             "--worker", f"127.0.0.1:{port}"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stderr=err)
+    try:
+        t0 = time.perf_counter()
+        while not os.path.exists(ready):
+            check(worker.poll() is None and time.perf_counter() - t0 < 300,
+                  "the --worker process did not come up")
+            time.sleep(0.1)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with no_library_sort(compaction=False) as guard:
+            t0 = time.perf_counter()
+            rc = torch_maestro_main(common + ["--workers", "2", "--task-timeout", "600",
+                                              "--coordinator", f"127.0.0.1:{port}"])
+            wall = time.perf_counter() - t0
+        worker_rc = worker.wait(timeout=300)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    with open(log) as f:
+        worker_log = f.read()
+    check(rc == 0, f"kwage-maestro-torch --coordinator exited {rc}")
+    check(worker_rc == 0, f"kwage-maestro-torch --worker exited {worker_rc}: {worker_log[-2000:]}")
+    found = re.search(r"Worker finished \((\d+) tasks\)", worker_log)
+    peak = re.search(r"worker peak device memory (\d+) B", worker_log)
+    launches = re.search(r"worker launches (\{.*\})", worker_log)
+    check(bool(found and peak and launches), f"worker log: {worker_log[-2000:]}")
+    accs, truth = phase6["accs"], phase6["truth"]
+    status, _ = read_status_file(os.path.join(remote, "status.bin"), len(accs))
+    check(bool((status == STATUS_DATABASE_SUCCESS).all()), f"statuses {status.tolist()}")
+    for acc in accs:
+        got = os.path.join(remote, "bloom", f"{acc}.bloom")
+        check(sha256(got) == sha256(os.path.join(work, "bloom", f"{acc}.bloom")),
+              f"{acc}: the remote .bloom differs from phase 6's")
+        rec = read_bloom_file(got)
+        param, bits, _ = truth[acc]
+        check(rec.param == param and rec.bits.tobytes() == bits.tobytes(),
+              f"{acc}: the remote .bloom differs from the ground truth")
+    dbs = sorted(os.listdir(os.path.join(remote, "database")))
+    check(dbs == sorted(phase6["dbs"]), f"remote .db files {dbs} != phase 6's {phase6['dbs']}")
+    for db in dbs:
+        check(sha256(os.path.join(remote, "database", db))
+              == sha256(os.path.join(work, "database", db)), f"{db}: differs from phase 6's")
+    peak_here = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    bp = phase6["bp"]
+    print(f"phase 11 remote ingest: kwage-maestro-torch --coordinator (2 local workers) + one "
+          f"--worker process, --device-build --device-transpose --device-batch {REMOTE_BATCH}: "
+          f"{wall:.2f} s ({bp / 1e6 / wall:.2f} Mbp/s) beside phase 6's {phase6['wall_s']:.2f} s "
+          f"({bp / 1e6 / phase6['wall_s']:.2f} Mbp/s); the worker process ran {found.group(1)} "
+          f"tasks; peak device memory {peak_here} B here, {peak.group(1)} B in the worker; "
+          f"{guard['sorts']} sorts here, no library sort of a CUDA tensor; {len(accs)} .bloom "
+          f"and {len(dbs)} .db == phase 6's bytes and ground truth; every accession done",
+          flush=True)
+    return json.loads(launches.group(1))
 
 
 # --- phase 4: kernels against their plain versions ------------------------------
@@ -2177,6 +2404,10 @@ def main(argv: list[str] | None = None) -> int:
         kernels.reset_launch_counts()
         shapes = run_ingest(work, device, INGEST, args.seed)
         paths["ingest"] = kernels.launch_counts()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        elsewhere = run_remote_ingest(work, device, shapes.pop("run"))
+        paths["remote"] = {k: n + elsewhere.get(k, 0) for k, n in kernels.launch_counts().items()}
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     run_entry(device)
@@ -2184,8 +2415,12 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
         kernels.reset_launch_counts()
-        run_sriracha(work, device, args.seed)
+        phase8 = run_sriracha(work, device, args.seed)
         paths["sriracha"] = kernels.launch_counts()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        run_sriracha_mesh(work, device, phase8)
+        paths["sriracha_mesh"] = kernels.launch_counts()
     torch.cuda.empty_cache()
 
     results = phase_kernels(device, args.seed, shapes)

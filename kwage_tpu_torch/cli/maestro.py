@@ -3,8 +3,10 @@
 
 ``--device-build`` (exact-count ingest) and ``--device-transpose`` (the
 ``.db`` pack) run on ``KWAGE_TORCH_DEVICE`` (default ``cuda``); without
-a card they raise, as ``resolve_device`` does. ``--coordinator`` and
-``--worker`` (the cross-host queue) are not ported yet: they exit 1.
+a card they raise, as ``resolve_device`` does, before a ``--worker`` pulls
+its first task. ``--coordinator`` serves the work queue of
+``parallel.remote`` (with ``--workers`` local pull workers) and
+``--worker`` pulls from it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -139,7 +141,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     opt = MaestroOptions()
-    scratch = source_dir = remote = ""
+    scratch = source_dir = coordinator = worker_of = ""
+    task_timeout = None
     use_prefetch = False
     for flag, val in flags:
         if flag in _FIELDS:
@@ -155,16 +158,15 @@ def main(argv: list[str] | None = None) -> int:
             source_dir = val
         elif flag == "--prefetch":
             use_prefetch = True
-        elif flag in ("--coordinator", "--worker"):
-            remote = flag
+        elif flag == "--coordinator":
+            coordinator = val
+        elif flag == "--worker":
+            worker_of = val
+        elif flag == "--task-timeout":
+            task_timeout = float(val)
         elif flag in ("-h", "-?"):
             usage()
             return 0
-
-    if remote:
-        print(f"{remote} (the cross-host work queue) is not ported to kwage_tpu_torch "
-              "yet; use kwage-maestro for it", file=sys.stderr)
-        return 1
 
     # Options-stage rejections exit 0 like the reference (maestro.cpp:51-55).
     if not opt.metadata_file:
@@ -209,9 +211,30 @@ def main(argv: list[str] | None = None) -> int:
     else:
         resolver = StreamingResolver(opt.scratch_bloom_dir or ".")
 
-    maestro = Maestro(opt, resolver)
-    maestro.restore()
-    maestro.run()
+    if worker_of:
+        # Pull loop against a remote coordinator (the reference's
+        # worker_main role over TCP instead of MPI).
+        from ..parallel.remote import RemoteWorker
+
+        host, _, port = worker_of.rpartition(":")
+        n = RemoteWorker(opt, resolver, (host or "127.0.0.1", int(port))).run()
+        print(f"Worker finished ({n} tasks)", file=sys.stderr)
+        return 0
+
+    if coordinator:
+        from ..parallel.remote import run_distributed_maestro
+
+        host, _, port = coordinator.rpartition(":")
+        maestro = run_distributed_maestro(
+            opt, resolver,
+            num_local_workers=opt.num_workers,
+            host=host or "127.0.0.1", port=int(port),
+            task_timeout=task_timeout,
+        )
+    else:
+        maestro = Maestro(opt, resolver)
+        maestro.restore()
+        maestro.run()
 
     print("Final status:", file=sys.stderr)
     for name, count in sorted(maestro.summary().items()):

@@ -3,9 +3,10 @@
 The flags and output of kwage_tpu.cli.sriracha (and of the reference
 SriRachA tool, SriRachA/main.cpp, options.cpp), with ``--device`` routed
 to the port's search_reads_device at all three of its sites: a streamed
-remote accession, a toolkit-materialised file and local files. The device
-is ``KWAGE_TORCH_DEVICE`` (default ``cuda``; with several cards, card 0);
-a missing card raises. Without ``--device`` the host engine runs, as in
+remote accession, a toolkit-materialised file and local files. The reads
+are split over every visible card (``KWAGE_TORCH_DEVICE``, default
+``cuda``; ``cuda:i`` names one card), as the JAX package's CLI shards over
+every device; a missing card raises. Without ``--device`` the host engine runs, as in
 the JAX package's CLI. This module never imports jax.
 """
 
@@ -220,7 +221,8 @@ def main(argv: list[str] | None = None) -> int:
         out = sys.stdout
     try:
         # A missing card raises here, before any output.
-        device = resolve_device() if opt.use_device else None
+        if opt.use_device:
+            resolve_device()
         subject_kmers = load_subject_kmers(
             opt.input_sequence_files, opt.kmer_len, opt.verbose
         )
@@ -293,7 +295,6 @@ def main(argv: list[str] | None = None) -> int:
                             if opt.use_device:
                                 results = search_reads_device(
                                     reads, subject_kmers, opt, stats_try,
-                                    device=device,
                                 )
                             else:
                                 results = search_reads(
@@ -348,7 +349,6 @@ def main(argv: list[str] | None = None) -> int:
                             if opt.use_device:
                                 results = search_reads_device(
                                     frag_iter, subject_kmers, opt, stats,
-                                    device=device,
                                 )
                             else:
                                 results = search_reads(
@@ -356,7 +356,7 @@ def main(argv: list[str] | None = None) -> int:
                                 )
                         else:
                             results = search_accession(
-                                src, subject_kmers, opt, stats, device
+                                src, subject_kmers, opt, stats
                             )
                     finally:
                         if downloaded:

@@ -28,6 +28,7 @@ and its plain PyTorch version (``*_ref``) on a CPU tensor.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -462,9 +463,13 @@ def use_lut(subject_kmers: list[tuple[str, np.ndarray]], k: int, device: torch.d
             and luts_fit(device, len(group_sizes(ns)), k))
 
 
-def build_tables(subject_kmers: list[tuple[str, np.ndarray]], k: int, device: torch.device):
-    """LutTables or HashTables for the subjects, by ``use_lut``."""
-    if use_lut(subject_kmers, k, device):
+def build_tables(subject_kmers: list[tuple[str, np.ndarray]], k: int, device: torch.device,
+                 lut: bool | None = None):
+    """LutTables or HashTables for the subjects on ``device``: the dense
+    LUTs when ``lut`` (default: ``use_lut``)."""
+    if lut is None:
+        lut = use_lut(subject_kmers, k, device)
+    if lut:
         return build_lut_tables(subject_kmers, k, device)
     return build_hash_tables(subject_kmers, k, device)
 
@@ -484,10 +489,11 @@ class _SpanSlots:
     and reads its results back through, slot i % 2. Span i + 2 refills a
     slot only after span i was read back, when every copy through it has
     finished, so no buffer is reused under a copy and no dispatch waits.
-    Pinned memory on a card (the copies are asynchronous), plain off it."""
+    Pinned memory when a slot is on a card (the copies are asynchronous),
+    plain otherwise."""
 
-    def __init__(self, device: torch.device):
-        self.pin = device.type == "cuda"
+    def __init__(self, pin: bool):
+        self.pin = pin
         self.slots: list[dict] = [{}, {}]
 
     def get(self, slot: int, name: str, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -515,6 +521,46 @@ def _pack_batch(block: np.ndarray, lengths: np.ndarray, seqs: list[str]) -> None
     block[rows, cols] = flat
 
 
+def read_slots(mesh=None, auto_mesh: bool = True,
+               device: torch.device | None = None) -> list[tuple[torch.device, object]]:
+    """The (device, CUDA stream or None) slots a read batch is split over.
+
+    ``mesh``: a ``parallel.mesh.SearchMesh`` whose filters axis is 1 (its
+    data slots, each on its own stream) or a list of torch devices (one
+    slot each, on a stream of its own); a device may stand in it several
+    times, as logical slots of one card. Without a mesh, ``device`` is the
+    one slot (on the current stream); with neither, ``auto_mesh`` takes
+    every device of ``parallel.mesh.default_devices()`` when there are
+    several, else ``resolve_device()``."""
+    from ..parallel.mesh import SearchMesh, default_devices, make_search_mesh
+
+    if mesh is not None and device is not None:
+        raise ValueError("give a mesh or a device, not both")
+    if mesh is None and device is None and auto_mesh:
+        devices = default_devices()
+        if len(devices) > 1:
+            mesh = devices
+    if mesh is None:
+        return [(device if device is not None else resolve_device(), None)]
+    if not isinstance(mesh, SearchMesh):
+        mesh = make_search_mesh(len(mesh), 1, list(mesh))
+    if mesh.shape["filters"] != 1 or mesh.spans_processes:
+        raise ValueError(f"a read mesh is one column of this process's devices, got "
+                         f"{mesh.shape} over ranks {sorted(set(mesh.owners.ravel().tolist()))}")
+    return [(mesh.devices[d, 0], mesh.stream(d, 0)) for d in range(mesh.shape["data"])]
+
+
+def _split_batch(L: int, chunk: list[int], n: int, batch_size: int) -> list[tuple]:
+    """A batch's reads split along the batch axis over ``n`` slots, in
+    order, ceil(len / n) each: one (L, reads, rows) per slot, None for a
+    slot left without reads. Rows: the reads rounded up to a power of two
+    (zero-length rows, no windows), at most ``batch_size``, so the few long
+    reads of a span do not pad to batch_size rows of their bucket's width."""
+    per = -(-len(chunk) // n)
+    parts = [chunk[s * per : (s + 1) * per] for s in range(n)]
+    return [(L, p, min(batch_size, next_pow2(len(p)))) if p else None for p in parts]
+
+
 def search_reads_device(
     read_iter,
     subject_kmers: list[tuple[str, np.ndarray]],
@@ -522,26 +568,38 @@ def search_reads_device(
     stats: StreamStats | None = None,
     batch_size: int = 512,
     span_reads: int | None = None,
+    mesh=None,
+    auto_mesh: bool = True,
     profile: dict | None = None,
     device: torch.device | None = None,
 ) -> list[list[SearchMatch]]:
     """Device-batched equivalent of engine.search_reads (bit-identical
     output) for every reference-legal k (1..32): the JAX package's
-    search_reads_device on ``device`` (default ``resolve_device()``: with
-    several cards, card 0).
+    search_reads_device.
+
+    ``mesh`` / ``auto_mesh`` / ``device`` choose the slots (``read_slots``):
+    by default every visible card when there are several, as the JAX
+    function shards over every device; ``device=`` (or
+    KWAGE_TORCH_DEVICE=cuda:i) is that one device. Each batch's reads are
+    split over the slots along the batch axis, every read in exactly one
+    slot; the subject tables are built once per distinct device (so a
+    card's LUTs are counted and held once) and shared by its slots. Per-read
+    work is independent: no collective, and the output is the
+    single-device run's.
 
     The read iterator is consumed in spans of ``span_reads`` (default
     16 x batch_size), pipelined ONE span deep: span i+1 is packed and
     dispatched before span i's one readback, so host packing and gating
-    overlap device work. Each span packs all its batches into one host
-    staging buffer (pinned on a card), uploads it once, launches
-    canonical_kmers and sriracha_counts per batch into one device buffer
-    int32 [the batches' rows, ns + 2] and queues one asynchronous copy
-    back; its readback waits for that copy's event alone. No host sync
-    happens while a span is dispatched. Gate state (perfect-match caps,
-    intermediate culls) carries across spans, so the output is identical
-    to a fully materialised run; ``stats`` counters run up to one span
-    ahead of the emitted matches.
+    overlap device work. Each slot packs its part of every batch of a span
+    into one host staging buffer (pinned on a card), uploads it once,
+    launches canonical_kmers and sriracha_counts per batch on its own
+    stream into one device buffer int32 [its rows, ns + 2] and queues one
+    asynchronous copy back, then records an event; the span's readback
+    waits for every slot's event and puts the rows back in read order. No
+    host sync happens while a span is dispatched. Gate state
+    (perfect-match caps, intermediate culls) carries across spans, so the
+    output is identical to a fully materialised run; ``stats`` counters run
+    up to one span ahead of the emitted matches.
 
     ``profile`` (optional dict) accumulates ``pack_dispatch_s``,
     ``sync_s``, ``gate_s``, ``spans``, ``bp`` and ``events`` -- the
@@ -549,38 +607,32 @@ def search_reads_device(
     ns = len(subject_kmers)
     if ns == 0:
         return []
-    if device is None:
-        device = resolve_device()
+    slot_devs = read_slots(mesh, auto_mesh, device)
     if span_reads is None:
         span_reads = 16 * batch_size
     k = opt.kmer_len
-    tables = build_tables(subject_kmers, k, device)
-    slots = _SpanSlots(device)
+    distinct = list(dict.fromkeys(dev for dev, _ in slot_devs))
+    lut = all(use_lut(subject_kmers, k, dev) for dev in distinct)
+    tables_on = {dev: build_tables(subject_kmers, k, dev, lut) for dev in distinct}
+    for dev, stream in slot_devs:
+        if stream is not None:
+            # The tables were built on the device's current stream.
+            stream.wait_stream(torch.cuda.current_stream(dev))
+    staging = _SpanSlots(any(dev.type == "cuda" for dev in distinct))
     width = ns + 2
 
     results: list[list[SearchMatch]] = [[] for _ in range(ns)]
     num_perfect = [0] * ns
 
-    def dispatch_span(reads, slot):
-        """Pack, upload and launch every batch of a span; queue the copy
-        back. Returns (batch chunks, host result view, copy event)."""
-        buckets: dict[int, list[int]] = {}
-        for i, (seq, _, _) in enumerate(reads):
-            if stats is not None:
-                stats.num_reads += 1
-                stats.num_bases += len(seq)
-            buckets.setdefault(pad_len(max(len(seq), k)), []).append(i)
-        # A batch's rows: its reads rounded up to a power of two (zero-length
-        # rows, no windows), so the few long reads of a span do not pad to
-        # batch_size rows of their bucket's width.
-        batches = [(L, chunk, min(batch_size, next_pow2(len(chunk))))
-                   for L, idxs in sorted(buckets.items())
-                   for chunk in (idxs[start : start + batch_size]
-                                 for start in range(0, len(idxs), batch_size))]
+    def dispatch_slot(reads, span_slot, s, batches):
+        """Pack, upload and launch slot s's part of every batch of a span on
+        its stream; queue the copy back. Returns (host result view, copy
+        event)."""
+        dev, stream = slot_devs[s]
         nbytes = sum(rows * L for L, _, rows in batches)
         nrows = sum(rows for _, _, rows in batches)
-        block_h = slots.get(slot, "reads", nbytes, torch.uint8)
-        lens_h = slots.get(slot, "lengths", nrows, torch.int32)
+        block_h = staging.get(span_slot, f"reads{s}", nbytes, torch.uint8)
+        lens_h = staging.get(span_slot, f"lengths{s}", nrows, torch.int32)
         block_np, lens_np = block_h.numpy(), lens_h.numpy()
         block_np[:] = 0
         lens_np[:] = 0
@@ -590,40 +642,64 @@ def search_reads_device(
                         lens_np[row0 : row0 + rows], [reads[i][0] for i in chunk])
             off += rows * L
             row0 += rows
-        block_d = block_h.to(device, non_blocking=True)
-        lens_d = lens_h.to(device, non_blocking=True)
-        out_d = torch.empty((nrows, width), dtype=torch.int32, device=device)
-        off = row0 = 0
-        for L, _, rows in batches:
-            read_batch_counts(block_d[off : off + rows * L].view(rows, L),
-                              lens_d[row0 : row0 + rows], tables, out_d[row0 : row0 + rows])
-            off += rows * L
-            row0 += rows
-        out_h = slots.get(slot, "out", nrows * width, torch.int32).view(nrows, width)
-        out_h.copy_(out_d, non_blocking=True)
-        event = None
-        if device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-        return [(chunk, rows) for _, chunk, rows in batches], out_h, event
+        out_h = staging.get(span_slot, f"out{s}", nrows * width, torch.int32).view(nrows, width)
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            block_d = block_h.to(dev, non_blocking=True)
+            lens_d = lens_h.to(dev, non_blocking=True)
+            out_d = torch.empty((nrows, width), dtype=torch.int32, device=dev)
+            off = row0 = 0
+            for L, _, rows in batches:
+                read_batch_counts(block_d[off : off + rows * L].view(rows, L),
+                                  lens_d[row0 : row0 + rows], tables_on[dev],
+                                  out_d[row0 : row0 + rows])
+                off += rows * L
+                row0 += rows
+            out_h.copy_(out_d, non_blocking=True)
+            event = None
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+        return out_h, event
+
+    def dispatch_span(reads, span_slot):
+        """Dispatch every slot's part of a span. Returns, for each slot with
+        reads, (its batch chunks, host result view, copy event)."""
+        buckets: dict[int, list[int]] = {}
+        for i, (seq, _, _) in enumerate(reads):
+            if stats is not None:
+                stats.num_reads += 1
+                stats.num_bases += len(seq)
+            buckets.setdefault(pad_len(max(len(seq), k)), []).append(i)
+        per_slot: list[list[tuple]] = [[] for _ in slot_devs]
+        for L, idxs in sorted(buckets.items()):
+            for start in range(0, len(idxs), batch_size):
+                parts = _split_batch(L, idxs[start : start + batch_size], len(slot_devs),
+                                     batch_size)
+                for s, part in enumerate(parts):
+                    if part is not None:
+                        per_slot[s].append(part)
+        return [([(chunk, rows) for _, chunk, rows in batches],
+                 *dispatch_slot(reads, span_slot, s, batches))
+                for s, batches in enumerate(per_slot) if batches]
 
     def readback_span(reads, pending):
-        """The span's one wait: its copy back. A batch's rows follow the
-        previous batch's."""
-        chunks, out_h, event = pending
-        if event is not None:
-            event.synchronize()
-        res = out_h.numpy()
+        """The span's one wait: every slot's copy back. In a slot's rows a
+        batch's rows follow the previous batch's."""
+        for _, _, event in pending:
+            if event is not None:
+                event.synchronize()
         counts = np.zeros((len(reads), ns), dtype=np.int64)
         nk = np.zeros(len(reads), dtype=np.int64)
         nu = np.zeros(len(reads), dtype=np.int64)
-        row0 = 0
-        for chunk, batch_rows in chunks:
-            rows = res[row0 : row0 + len(chunk)]
-            counts[chunk] = rows[:, :ns]
-            nk[chunk] = rows[:, ns]
-            nu[chunk] = rows[:, ns + 1]
-            row0 += batch_rows
+        for chunks, out_h, _ in pending:
+            res = out_h.numpy()
+            row0 = 0
+            for chunk, batch_rows in chunks:
+                rows = res[row0 : row0 + len(chunk)]
+                counts[chunk] = rows[:, :ns]
+                nk[chunk] = rows[:, ns]
+                nu[chunk] = rows[:, ns + 1]
+                row0 += batch_rows
         return counts, nk, nu
 
     if profile is not None:

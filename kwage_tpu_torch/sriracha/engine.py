@@ -451,7 +451,7 @@ def search_accession(
     With --of N / --slice i, only that shard of the read range is scanned;
     otherwise the full range is processed (single worker). With
     ``opt.use_device`` the reads stream into ``search_reads_device`` on
-    ``device`` (a ``torch.device``; default ``resolve_device()``).
+    ``device`` (a ``torch.device``; default every visible card).
     """
     path = accession_path
     if os.path.isdir(path):

@@ -28,7 +28,11 @@ WHOLE = sorted(
     + [f"io/{p.name}" for p in (JAX_PKG / "io").glob("*.py")]
     + ["native/fallback.py", "native/kwage_native.cpp", "search/engine.py",
        "search/output.py", "sriracha/sra_source.py", "sriracha/vdb.py", "cli/_render.py",
-       "utils/mem_usage.py"])
+       "utils/mem_usage.py", "parallel/remote.py", "pipeline/inventory.py",
+       "pipeline/merge_db.py", "pipeline/sra_meta.py"]
+    + [f"cli/{name}.py" for name in (
+        "bff", "bloom_diff", "bloom_test", "db_debug", "dump_bloom", "dump_db",
+        "inventory_dump", "manual_db", "merge_db", "sra_diff", "sra_dump", "sra_inventory")])
 
 _IMPORT_LINE = re.compile(r"^\s*(from\s+\S+\s+import\b.*|import\s+\S+.*)$")
 

@@ -162,12 +162,30 @@ def test_cli_device_build_produces_reference_databases(manifest, digests, data_d
 
 
 @pytest.mark.parametrize("flag", ["--coordinator", "--worker"])
-def test_cli_remote_roles_are_not_ported(manifest, data_dir, tmp_path, flag, capsys):
+def test_cli_remote_roles_are_not_ported(manifest, digests, data_dir, tmp_path, flag, capsys):
+    """The cross-host roles are wired, not refused: ``--coordinator`` with
+    its local device workers builds the golden databases, and a
+    ``--worker`` with no coordinator to reach exits 0 having built
+    nothing."""
+    import socket
+
     _write_inventory(manifest, tmp_path)
-    rc = maestro_main(_cli_args(manifest, data_dir, tmp_path) + [flag, "127.0.0.1:1"])
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
-    assert not (tmp_path / "database").exists()
+    if flag == "--coordinator":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{sock.getsockname()[1]}"
+    else:
+        address = "127.0.0.1:1"
+    rc = maestro_main(_cli_args(manifest, data_dir, tmp_path) + ["--device-batch", "4",
+                                                                 flag, address])
+    err = capsys.readouterr().err
+    assert rc == 0 and "not ported" not in err
+    if flag == "--coordinator":
+        assert "database committed: 10" in err
+        _check_databases(manifest, digests, tmp_path / "database")
+    else:
+        assert "coordinator unreachable" in err and "Worker finished (0 tasks)" in err
+        assert not list((tmp_path / "database").iterdir())
 
 
 def test_cli_cuda_without_a_card_raises(manifest, data_dir, tmp_path, monkeypatch):

@@ -113,12 +113,12 @@ def test_host_cli_matches_jax_cli(data_dir, tmp_path):
 def _main_statements(fn) -> str:
     """``main``'s body as an AST dump without imports and without what
     ties it to its device module: the JAX CLI's platform pin before its
-    lazy device import, the port's ``device = resolve_device()`` and the
-    ``device`` argument it passes on."""
+    lazy device import, the port's ``resolve_device()`` check and any
+    ``device`` argument."""
     func = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
     dropped = (lambda x: isinstance(x, (ast.Import, ast.ImportFrom)),
                lambda x: ast.unparse(x) in (
-                   "device = resolve_device() if opt.use_device else None",
+                   "if opt.use_device:\n    resolve_device()",
                    "if opt.use_device:\n    pin_platform_from_env()"))
     for drop in dropped:  # imports first: the pin's block holds one
         for node in ast.walk(func):
@@ -136,12 +136,16 @@ def _main_statements(fn) -> str:
 
 def test_cli_main_matches_its_jax_original():
     """A fix to the JAX CLI's main must reach the port's copy: the two are
-    statement for statement the same but for the device they pass on."""
+    statement for statement the same but for the card check. The port
+    passes no device on, so its search takes every visible card, as the
+    JAX CLI's takes every device."""
     import kwage_tpu.cli.sriracha as jax_cli
     import kwage_tpu_torch.cli.sriracha as torch_cli
 
     assert _main_statements(torch_cli.main) == _main_statements(jax_cli.main)
-    assert "device=device" in inspect.getsource(torch_cli.main)
+    assert "device" not in {kw.arg for node in ast.walk(ast.parse(textwrap.dedent(
+        inspect.getsource(torch_cli.main)))) if isinstance(node, ast.Call)
+        for kw in node.keywords}
 
 
 def test_device_cli_directory_and_options_stage(data_dir, tmp_path, capsys):
@@ -573,6 +577,145 @@ def test_span_pipeline_overlap_order(data_dir):
         assert ev.index(("dispatch", i)) < ev.index(("sync", i - 1)), ev
     assert prof["bp"] == sum(len(s) for s in reads)
     assert prof["pack_dispatch_s"] > 0 and prof["sync_s"] > 0
+
+
+# --- search_reads_device over a mesh of logical slots ----------------------------------------
+
+MESH_SLOTS = [2, 4, 8]
+_JAX_MESH_RUNS: dict = {}
+
+
+def _mesh_case(data_dir, k):
+    """57 reads of 46-150 bp (buckets of 64 and 128 bases): in spans of 8
+    with batch_size=4, every batch has fewer reads than 8 slots, some
+    fewer than 2, and the last span holds one read."""
+    from kwage_tpu.io.sequence import iter_sequences
+
+    seqs = [s for _, s in iter_sequences(str(data_dir / "sriracha_reads.fasta"))][:57]
+    reads = [(s, i + 1, 1) for i, s in enumerate(seqs)]
+    subjects = load_subject_kmers([str(data_dir / "sriracha_queries.fasta")], k)
+    opt = SrirachaOptions(kmer_len=k, kmer_match_threshold=0.3, min_valid_kmer=1,
+                          max_num_match=5)
+    return reads, subjects, opt
+
+
+def _spy_batches(monkeypatch) -> list:
+    """Rows of every read_batch_counts call, in order."""
+    calls = []
+    real = tdev.read_batch_counts
+
+    def spy(block, lengths, tables, out=None):
+        calls.append(block.shape[0])
+        return real(block, lengths, tables, out)
+
+    monkeypatch.setattr(tdev, "read_batch_counts", spy)
+    return calls
+
+
+@pytest.mark.parametrize("slots", MESH_SLOTS)
+@pytest.mark.parametrize("k", [11, 21])
+def test_search_reads_device_on_a_mesh(k, slots, data_dir, monkeypatch):
+    """Meshes of 2, 4 and 8 logical CPU slots (a device list and a
+    SearchMesh) equal the single-device run and the JAX function, which
+    shards over the 8 virtual devices of conftest: k = 11 on the dense LUTs,
+    k = 21 on the hash tables. Each batch is split over the slots."""
+    from kwage_tpu_torch.parallel.mesh import make_search_mesh
+
+    monkeypatch.setenv("KWAGE_SRIRACHA_HASH_MAX", "0")  # the LUTs wherever k allows
+    reads, subjects, opt = _mesh_case(data_dir, k)
+    assert tdev.use_lut(subjects, k, CPU) == (k == 11)
+    calls = _spy_batches(monkeypatch)
+    one = _matches(tdev.search_reads_device(iter(reads), subjects, opt, batch_size=4,
+                                            span_reads=8, device=CPU))
+    n_one = len(calls)
+    for mesh in ([CPU] * slots, make_search_mesh(slots, 1, [CPU] * slots)):
+        del calls[:]
+        got = tdev.search_reads_device(iter(reads), subjects, opt, batch_size=4,
+                                       span_reads=8, mesh=mesh)
+        assert _matches(got) == one, slots
+        assert len(calls) > n_one and max(calls) <= tdev.next_pow2(-(-4 // slots)), calls
+    hit = [r for r in reads if r[1] == min(m[0] for b in one for m in b)]
+    del calls[:]
+    single = _matches(tdev.search_reads_device(iter(hit), subjects, opt, batch_size=4,
+                                               mesh=[CPU] * slots))
+    assert calls == [1] and sum(map(len, single)) > 0
+    assert single == _matches(tdev.search_reads_device(iter(hit), subjects, opt,
+                                                       batch_size=4, device=CPU))
+    if k not in _JAX_MESH_RUNS:
+        _JAX_MESH_RUNS[k] = _matches(jdev.search_reads_device(
+            iter(reads), subjects, opt, batch_size=4, span_reads=8))
+    assert one == _JAX_MESH_RUNS[k]
+    assert sum(map(len, one)) > 0
+
+
+def test_mesh_profile_events_order(data_dir):
+    """Under a mesh of 4 slots span i+1 is still dispatched before span i
+    is read back, once each, and profiling does not change the result."""
+    reads, subjects, opt = _mesh_case(data_dir, 11)
+    prof: dict = {}
+    got = tdev.search_reads_device(iter(reads), subjects, opt, batch_size=4, span_reads=8,
+                                   mesh=[CPU] * 4, profile=prof)
+    assert _matches(got) == _matches(tdev.search_reads_device(
+        iter(reads), subjects, opt, batch_size=4, span_reads=8, device=CPU))
+    ev, n_spans = prof["events"], prof["spans"]
+    assert n_spans == 8
+    assert [e for e in ev if e[0] == "dispatch"] == [("dispatch", i) for i in range(n_spans)]
+    assert [e for e in ev if e[0] == "sync"] == [("sync", i) for i in range(n_spans)]
+    for i in range(1, n_spans):
+        assert ev.index(("dispatch", i)) < ev.index(("sync", i - 1)), ev
+    assert prof["bp"] == sum(len(r[0]) for r in reads)
+
+
+def test_auto_mesh_takes_default_devices_and_device_overrides(data_dir, monkeypatch):
+    """With several default devices the search splits over them all (as
+    many batch calls as an explicit mesh of 4); ``device=`` and
+    ``auto_mesh=False`` keep one slot; a mesh with a filters axis, or a
+    mesh and a device together, is refused."""
+    import kwage_tpu_torch.parallel.mesh as tmesh
+
+    reads, subjects, opt = _mesh_case(data_dir, 21)
+    calls = _spy_batches(monkeypatch)
+
+    def run(**kw):
+        del calls[:]
+        got = _matches(tdev.search_reads_device(iter(reads), subjects, opt, batch_size=4,
+                                                span_reads=8, **kw))
+        return got, len(calls)
+
+    one, n_one = run()
+    explicit, n_mesh = run(mesh=[CPU] * 4)
+    monkeypatch.setattr(tmesh, "default_devices", lambda: [CPU] * 4)
+    assert tdev.read_slots() == [(CPU, None)] * 4
+    assert run() == (explicit, n_mesh) and n_mesh > n_one
+    assert run(device=CPU) == (one, n_one) == run(auto_mesh=False)
+    assert explicit == one
+    assert tdev.read_slots(device=CPU) == [(CPU, None)]
+    with pytest.raises(ValueError, match="one column"):
+        tdev.read_slots(mesh=tmesh.make_search_mesh(2, 2, [CPU] * 4))
+    with pytest.raises(ValueError, match="not both"):
+        tdev.read_slots(mesh=[CPU] * 2, device=CPU)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_device_cli_over_a_mesh_matches_oracle(case, data_dir, golden_dir, tmp_path,
+                                               monkeypatch):
+    """``kwage-sriracha-torch --device`` with 4 default devices takes the
+    mesh path (4 slots) and writes the golden TSV."""
+    import kwage_tpu_torch.parallel.mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "default_devices", lambda: [CPU] * 4)
+    seen = []
+    real = tdev.read_slots
+
+    def spy(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    monkeypatch.setattr(tdev, "read_slots", spy)
+    got = _run(torch_sriracha_main, _args(case, data_dir, device=True), tmp_path)
+    want = (golden_dir / "sriracha" / f"{case}.tsv").read_text()
+    assert _norm(got) == _norm(want), case
+    assert seen and all(len(slots) == 4 for slots in seen), seen
 
 
 def test_pack_batch_rows():
