@@ -27,7 +27,9 @@ one line each; any failure raises and exits non-zero:
               15x (fused batch) and 2 of a 4.6 Mbp genome at 10x (chunked),
               k=31, min count 5 (the sort is the radix_sort_pairs kernels: a
               library sort of a CUDA tensor raises during the call, and so
-              does a library compaction inside the sort): every
+              does a library compaction or run count inside the sort and
+              inside the build of a big accession, which counts on the card
+              with run_counts): every
               .bloom equals the exact host ground
               truth, every .db the host pack, a ``kwage --device`` search of
               genome reads the host engine's bytes; the golden corpus
@@ -39,7 +41,18 @@ one line each; any failure raises and exits non-zero:
               --device-transpose on the card: every .bloom and .db equals
               phase 6's bytes (and the ground truth), every accession is
               done; the wall beside phase 6's and each process's peak
-              device memory.
+              device memory. Phase 6's refusals hold in this process, in
+              each worker thread.
+12. chunked -- phase 6's two 46 Mbp accessions through build_bloom_device
+              from their FASTQ paths and from iterators of their reads,
+              forced into chunks of 8 Mbp (the JAX package's chunk_bp; each
+              chunk's (word, count) runs merge into an accumulator on the
+              card with merge_counts), then in chunks sized from the card,
+              then 6 at once in threads on a card with 3 GiB free: each
+              record == the exact ground truth, under phase 6's refusals;
+              walls beside the native host builder's, and the device
+              memory a window of a chunk's count takes (all valid too) and
+              a word of a merge.
 7. entry   -- the port's ``entry()`` forward on the card equals the plain
               versions' result on the CPU.
 9. mesh    -- the sharded search (``parallel.sharded_search``) over phase
@@ -104,9 +117,13 @@ one line each; any failure raises and exits non-zero:
               and 512 rows (canonical_kmers' ASCII entry too, at these
               three shapes), and on rows around the 2^14-word tile; both
               probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
-              (k = 11): the LUT / hash crossover.
-5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 11, 7,
-              8, 10); the worker process of phase 11 reports its own counts;
+              (k = 11): the LUT / hash crossover. run_counts and
+              merge_counts at a 46 Mbp accession's shape (beside
+              torch.unique_consecutive), at the tile edges, on k = 32
+              signed words, with saturating weights, and on empty,
+              disjoint, interleaved and identical runs.
+5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 12,
+              11, 7, 8, 10); the worker process of phase 11 reports its own counts;
               each path's counts are zeroed just before it and read just
               after.
 
@@ -118,9 +135,9 @@ and the host library (g++, kwage_tpu_torch/native) build into
 build/kwage_tpu_torch/. Nothing of kwage_tpu or jax is imported: the host
 references are the port's own host engines and tests/golden.
 
-``--profile`` runs phases 6 and 8 alone, with their checks, and breaks
-down the kwage-maestro-torch call and each kwage-sriracha-torch --device
-call: host-clock time per step (each step function of the port's
+``--profile`` runs phases 6, 11 and 8 alone, with their checks, and breaks
+down the kwage-maestro-torch calls (phase 11: the coordinator's process)
+and each kwage-sriracha-torch --device call: host-clock time per step (each step function of the port's
 make_bloom and maestro modules, or the subject load, the table build, the
 TSV rendering and the read iterator of SriRachA, with a device
 synchronize after each) and, from torch.profiler, the device's busy time
@@ -135,6 +152,7 @@ import collections
 import contextlib
 import csv
 import functools
+import gc
 import hashlib
 import io
 import json
@@ -231,6 +249,8 @@ SR_LONG_ONLY = 4           # the last 4 subjects: hit by 20 kbp reads only
 SR_RUNS = [("A", 21, 0.8, SR_READS), ("B", 11, 0.8, SR_READS)]
 READ_MESH_SLOTS = 4        # phase 10: logical slots of the card for SriRachA's reads
 REMOTE_BATCH = 4           # phase 11: accessions a device worker pulls at once
+CHUNK_BP = 8_000_000       # phase 12: the JAX package's chunk_bp (a 16 GB TPU's)
+CROWDED_FREE = 3 << 30     # phase 12: device bytes left free for the builds in threads
 # Paths (each driven with the launch counts zeroed just before it) and
 # the kernels each must launch.
 PATH_KERNELS = {
@@ -238,14 +258,16 @@ PATH_KERNELS = {
     "mesh": ("search_complete", "search_counts", "search_total_hits", "canonical_kmers",
              "radix_sort_pairs", "select_runs", "bloom_set_bits", "bit_transpose"),
     "ingest": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
-               "bit_transpose", "search_complete", "search_counts"),
+               "bit_transpose", "search_complete", "search_counts", "run_counts"),
     "entry": ("canonical_kmers", "murmur32", "search_counts"),
     "sriracha": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
                  "subject_table"),
     "sriracha_mesh": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
                       "subject_table"),
     "remote": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
-               "bit_transpose"),
+               "bit_transpose", "run_counts"),
+    "chunked": ("canonical_kmers", "radix_sort_pairs", "run_counts", "merge_counts",
+                "bloom_set_bits"),
 }
 # The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -261,6 +283,8 @@ REPLACES = {
     "sriracha_counts_lut": "kwage_tpu/sriracha/device.py:239",
     "sriracha_counts_hash": "kwage_tpu/sriracha/device.py:179",
     "subject_table": "kwage_tpu/sriracha/device.py:216",
+    "run_counts": "kwage_tpu/pipeline/make_bloom.py:222",
+    "merge_counts": "kwage_tpu/pipeline/make_bloom.py:156",
 }
 SOURCES = {
     "bit_transpose": "kwage_tpu_torch/csrc/bit_transpose.cu",
@@ -275,6 +299,8 @@ SOURCES = {
     "sriracha_counts_lut": "kwage_tpu_torch/csrc/sriracha.cu",
     "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
     "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
+    "run_counts": "kwage_tpu_torch/csrc/merge.cu",
+    "merge_counts": "kwage_tpu_torch/csrc/merge.cu",
 }
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "e2e")
 GOLDEN_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
@@ -512,6 +538,9 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
             ("1 x %d part resident" % shards, (1, shards), wave_budget, MeshResidentSearcher),
             ("1 x %d one stream" % shards, (1, shards), wave_budget, OneStreamSearcher)]
     for tag, shape, budget, make in runs:
+        # The run before may sit in a reference cycle: collect it, so that
+        # the peak below is this run's alone.
+        gc.collect()
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -645,10 +674,10 @@ def run_maestro_golden(work: str) -> None:
 INGEST_STEPS = [
     (torch_maestro, ("build_db_from_bloom_files",)),
     (torch_make_bloom, ("prepare_device_batch", "dispatch_device_batch", "scatter_device_batch",
-                        "complete_device_batch",
-                        "build_bloom_device", "_merge_sorted_counts", "count_kmers",
-                        "_pad_reads_to_batch", "count_kmers_multi_packed", "tensor_to_words_u64",
-                        "bloom_set_bits", "set_filter_bits")),
+                        "complete_device_batch", "build_bloom_device", "_pack_file_block",
+                        "_pack_strings", "count_chunk", "merge_counts",
+                        "count_kmers_multi_packed", "bloom_set_bits", "set_filter_bits",
+                        "filter_words_to_bytes")),
 ]
 SRIRACHA_STEPS = [
     (torch_sriracha_cli, ("load_subject_kmers", "format_results")),
@@ -701,12 +730,17 @@ def step_profile(device: torch.device, steps):
     report["table"] = events.table(sort_by="self_device_time_total", row_limit=25)
 
 
-# Library calls that compact a CUDA tensor: refused inside the sort, where
-# the kernel drops the invalid windows itself. Later device steps may call
-# them (make_bloom's chunked build takes torch.nonzero of the flags).
+# Library calls that compact a CUDA tensor (or count its runs): refused
+# inside the functions of WATCHED, where the kernels do that work themselves.
 COMPACTING = ((torch, "nonzero"), (torch.Tensor, "nonzero"), (torch, "argwhere"),
               (torch.Tensor, "argwhere"), (torch, "masked_select"),
-              (torch.Tensor, "masked_select"), (torch, "unique"), (torch.Tensor, "unique"))
+              (torch.Tensor, "masked_select"), (torch, "unique"), (torch.Tensor, "unique"),
+              (torch, "unique_consecutive"), (torch.Tensor, "unique_consecutive"))
+SORTING = ((torch, "sort"), (torch, "argsort"), (torch.Tensor, "sort"), (torch.Tensor, "argsort"))
+# (module, function, the guard's count of its calls)
+WATCHED = ((tcount, "sort_valid_windows", "sorts"), (torch_make_bloom, "build_bloom_device",
+                                                      "builds"))
+_INSIDE = threading.local()   # .depth: WATCHED calls this thread is inside
 
 
 def _is_mask(index) -> bool:
@@ -715,16 +749,17 @@ def _is_mask(index) -> bool:
 
 
 @contextlib.contextmanager
-def _refused(targets):
+def _refused(targets, active):
     """Inside, each (owner, name) of ``targets`` raises when it is called on
-    a CUDA tensor (``__getitem__``: when indexed by a boolean mask); the
-    originals come back on exit."""
+    a CUDA tensor (``__getitem__``: when indexed by a boolean mask) while
+    ``active()`` holds in the calling thread; the originals come back on
+    exit."""
     saved = {(owner, name): getattr(owner, name) for owner, name in targets}
 
     def refusing(fn, name):
         @functools.wraps(fn)
         def wrapper(t, *args, **kwargs):
-            if isinstance(t, torch.Tensor) and t.is_cuda and (
+            if isinstance(t, torch.Tensor) and t.is_cuda and active() and (
                     name != "__getitem__" or _is_mask(args[0])):
                 raise RuntimeError(f"{name} of a CUDA tensor on the device path")
             return fn(t, *args, **kwargs)
@@ -740,34 +775,50 @@ def _refused(targets):
 
 
 @contextlib.contextmanager
-def no_library_sort(compaction: bool = True):
-    """torch.sort, Tensor.sort and argsort of a CUDA tensor raise inside.
-    With ``compaction``, while ``sort_valid_windows`` runs, so do
-    torch.nonzero, argwhere, masked_select, unique and indexing by a
-    boolean mask: those wrappers are installed for each such call alone, so
-    the rest of the ingest runs without them (one thread at a time: threads
-    that sort at once would undo each other's wrappers). Yields a dict
-    whose "sorts" counts the sort_valid_windows calls it watched."""
-    watch = {"sorts": 0}
-    sort_valid_windows = tcount.sort_valid_windows
+def no_library_sort():
+    """Inside, in every thread, torch.sort, Tensor.sort and argsort of a
+    CUDA tensor raise; and while a thread runs a function of WATCHED
+    (``sort_valid_windows``, ``build_bloom_device``), so do torch.nonzero,
+    argwhere, masked_select, unique, unique_consecutive and indexing by a
+    boolean mask in that thread. The wrappers are installed once for the
+    whole block and read a thread-local depth, so threads that run these
+    functions at once (the coordinator's workers) cannot undo each other's
+    refusal. Yields a dict that counts the WATCHED calls by kind."""
+    watch = {key: 0 for _, _, key in WATCHED}
     lock = threading.Lock()
 
-    @functools.wraps(sort_valid_windows)
-    def watched(*args, **kwargs):
-        with lock:
-            watch["sorts"] += 1
-        if not compaction:
-            return sort_valid_windows(*args, **kwargs)
-        with _refused((*COMPACTING, (torch.Tensor, "__getitem__"))):
-            return sort_valid_windows(*args, **kwargs)
+    def watched(fn, key):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with lock:
+                watch[key] += 1
+            _INSIDE.depth = getattr(_INSIDE, "depth", 0) + 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _INSIDE.depth -= 1
+        return wrapper
 
-    tcount.sort_valid_windows = watched
+    saved = [(module, name, getattr(module, name)) for module, name, _ in WATCHED]
+    for (module, name, fn), (_, _, key) in zip(saved, WATCHED):
+        setattr(module, name, watched(fn, key))
     try:
-        with _refused(((torch, "sort"), (torch, "argsort"), (torch.Tensor, "sort"),
-                       (torch.Tensor, "argsort"))):
+        with _refused(SORTING, lambda: True), \
+                _refused((*COMPACTING, (torch.Tensor, "__getitem__")),
+                         lambda: getattr(_INSIDE, "depth", 0) > 0):
             yield watch
     finally:
-        tcount.sort_valid_windows = sort_valid_windows
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def print_profile(call: str, wall: float, report: dict) -> None:
+    print(f"profile: {call} {wall:.3f} s under the step timers and the profiler; device "
+          f"busy (kernel, copy and memset self time) {report['busy_s']:.4f} s, idle share "
+          f"{1 - report['busy_s'] / wall:.4f}")
+    for name, secs, calls in report["steps"]:
+        print(f"profile step {name:<40} {secs:8.3f} s  x{calls}")
+    print(report["table"], flush=True)
 
 
 def run_ingest(work: str, device: torch.device, ingest, seed: int,
@@ -804,14 +855,10 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
             "--device-transpose", "--device-batch", "16", "--workers", "2", "--save.bloom"])
         t_dev = time.perf_counter() - t0
     check(rc == 0, f"kwage-maestro-torch exited {rc}")
-    check(guard["sorts"] > 0, "no sort_valid_windows call ran under the guard")
+    check(guard["sorts"] > 0 and guard["builds"] > 0,
+          f"no sort_valid_windows or build_bloom_device call ran under the guard: {guard}")
     if profile:
-        print(f"profile: kwage-maestro-torch {t_dev:.3f} s under the step timers and the "
-              f"profiler; device busy (kernel, copy and memset self time) "
-              f"{report['busy_s']:.4f} s, idle share {1 - report['busy_s'] / t_dev:.4f}")
-        for name, secs, calls in report["steps"]:
-            print(f"profile step {name:<40} {secs:8.3f} s  x{calls}")
-        print(report["table"], flush=True)
+        print_profile("kwage-maestro-torch", t_dev, report)
     status, _ = read_status_file(os.path.join(work, "status.bin"), len(accs))
     check(bool((status == STATUS_DATABASE_SUCCESS).all()), f"statuses {status.tolist()}")
 
@@ -886,7 +933,8 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
     print(f"phase 6 ingest: {len(accs)} accessions, {total_bp / 1e6:.1f} Mbp of {READ_LEN} bp "
           f"reads (data + ground truth {t_data:.1f} s); kwage-maestro-torch --device-build "
           f"--device-transpose {t_dev:.2f} s ({total_bp / 1e6 / t_dev:.2f} Mbp/s; "
-          f"{guard['sorts']} sorts, no library sort or compaction of a CUDA tensor in them); "
+          f"{guard['sorts']} fused sorts and {guard['builds']} accessions built alone, no "
+          f"library sort of a CUDA tensor, no library compaction in them); "
           f"{len(accs)} .bloom == exact ground truth (L "
           f"{sorted({p.log_2_filter_len for p in truth_params.values()})}); "
           f"{len(dbs)} .db == host pack; --device search == host engine at -t 1.0 and 0.5; "
@@ -901,6 +949,109 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
             # what phase 11 runs again and holds its output to
             "run": {"accs": accs, "truth": truth, "src": src, "bp": total_bp, "wall_s": t_dev,
                     "dbs": [os.path.basename(db) for db in dbs]}}
+
+
+def run_chunked(work: str, device: torch.device, phase6: dict) -> dict:
+    """Phase 12: phase 6's two 46 Mbp accessions through the port's
+    build_bloom_device under the refusal, from their FASTQ paths (the
+    native block) and from iterators of their reads (the string chunks the
+    maestro's streams take), each first forced into chunks of CHUNK_BP
+    bases (6 a file: each chunk after the first merges into the accumulator
+    on the card), then with chunks sized from the card (one a file): every
+    record == the exact ground truth. Then builds in threads on a full
+    card: with all but CROWDED_FREE bytes of it taken, each accession twice
+    from its path and once from an iterator, in 6 threads at once, chunks
+    sized from what is left (several a file, each at its turn; without the
+    turns, the path builds would all size theirs from the same reading):
+    every record == the ground truth. Walls beside the native host builder's on the same two
+    files (a thread each). Then the device memory a window of one chunk's
+    count takes, the peak of count_chunk over its windows, on one whole
+    accession and on a block of as many windows, all valid and distinct
+    (the most a window takes), which make_bloom.BYTES_PER_WINDOW must
+    cover; and merge_counts' peak over the words of the two, which
+    make_bloom.MERGE_BYTES_PER_WORD must cover. Returns the shapes phase 4
+    times run_counts and merge_counts at."""
+    opts = BuildOptions(kmer_len=INGEST_K, min_kmer_count=MIN_COUNT)
+    big = phase6["accs"][-INGEST[1][2]:]
+    paths = [os.path.join(phase6["src"], f"{a}.fastq") for a in big]
+    sources = {"path": lambda p: p, "iterator": torch_make_bloom._src_iter}
+
+    def built(acc, rec, tag):
+        param, bits, _ = phase6["truth"][acc]
+        check(rec.param == param and rec.bits.tobytes() == bits.tobytes(),
+              f"{acc}, {tag}: the record differs from the ground truth")
+
+    walls = {}
+    with no_library_sort() as guard:
+        for route, source in sources.items():
+            for tag, chunk_bp in (("forced", CHUNK_BP), ("card", None)):
+                t0 = time.perf_counter()
+                for acc, path in zip(big, paths):
+                    built(acc, torch_make_bloom.build_bloom_device(
+                        source(path), opts, FilterInfo(), chunk_bp=chunk_bp), f"{route}, {tag}")
+                walls[route, tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        ballast = torch.empty(torch_make_bloom._card_free_bytes(device) - CROWDED_FREE,
+                              dtype=torch.uint8, device=device)
+        turns = [(acc, route) for acc in big for route in ("path", "path", "iterator")]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(turns)) as pool:
+            recs = list(pool.map(lambda t: torch_make_bloom.build_bloom_device(
+                sources[t[1]](paths[big.index(t[0])]), opts, FilterInfo()), turns))
+        walls["crowded"] = time.perf_counter() - t0
+        del ballast
+        torch.cuda.empty_cache()
+        for (acc, route), rec in zip(turns, recs):
+            built(acc, rec, f"{route} on a crowded card")
+    check(guard["builds"] == 4 * len(big) + len(turns), f"builds under the guard: {guard}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(paths)) as pool:
+        list(pool.map(lambda p: build_bloom_from_file(p, opts, FilterInfo()), paths))
+    t_host = time.perf_counter() - t0
+
+    def peak(fn):
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, torch.cuda.max_memory_allocated(device) - base
+
+    _, bp, packed, valid_words, blen, _ = torch_make_bloom._pack_file_block(paths[0], INGEST_K)
+    windows = packed.shape[0] * (blen - INGEST_K + 1)
+    real, real_peak = peak(lambda: torch_make_bloom.count_chunk(
+        packed, valid_words, blen, INGEST_K, MIN_COUNT, 0))
+    gen = torch.Generator(device=device).manual_seed(12)
+    dense = torch.randint(-2**31, 2**31, packed.shape, generator=gen, device=device,
+                          dtype=torch.int64).to(torch.int32)
+    dense, dense_peak = peak(lambda: torch_make_bloom.count_chunk(
+        dense, torch.full_like(valid_words, -1, device=device), blen, INGEST_K, MIN_COUNT, 0))
+    nums = [int(real[2][0]), int(dense[2][0])]
+    merged, merge_peak = peak(lambda: tcount.merge_counts(
+        real[0][: nums[0]], real[1][: nums[0]], dense[0][: nums[1]], dense[1][: nums[1]],
+        MIN_COUNT, MIN_COUNT))
+    per_window = [real_peak / windows, dense_peak / windows]
+    per_word = merge_peak / sum(nums)
+    check(int(merged[2][0]) <= sum(nums), f"merge_counts gave {merged[2].tolist()} of {nums}")
+    del real, dense, merged
+    print(f"phase 12 chunked: build_bloom_device of 2 accessions of {bp / 1e6:.1f} Mbp, "
+          f"chunk_bp={CHUNK_BP} ({-(-bp // CHUNK_BP)} chunks each, merged on the card) / chunks "
+          f"from the card (one each): from their FASTQ paths {walls['path', 'forced']:.2f} / "
+          f"{walls['path', 'card']:.2f} s, from iterators of their reads "
+          f"{walls['iterator', 'forced']:.2f} / {walls['iterator', 'card']:.2f} s; "
+          f"{len(turns)} builds in threads with {CROWDED_FREE} B of the card free "
+          f"{walls['crowded']:.2f} s; the native host builder (a thread a file) {t_host:.2f} s; "
+          f"{guard['builds']} builds == exact ground truth, no library sort or compaction of a "
+          f"CUDA tensor in them; a chunk's count {per_window[0]:.2f} B of device memory a window "
+          f"({windows} windows of [{packed.shape[0]}, {blen}], {nums[0]} distinct k-mers), "
+          f"{per_window[1]:.2f} B a window all valid ({nums[1]} distinct); merge_counts "
+          f"{per_word:.2f} B a word", flush=True)
+    check(max(per_window) <= torch_make_bloom.BYTES_PER_WINDOW,
+          f"a chunk's count took {per_window} B a window, over make_bloom.BYTES_PER_WINDOW")
+    check(per_word <= torch_make_bloom.MERGE_BYTES_PER_WORD,
+          f"a merge took {per_word:.2f} B a word, over make_bloom.MERGE_BYTES_PER_WORD")
+    return {"windows": packed.shape[0] * (READ_LEN - INGEST_K + 1), "distinct": nums[0],
+            "chunks": -(-bp // CHUNK_BP)}
 
 
 # --- phase 7: entry() -----------------------------------------------------------------
@@ -1201,7 +1352,8 @@ sys.exit(rc)
 """
 
 
-def run_remote_ingest(work: str, device: torch.device, phase6: dict) -> dict:
+def run_remote_ingest(work: str, device: torch.device, phase6: dict,
+                      profile: bool = False) -> dict:
     """Phase 11 over phase 6's accessions (``phase6``: run_ingest's
     ``run``): ``kwage-maestro-torch --coordinator`` with its 2 local
     workers and one ``kwage-maestro-torch --worker`` process, all with
@@ -1209,7 +1361,8 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict) -> dict:
     is up before the coordinator starts). Every .bloom and .db must equal
     phase 6's bytes (the .bloom files its exact ground truth too) and the
     status file must show every accession done. Returns the worker
-    process's kernel launches (this process counts its own)."""
+    process's kernel launches (this process counts its own). ``profile``:
+    break this process's share of the call down (``step_profile``)."""
     remote = os.path.join(work, "remote")
     os.makedirs(remote)
     with socket.socket() as sock:
@@ -1233,7 +1386,8 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict) -> dict:
             time.sleep(0.1)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        with no_library_sort(compaction=False) as guard:
+        with (step_profile(device, INGEST_STEPS) if profile else contextlib.nullcontext()) \
+                as report, no_library_sort() as guard:
             t0 = time.perf_counter()
             rc = torch_maestro_main(common + ["--workers", "2", "--task-timeout", "600",
                                               "--coordinator", f"127.0.0.1:{port}"])
@@ -1245,6 +1399,8 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict) -> dict:
             worker.wait()
     with open(log) as f:
         worker_log = f.read()
+    if profile:
+        print_profile("kwage-maestro-torch --coordinator", wall, report)
     check(rc == 0, f"kwage-maestro-torch --coordinator exited {rc}")
     check(worker_rc == 0, f"kwage-maestro-torch --worker exited {worker_rc}: {worker_log[-2000:]}")
     found = re.search(r"Worker finished \((\d+) tasks\)", worker_log)
@@ -1274,7 +1430,8 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict) -> dict:
           f"{wall:.2f} s ({bp / 1e6 / wall:.2f} Mbp/s) beside phase 6's {phase6['wall_s']:.2f} s "
           f"({bp / 1e6 / phase6['wall_s']:.2f} Mbp/s); the worker process ran {found.group(1)} "
           f"tasks; peak device memory {peak_here} B here, {peak.group(1)} B in the worker; "
-          f"{guard['sorts']} sorts here, no library sort of a CUDA tensor; {len(accs)} .bloom "
+          f"{guard['sorts']} fused sorts and {guard['builds']} accessions built alone here, no "
+          f"library sort of a CUDA tensor, no library compaction in them; {len(accs)} .bloom "
           f"and {len(dbs)} .db == phase 6's bytes and ground truth; every accession done",
           flush=True)
     return json.loads(launches.group(1))
@@ -1715,6 +1872,164 @@ def sort_checks(device: torch.device, gen, ingest: dict, record,
     return outputs
 
 
+def word_pool(distinct: int, k: int, gen, device) -> torch.Tensor:
+    """``distinct`` random int64 k-mer words (k = 32: any int64, half with
+    the top bit set)."""
+    if k == 32:
+        pool = torch.empty(max(distinct, 1), dtype=torch.int64, device=device).random_(
+            -2**63, 2**63 - 1, generator=gen)
+    else:
+        pool = torch.randint(0, 1 << (2 * k), (max(distinct, 1),), device=device, generator=gen)
+    return pool
+
+
+def sorted_words(n: int, distinct: int, k: int, gen, device, pool=None) -> torch.Tensor:
+    """n int64 k-mer words drawn from ``pool``, or from a new pool of
+    ``distinct``, sorted as signed values."""
+    pool = word_pool(distinct, k, gen, device) if pool is None else pool
+    pick = torch.randint(0, pool.shape[0], (n,), device=device, generator=gen)
+    return torch.sort(pool[pick]).values
+
+
+def distinct_run(n: int, pool: torch.Tensor, cap: int, gen, device):
+    """A sorted run of distinct (word, count) pairs, as run_counts leaves a
+    chunk's: the runs of n words drawn from ``pool``."""
+    words, counts, stats, _ = tcount.run_counts_ref(sorted_words(n, 0, 0, gen, device, pool),
+                                                    None, cap)
+    num = int(stats[0])
+    return words[:num], counts[:num]
+
+
+def counts_err(got, want) -> int:
+    """Entries that differ between two run_counts results: the stats, then
+    the words, counts and flags up to num."""
+    err = int((got[2] != want[2]).sum())
+    if err:
+        return err
+    num = int(want[2][0])
+    err = int((got[0][:num] != want[0][:num]).sum()) + int((got[1][:num] != want[1][:num]).sum())
+    if (got[3] is None) != (want[3] is None):
+        return err + 1
+    return err + (0 if want[3] is None else int((got[3][:num] != want[3][:num]).sum()))
+
+
+def merge_checks(device: torch.device, gen, record, lines: list, results: dict,
+                 chunked: dict) -> None:
+    """run_counts and merge_counts against their plain versions, bit for bit.
+    Timed: a 46 Mbp accession's sorted valid windows (``chunked``: phase 12's
+    count; one chunk from the card, run_counts with the threshold, the main
+    path's call), beside torch.unique_consecutive(return_counts=True), which
+    computes run_counts' function; then the last merge of its CHUNK_BP chunks
+    (the runs of all but the last chunk's windows with the last chunk's, the
+    threshold too; no PyTorch call merges counted runs). Then the tile edges
+    (2048 positions), k = 32 signed words, weights that saturate, and empty,
+    disjoint, identical and interleaved runs."""
+    k, cap = INGEST_K, MIN_COUNT
+    n, distinct = chunked["windows"], chunked["distinct"]
+    words = sorted_words(n, distinct, k, gen, device)
+    got = tcount.run_counts(words, None, cap, cap)
+    want = tcount.run_counts_ref(words, None, cap, cap)
+    err = counts_err(got, want)
+    num = int(want[2][0])
+    del got, want
+    ms = cuda_ms(lambda: tcount.run_counts(words, None, cap, cap), 10)
+    plain = cuda_ms(lambda: tcount.run_counts_ref(words, None, cap, cap), 3)
+    library = cuda_ms(lambda: torch.unique_consecutive(words, return_counts=True), 3)
+    # Bytes: the words in, the distinct words, counts and flags out.
+    # Operations: about 4 a position (the compare, the flag, the scan).
+    record("run_counts", f"a 46 Mbp accession's valid windows n={n} distinct={num} "
+           f"cap=min_count={cap}", err, ms, plain,
+           f" ({n / ms / 1e6:.1f} G positions/s; torch.unique_consecutive {library:.4f} ms)",
+           n * 8 + num * 13, 4 * n)
+    results["run_counts"]["library_ms"] = library
+    del words
+
+    chunks = chunked["chunks"]
+    last = n // chunks
+    pool = word_pool(distinct, k, gen, device)
+    wa, ca = distinct_run(n - last, pool, cap, gen, device)
+    wb, cb = distinct_run(last, pool, cap, gen, device)
+    del pool
+    got = tcount.merge_counts(wa, ca, wb, cb, cap, cap)
+    want = tcount.merge_counts_ref(wa, ca, wb, cb, cap, cap)
+    err = counts_err(got, want)
+    num = int(want[2][0])
+    del got, want
+    ms = cuda_ms(lambda: tcount.merge_counts(wa, ca, wb, cb, cap, cap), 10)
+    plain = cuda_ms(lambda: tcount.merge_counts_ref(wa, ca, wb, cb, cap, cap), 3)
+    na, nb = wa.shape[0], wb.shape[0]
+    # Bytes: both runs in, the merged distinct words, counts and flags out.
+    # Operations: about 8 a pair (the merge's compare, the fold's).
+    record("merge_counts", f"the last of {chunks} chunks' merges na={na} nb={nb} "
+           f"distinct={num} cap=min_count={cap}", err, ms, plain,
+           f" ({(na + nb) / ms / 1e6:.1f} G pairs/s)", (na + nb) * 12 + num * 13,
+           8 * (na + nb))
+    del wa, ca, wb, cb
+    torch.cuda.empty_cache()
+
+    n_cmp = 0
+
+    def run_case(tag, words, weights=None, cap=tcount.COUNT_CAP, min_count=0):
+        nonlocal n_cmp
+        err = counts_err(tcount.run_counts(words, weights, cap, min_count),
+                         tcount.run_counts_ref(words, weights, cap, min_count))
+        record("run_counts", tag, err, log=False)
+        n_cmp += 1
+
+    tile = tcount.RUN_TILE
+    sizes = [0, 1, 2, tile - 1, tile, tile + 1, 3 * tile + 5, 1 << 20]
+    for kk in (31, 32):
+        for i, m in enumerate(sizes):
+            run_case(f"n={m} k={kk}", sorted_words(m, max(m // 3, 1), kk, gen, device),
+                     cap=(tcount.COUNT_CAP, 1, 5)[i % 3], min_count=(0, 1, 5)[i % 3])
+    ar = lambda m: torch.arange(m, dtype=torch.int64, device=device)  # noqa: E731
+    for length in (tile - 1, tile, tile + 1, 5000):
+        run_case(f"runs of {length}", torch.repeat_interleave(ar(600), length)[: 1 << 20] * 7 - 9,
+                 cap=5, min_count=5)
+    run_case("one run of 2^20", torch.full((1 << 20,), -3, dtype=torch.int64, device=device))
+    run_case("one run of 2^20, cap 5", torch.full((1 << 20,), 3, dtype=torch.int64,
+                                                  device=device), cap=5, min_count=5)
+    run_case("all distinct", ar((1 << 20) + 3) - (1 << 19))
+    run_case("a run of 5000 from 2040", torch.cat([ar(2040), torch.full((5000,), 2040,
+                                                   dtype=torch.int64, device=device),
+                                                   ar(3000) + 2041]), cap=5, min_count=5)
+    words = sorted_words(1 << 20, 1 << 16, 32, gen, device)
+    for hi, cap_, m in ((1 << 30, tcount.COUNT_CAP, 0), (3, 5, 5), (1 << 30, tcount.COUNT_CAP,
+                                                                   tcount.COUNT_CAP)):
+        w = torch.randint(1, hi + 1, words.shape, dtype=torch.int32, device=device, generator=gen)
+        run_case(f"weights 1..{hi} cap {cap_} min_count {m}", words, w, cap_, m)
+
+    def merge_case(tag, wa, wb, cap=5, min_count=5):
+        nonlocal n_cmp
+        ca = torch.randint(1, cap + 1, wa.shape, dtype=torch.int32, device=device, generator=gen)
+        cb = torch.randint(1, cap + 1, wb.shape, dtype=torch.int32, device=device, generator=gen)
+        for m in (0, min_count):
+            err = counts_err(tcount.merge_counts(wa, ca, wb, cb, cap, m),
+                             tcount.merge_counts_ref(wa, ca, wb, cb, cap, m))
+            record("merge_counts", f"{tag} min_count={m}", err, log=False)
+            n_cmp += 1
+
+    empty = ar(0)
+    for m in (1023, 1024, 3000, 1 << 20):
+        run = ar(m) * 2 - m
+        merge_case(f"empty A, nb={m}", empty, run)
+        merge_case(f"na={m}, empty B", run, empty)
+        merge_case(f"disjoint, A below, n={m}", run, run + 4 * m)
+        merge_case(f"disjoint, B below, n={m}", run + 4 * m, run)
+        merge_case(f"interleaved, n={m}", run, run + 1)
+        merge_case(f"identical, n={m}", run, run.clone(), tcount.COUNT_CAP, 3)
+        merge_case(f"shifted by one (pairs across tile edges), n={m}", run, run + 2)
+    merge_case("both empty", empty, empty)
+    for m in (tile - 1, 3 * tile + 5, 1 << 20):
+        wa = torch.unique(sorted_words(m, m, 32, gen, device))
+        wb = torch.unique(torch.cat([wa[::3], sorted_words(m, m, 32, gen, device)]))
+        merge_case(f"k=32 signed words, na={wa.shape[0]} nb={wb.shape[0]}", wa, wb)
+    lines.append(f"run_counts and merge_counts ({n_cmp} inputs: n = 0 .. 3 tiles + 5 and 2^20 "
+                 "at k = 31 and 32, runs of a tile's length and across tile edges, one run, "
+                 "all distinct, saturating weights; empty, disjoint, interleaved, identical and "
+                 "shifted runs, k = 32 signed words; with and without the threshold) == plain")
+
+
 def transpose_bits_checks(device: torch.device, gen, record, lines: list) -> dict:
     """transpose_bits_device (the byte entry of the bit_transpose kernel)
     against its plain version, unpack -> transpose -> pack: [2048, 2^17]
@@ -1894,6 +2209,7 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
                f" ({n * nh / ms / 1e6:.1f} G hashes/s)",
                nbytes_of(words, got), n * murmur_ops(k, nh))
     del words, got
+    merge_checks(device, gen, record, lines, results, ingest["chunked"])
     results["transpose_bits_device"] = transpose_bits_checks(device, gen, record, lines)
     tiled_edge_checks(device, seed, record, lines)
     small_block_checks(device, seed, results, lines)
@@ -2382,7 +2698,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.profile:
         with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
-            run_ingest(work, device, INGEST, args.seed, profile=True)
+            shapes = run_ingest(work, device, INGEST, args.seed, profile=True)
+            run_remote_ingest(work, device, shapes["run"], profile=True)
         with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
             run_sriracha(work, device, args.seed, profile=True)
         print(card)
@@ -2404,6 +2721,10 @@ def main(argv: list[str] | None = None) -> int:
         kernels.reset_launch_counts()
         shapes = run_ingest(work, device, INGEST, args.seed)
         paths["ingest"] = kernels.launch_counts()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        shapes["chunked"] = run_chunked(work, device, shapes["run"])
+        paths["chunked"] = kernels.launch_counts()
         torch.cuda.empty_cache()
         kernels.reset_launch_counts()
         elsewhere = run_remote_ingest(work, device, shapes.pop("run"))

@@ -76,6 +76,12 @@ _ENTRIES = {
                              _I64, _I64, _I64, _I64, _VP],
     # (subjects, out, ns, smax, size, stream)
     "subject_table": [_VP, _VP, _I64, _I64, _I64, _VP],
+    # (words, weights, words_out, counts_out, selected, stats, scratch, n, cap,
+    #  min_count, stream)
+    "run_counts": [_VP] * 7 + [_I64] * 3 + [_VP],
+    # (words_a, counts_a, words_b, counts_b, words_out, counts_out, part, na,
+    #  nb, stream)
+    "merge_counts": [_VP] * 7 + [_I64] * 2 + [_VP],
 }
 
 # Entry points that launch another entry's kernel on another input layout,

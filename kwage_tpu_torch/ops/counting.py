@@ -12,6 +12,12 @@ The JAX module's pipeline, on int64 k-mer words (``ops.kmers``):
   4. the bloom_set_bits kernel: murmur each selected word and atomicOr
      its bits straight into the packed filter images.
 
+An accession built in chunks (``pipeline.make_bloom.build_bloom_device``)
+counts each chunk's sorted words with the run_counts kernel and merges the
+distinct (word, count) runs into an accumulator on the card with the
+merge_counts kernel (``csrc/merge.cu``), where the JAX package reads them
+back and merges them in numpy.
+
 The sort orders int64 (accession, word) pairs by accession, then by word,
 both as signed values. Invalid windows carry accession num_acc; the count
 keeps only the valid ones (``sort_valid_windows``), so what follows the
@@ -303,11 +309,136 @@ def set_filter_bits(words: torch.Tensor, selected: torch.Tensor, k: int, num_has
 
 def filter_words_to_bytes(words, log2_filter_len: int) -> np.ndarray:
     """Packed int32 filter words (tensor or array) -> the on-disk
-    LSB-first bytes of one 2^L-bit filter (host)."""
+    LSB-first bytes of one 2^L-bit filter (host). A CUDA tensor comes back
+    through a pinned buffer."""
     if isinstance(words, torch.Tensor):
-        words = words.cpu().numpy()
+        if words.is_cuda:
+            host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+            host.copy_(words)
+            words = host
+        words = words.numpy()
     data = np.ascontiguousarray(words).astype("<i4", copy=False).view(np.uint8)
     return data[: max(1, (1 << log2_filter_len) // 8)]
+
+
+# --- run_counts and merge_counts ----------------------------------------------------
+
+RUN_TILE = 2048            # positions a block of csrc/merge.cu takes, both kernels
+COUNT_CAP = 2**31 - 1      # the largest cap: counts are int32
+
+
+def _check_cap(cap: int, min_count: int) -> None:
+    if not 1 <= cap <= COUNT_CAP or not 0 <= min_count <= cap:
+        raise ValueError(f"need 1 <= cap <= 2^31 - 1 and 0 <= min_count <= cap "
+                         f"({cap}, {min_count})")
+
+
+def run_counts_ref(words: torch.Tensor, weights: torch.Tensor | None = None,
+                   cap: int = COUNT_CAP, min_count: int = 0):
+    """Plain run_counts; entries from num on are zero."""
+    n, device = words.shape[0], words.device
+    words_out = torch.zeros(n, dtype=torch.int64, device=device)
+    counts_out = torch.zeros(n, dtype=torch.int32, device=device)
+    stats = torch.zeros(2, dtype=torch.int64, device=device)
+    selected = torch.zeros(n, dtype=torch.bool, device=device) if min_count else None
+    if n:
+        start = torch.ones(n, dtype=torch.bool, device=device)
+        start[1:] = words[1:] != words[:-1]
+        run = torch.cumsum(start, 0) - 1
+        num = int(run[-1]) + 1
+        words_out[:num] = words[start]
+        w = torch.ones(n, dtype=torch.int64, device=device) if weights is None \
+            else weights.long()
+        sums = torch.zeros(num, dtype=torch.int64, device=device).index_add_(0, run, w)
+        counts_out[:num] = sums.clamp(max=cap).int()
+        stats[0] = num
+        if min_count:
+            selected[:num] = counts_out[:num] >= min_count
+            stats[1] = selected.sum()
+    return words_out, counts_out, stats, selected
+
+
+def run_counts(words: torch.Tensor, weights: torch.Tensor | None = None, cap: int = COUNT_CAP,
+               min_count: int = 0):
+    """Sorted int64 words [n] (equal words adjacent), optional int32 weights
+    [n] (None: 1 each) -> (words_out int64 [n], counts int32 [n], stats
+    int64 [2], selected bool [n] or None): the distinct words at 0 .. num-1
+    with their summed weights, saturating at ``cap``; stats = (num, the
+    number of them with count >= min_count), on the device; with min_count
+    > 0, ``selected`` flags those. Entries from num on are unspecified.
+    CUDA tensors: the run_counts kernel; CPU tensors: run_counts_ref."""
+    if words.dtype != torch.int64 or words.dim() != 1:
+        raise ValueError("expected int64 words [n]")
+    if weights is not None and (weights.dtype != torch.int32 or weights.shape != words.shape
+                                or weights.device != words.device):
+        raise ValueError("weights must be int32 of the words' shape and device")
+    _check_cap(cap, min_count)
+    if words.device.type == "cpu":
+        return run_counts_ref(words, weights, cap, min_count)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    n, device = words.shape[0], words.device
+    words = words.contiguous()
+    weights = None if weights is None else weights.contiguous()
+    words_out = torch.empty(n, dtype=torch.int64, device=device)
+    counts_out = torch.empty(n, dtype=torch.int32, device=device)
+    stats = torch.empty(2, dtype=torch.int64, device=device)
+    selected = torch.empty(n, dtype=torch.bool, device=device) if min_count else None
+    scratch = torch.empty(-(-n // RUN_TILE) + 1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        kernels.launch("run_counts", words.data_ptr(),
+                       0 if weights is None else weights.data_ptr(), words_out.data_ptr(),
+                       counts_out.data_ptr(), 0 if selected is None else selected.data_ptr(),
+                       stats.data_ptr(), scratch.data_ptr(), n, cap, min_count,
+                       torch.cuda.current_stream(device).cuda_stream)
+    return words_out, counts_out, stats, selected
+
+
+def _check_runs(words: torch.Tensor, counts: torch.Tensor, device) -> None:
+    if (words.dtype != torch.int64 or counts.dtype != torch.int32 or words.dim() != 1
+            or words.shape != counts.shape):
+        raise ValueError("expected int64 words and int32 counts of one shape [n]")
+    if words.device != device or counts.device != device:
+        raise ValueError("both runs must share a device")
+
+
+def merge_counts_ref(words_a: torch.Tensor, counts_a: torch.Tensor, words_b: torch.Tensor,
+                     counts_b: torch.Tensor, cap: int = COUNT_CAP, min_count: int = 0):
+    """Plain merge_counts: a stable sort of the two runs joined, then
+    run_counts_ref with the counts as weights."""
+    words, order = torch.sort(torch.cat([words_a, words_b]), stable=True)
+    return run_counts_ref(words, torch.cat([counts_a, counts_b])[order], cap, min_count)
+
+
+def merge_counts(words_a: torch.Tensor, counts_a: torch.Tensor, words_b: torch.Tensor,
+                 counts_b: torch.Tensor, cap: int = COUNT_CAP, min_count: int = 0):
+    """Two runs of distinct (int64 word, int32 count) pairs, each sorted ->
+    run_counts' outputs over their union [na + nb]: the distinct words,
+    sorted, with the counts of a word in both runs added (saturating at
+    ``cap``), stats, and with min_count > 0 the selected flags. CUDA
+    tensors: the merge_counts kernel (a merge path, then a serial merge of
+    each tile), folded by the run_counts kernel; CPU tensors:
+    merge_counts_ref."""
+    device = words_a.device
+    _check_runs(words_a, counts_a, device)
+    _check_runs(words_b, counts_b, device)
+    _check_cap(cap, min_count)
+    if device.type == "cpu":
+        return merge_counts_ref(words_a, counts_a, words_b, counts_b, cap, min_count)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    na, nb = words_a.shape[0], words_b.shape[0]
+    words = torch.empty(na + nb, dtype=torch.int64, device=device)
+    counts = torch.empty(na + nb, dtype=torch.int32, device=device)
+    part = torch.empty(-(-(na + nb) // RUN_TILE) + 1, dtype=torch.int64, device=device)
+    if na + nb:
+        with torch.cuda.device(device):
+            kernels.launch("merge_counts", words_a.contiguous().data_ptr(),
+                           counts_a.contiguous().data_ptr(), words_b.contiguous().data_ptr(),
+                           counts_b.contiguous().data_ptr(), words.data_ptr(),
+                           counts.data_ptr(), part.data_ptr(), na, nb,
+                           torch.cuda.current_stream(device).cuda_stream)
+    return run_counts(words, counts, cap, min_count)
 
 
 # --- counting -------------------------------------------------------------------

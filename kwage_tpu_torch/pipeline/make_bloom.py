@@ -7,13 +7,18 @@ solve the adaptive filter shape from the observed valid-k-mer count, fold
 the per-seed valid-bit planes down to the final length, and emit a
 ``.bloom`` record with crc32 + metadata. These functions (``BuildOptions``,
 ``BloomInvalid``, ``build_bloom_from_sequences``, ``build_bloom_from_file``,
-``DeviceBatchPrep``, ``DeviceScatterState``, ``_merge_sorted_counts``,
-``_pad_reads_to_batch``, ``_src_iter``) are the JAX module's, unchanged.
+``DeviceBatchPrep``, ``DeviceScatterState``, ``_src_iter``,
+``prepare_device_batch``) are the JAX module's, unchanged.
 
 Device pipeline: exact-count thresholding on the device, as in the JAX
 module: canonical k-mers, a sort by (accession, word), the select_runs
 kernel, the host solves each filter's shape, and the bloom_set_bits kernel
-sets the bits (``kwage_tpu_torch.ops.counting``).
+sets the bits (``kwage_tpu_torch.ops.counting``). An accession above the
+batch's chunk_bp is built alone (``build_bloom_device``), from packed
+reads to filter image on the card: where the JAX module reads each
+chunk's distinct k-mers back and merges them in numpy, the port counts
+them with the run_counts kernel and merges them into an accumulator on
+the card with the merge_counts kernel.
 
 Two int32 limits of the JAX version are gone: every bit offset is int64,
 so filters of 2^31 and 2^32 bits are set on the device (the JAX version
@@ -28,7 +33,10 @@ default ``cuda``).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import mmap
+import threading
 import zlib
 from dataclasses import dataclass
 from typing import Iterable
@@ -52,13 +60,16 @@ from ..io.bloom_file import BloomFilterRecord
 from ..io.sequence import iter_sequences
 from ..native import CountingBuilder
 from ..ops.counting import (
+    COUNT_CAP,
     bloom_set_bits,
-    count_kmers,
     count_kmers_multi_packed,
     filter_words_to_bytes,
+    merge_counts,
+    run_counts,
     set_filter_bits,
+    sort_valid_windows,
 )
-from ..ops.kmers import pack_reads_host, tensor_to_words_u64, words_u64_to_tensor
+from ..ops.kmers import canonical_kmers_packed, pack_reads_host
 from ..ops.search import words_to_tensor
 from ..utils.runtime import resolve_device
 
@@ -166,39 +177,6 @@ def _finish_build(builder, opts: BuildOptions, info: FilterInfo, max_kmers: int)
     )
 
 
-def _pad_reads_to_batch(sequences: list[str], k: int) -> "np.ndarray":
-    """ASCII read batch padded with zeros (invalid windows) to bucketed
-    dimensions. BOTH axes bucket -- length to 128-multiples, row count to
-    powers of two -- because every distinct shape is a separate XLA
-    compile; zero rows contribute no valid windows."""
-    max_len = max((len(s) for s in sequences), default=k)
-    bucket = max(128, ((max_len + 127) // 128) * 128)
-    rows = max(64, 1 << int(np.ceil(np.log2(max(len(sequences), 1)))))
-    batch = np.zeros((rows, bucket), dtype=np.uint8)
-    for i, s in enumerate(sequences):
-        batch[i, : len(s)] = np.frombuffer(s.encode("ascii"), dtype=np.uint8)
-    return batch
-
-
-def _merge_sorted_counts(
-    words_a: "np.ndarray", counts_a: "np.ndarray",
-    words_b: "np.ndarray", counts_b: "np.ndarray",
-) -> tuple["np.ndarray", "np.ndarray"]:
-    """Merge two sorted (unique word, count) runs into one (host, vectorized)."""
-    words = np.concatenate([words_a, words_b])
-    counts = np.concatenate([counts_a, counts_b])
-    order = np.argsort(words, kind="stable")
-    words = words[order]
-    counts = counts[order]
-    is_start = np.empty(words.shape[0], dtype=bool)
-    is_start[0] = True
-    np.not_equal(words[1:], words[:-1], out=is_start[1:])
-    seg = np.cumsum(is_start) - 1
-    merged_counts = np.zeros(int(seg[-1]) + 1, dtype=np.int64)
-    np.add.at(merged_counts, seg, counts)
-    return words[is_start], merged_counts
-
-
 def _max_kmers(opts: BuildOptions) -> int:
     return approximate_max_kmers(
         opts.false_positive_probability, opts.hash_func,
@@ -223,72 +201,269 @@ def _record(param, bits: np.ndarray, info: FilterInfo) -> BloomFilterRecord:
                              info=info, bits=bits)
 
 
-def build_bloom_device(
-    sequences: Iterable[str],
-    opts: BuildOptions,
-    info: FilterInfo,
-    chunk_bp: int = 8_000_000,
-) -> BloomFilterRecord:
-    """Device Bloom construction of one accession: exact-count
-    thresholding, streamed in ~chunk_bp-base chunks. Each chunk is
-    k-merized, sorted and counted on the device; its distinct (word,
-    count) runs merge on the host (KMC-style external counting: RAM
-    bounded by the distinct-k-mer set, device memory by the chunk). The
-    bits of the thresholded words are set on the device at every L."""
-    device = resolve_device()
-    k = opts.kmer_len
-    num_bp = num_spots = 0
-    acc_words = np.empty(0, dtype=np.uint64)
-    acc_counts = np.empty(0, dtype=np.int64)
-    max_kmers = _max_kmers(opts)
+# Device memory a window (a row position of a chunk's [rows, blen - k + 1]
+# grid) takes at the peak of count_chunk: canonical_kmers' word and flag
+# (9 B), the accession key (8), radix_sort_pairs' buffers and look-back
+# (about 26 a kept window), run_counts' outputs. Measured with
+# torch.cuda.max_memory_allocated by chip_smoke.py phase 12 over a 46 Mbp
+# accession's [306666, 160] block (NVIDIA H100 80GB HBM3, 700 W): 38.01 B
+# a window with 120 of its 130 windows a row valid, 40.65 B with all of them
+# valid and distinct, the most a window takes. The phase fails if a count
+# takes more.
+BYTES_PER_WINDOW = 48
+# Device memory merge_counts takes a word of its two runs: the merge (12 B)
+# and run_counts' fold of it (13 B, and its look-back); 25.03 B measured by
+# phase 12 on the same card, which fails if a merge takes more.
+MERGE_BYTES_PER_WORD = 26
+# The most windows a chunk sized from the card takes: about 6.4 GB at
+# BYTES_PER_WINDOW, so that a process sharing the card (a --worker beside
+# its coordinator), which _CARD_TURN does not reach, still finds most of it
+# free. 2^27 windows are about 155 Mbp of 150 bp reads.
+CHUNK_WINDOWS_MAX = 1 << 27
+# Without a card (the tests): windows a chunk.
+CPU_CHUNK_WINDOWS = 1 << 22
+# Host memory: a file's packed block (2 bits of code and 1 valid bit a base,
+# 0.375 B, each row padded to the longest read) is held whole up to this
+# many bytes, for one build, and page-locked only while that build runs;
+# past it the file streams through the Python reader.
+PACK_HOST_CAP_BYTES = 8 << 30
+# Host memory: a chunk of streamed reads is packed from an ASCII block of at
+# most this many (padded) bases.
+STRING_CHUNK_BASES = 1 << 26
+# One chunk's count and merge, or one build's bit set, at a time in this
+# process. Each sizes its work from the memory free when it takes its turn,
+# so builds in other threads (the maestro's device workers, the
+# coordinator's local workers) cannot spend the same memory between that
+# reading and the allocation. Between turns a build holds only its
+# accumulator, which the next reading sees as taken.
+_CARD_TURN = threading.Lock()
 
-    def digest(chunk: list[str]) -> None:
-        nonlocal acc_words, acc_counts
-        # min_count=1 here: per-chunk counts must stay exact for the merge.
-        words_s, selected, _, num_windows = count_kmers(
-            _pad_reads_to_batch(chunk, k), k, 1, device)
-        starts = torch.nonzero(selected).reshape(-1)
-        if starts.numel() == 0:
-            return
-        words = tensor_to_words_u64(words_s[starts])
-        # Each sorted run ends at the next start; the last one at the end
-        # (the sort keeps the valid windows alone).
-        starts = starts.cpu().numpy()
-        counts = np.append(starts[1:], num_windows) - starts
-        if acc_words.size:
-            acc_words, acc_counts = _merge_sorted_counts(acc_words, acc_counts, words, counts)
-        else:
-            acc_words, acc_counts = words, counts.astype(np.int64)
-        if acc_words.size > max_kmers:
-            raise BloomInvalid(f"k-mer count {acc_words.size} exceeds feasible maximum {max_kmers}")
 
+def _card_free_bytes(device: torch.device) -> int:
+    """Bytes the card can still give this process: free device memory and
+    what the caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def _need_card(device: torch.device, need: int, what: str) -> None:
+    if device.type == "cuda" and need > _card_free_bytes(device):
+        raise RuntimeError(
+            f"the device build does not fit the card: {what} needs {need} B, "
+            f"{_card_free_bytes(device)} B are free")
+
+
+def _chunk_rows(device: torch.device, row_windows: int) -> int:
+    """Rows a chunk takes when the caller gives no chunk_bp, read at the
+    chunk's turn: at most CHUNK_WINDOWS_MAX windows and half of what the
+    card has free (the other half is its merge's), or CPU_CHUNK_WINDOWS
+    without a card."""
+    windows = CPU_CHUNK_WINDOWS
+    if device.type == "cuda":
+        windows = min(CHUNK_WINDOWS_MAX, _card_free_bytes(device) // (2 * BYTES_PER_WINDOW))
+    if windows < row_windows:
+        raise RuntimeError(f"one row of {row_windows} windows does not fit the card")
+    return windows // row_windows
+
+
+def _row_len(max_len: int, k: int) -> int:
+    """Bases a packed row holds: the longest read, to a multiple of 32."""
+    return max(32, -(-max(max_len, k) // 32) * 32)
+
+
+def _pack_file_block(path: str, k: int):
+    """A FASTA/FASTQ(.gz) file's reads of >= k bases, 2-bit packed by the
+    native parser into one host block, no Python strings: (spots, bp,
+    packed int32 [rows, blen/16], valid_words int32 [rows, blen/32], blen,
+    the buffer under both, a page-aligned uint32 array of its own pages).
+    None when the native library or the format cannot, or the block would
+    pass PACK_HOST_CAP_BYTES."""
+    from ..io.sequence import FASTQ, UNKNOWN_SEQUENCE, get_file_type
+    from ..native import available, pack_file_native, scan_file_batch_native
+
+    ftype = get_file_type(path)
+    if not available() or ftype == UNKNOWN_SEQUENCE:
+        return None
+    fmt = 1 if ftype == FASTQ else 0
+    spots, bp, rows, max_len = scan_file_batch_native(path, fmt, k)
+    blen = _row_len(max_len, k)
+    n16, n32 = rows * (blen // 16), rows * (blen // 32)
+    if (n16 + n32) * 4 > PACK_HOST_CAP_BYTES:
+        return None
+    # An anonymous mapping: zeroed, and no other buffer shares its pages.
+    buf = np.frombuffer(mmap.mmap(-1, max(4, (n16 + n32) * 4)), np.uint32)
+    packed = buf[:n16].reshape(rows, blen // 16)
+    valid_words = buf[n16 : n16 + n32].reshape(rows, blen // 32)
+    if rows:
+        pack_file_native(path, fmt, k, 0, rows, packed, valid_words)
+    return (spots, bp, torch.from_numpy(packed.view(np.int32)),
+            torch.from_numpy(valid_words.view(np.int32)), blen, buf)
+
+
+@contextlib.contextmanager
+def _page_locked(buf, device: torch.device):
+    """``buf`` (a page-aligned host array) page-locked for the card's copies
+    while inside (cudaHostRegister), and let go on exit once this thread's
+    stream is done with it; without a card or a buffer, nothing. Not
+    PyTorch's pinned allocator, which keeps what it gave out."""
+    if buf is None or device.type != "cuda":
+        yield
+        return
+    rt = torch.cuda.cudart()
+    err = rt.cudaHostRegister(buf.ctypes.data, buf.nbytes, 0)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister of {buf.nbytes} B failed: error {int(err)}")
+    try:
+        yield
+    finally:
+        torch.cuda.current_stream(device).synchronize()
+        rt.cudaHostUnregister(buf.ctypes.data)
+
+
+def _pack_strings(reads: list[str], k: int):
+    """Reads of >= k bases -> (packed int32 [R, blen/16], valid_words int32
+    [R, blen/32], blen): one ASCII block, one pack_reads_host."""
+    blen = _row_len(max(map(len, reads)), k)
+    block = np.frombuffer("".join(r.ljust(blen, "\0") for r in reads).encode("ascii"),
+                          np.uint8).reshape(len(reads), blen)
+    packed, valid_words = pack_reads_host(block)
+    return (torch.from_numpy(packed.view(np.int32)),
+            torch.from_numpy(valid_words.view(np.int32)), blen)
+
+
+def _string_chunks(sequences: Iterable[str], k: int, chunk_bp, seen: dict):
+    """Packed chunks of streamed reads: chunk_bp bases each, or (chunk_bp
+    None) at most STRING_CHUNK_BASES padded bases. Counts every read's bases
+    and spots into ``seen``."""
     chunk: list[str] = []
-    chunk_bases = 0
-    any_long_read = False
+    bases = longest = 0
     for s in sequences:
-        num_spots += 1
-        num_bp += len(s)
+        seen["spots"] += 1
+        seen["bp"] += len(s)
         if len(s) < k:
             continue
-        any_long_read = True
         chunk.append(s)
-        chunk_bases += len(s)
-        if chunk_bases >= chunk_bp:
-            digest(chunk)
-            chunk, chunk_bases = [], 0
+        bases += len(s)
+        longest = max(longest, len(s))
+        if (bases >= chunk_bp if chunk_bp is not None
+                else len(chunk) * _row_len(longest, k) >= STRING_CHUNK_BASES):
+            yield _pack_strings(chunk, k)
+            chunk, bases, longest = [], 0, 0
     if chunk:
-        digest(chunk)
-    if not any_long_read:
+        yield _pack_strings(chunk, k)
+
+
+def _with_last(items):
+    """(item, is_last) for each item."""
+    it = iter(items)
+    prev = next(it, it)
+    while prev is not it:
+        item = next(it, it)
+        yield prev, item is it
+        prev = item
+
+
+def count_chunk(packed: torch.Tensor, valid_words: torch.Tensor, length: int, k: int,
+                cap: int, min_count: int):
+    """One chunk of packed reads (host or device) -> run_counts' outputs over
+    its valid windows, on the device: canonical_kmers, the sort of the valid
+    windows, run_counts (with min_count > 0, the threshold too)."""
+    device = resolve_device()
+    words, valid = canonical_kmers_packed(packed.to(device, non_blocking=True),
+                                          valid_words.to(device, non_blocking=True), k, length)
+    acc = torch.where(valid, 0, 1).reshape(-1)
+    del valid
+    _, words_s = sort_valid_windows(acc, words.reshape(-1), k, 1)
+    del acc, words
+    return run_counts(words_s, None, cap, min_count)
+
+
+def build_bloom_device(
+    sequences: "Iterable[str] | str",
+    opts: BuildOptions,
+    info: FilterInfo,
+    chunk_bp: int | None = None,
+) -> BloomFilterRecord:
+    """Device Bloom construction of one accession: exact-count
+    thresholding on the card, from packed reads to filter image. A
+    FASTA/FASTQ path is packed natively into one host block (page-locked
+    while the build runs) and fed in row ranges; reads from an iterable are
+    packed a chunk at a time. Each chunk's valid windows are sorted and
+    counted (run_counts), and its distinct (word, count) runs merge into a
+    sorted accumulator on the card (merge_counts); counts saturate at
+    min_kmer_count, all the threshold reads. The last chunk's merge
+    thresholds, and bloom_set_bits takes the accumulator and its flags as
+    they are. Only scalars (the sort's and the runs' counts) and the image
+    (pinned) come back to the host.
+
+    ``chunk_bp``: bases a chunk (the JAX package's 8,000,000 on a 16 GB
+    TPU); None sizes each chunk from the card's free memory at its turn
+    (``_CARD_TURN``, ``_chunk_rows``), and a 46 Mbp accession is one chunk.
+    BloomInvalid past max_kmers distinct k-mers (checked after every chunk,
+    as the JAX version does); a RuntimeError when the accumulator and a
+    chunk do not both fit the card."""
+    device = resolve_device()
+    k = opts.kmer_len
+    max_kmers = _max_kmers(opts)
+    min_count = max(1, opts.min_kmer_count)
+    if min_count > COUNT_CAP:
+        raise ValueError(f"min_kmer_count {opts.min_kmer_count} > 2^31 - 1")
+    seen = {"spots": 0, "bp": 0}
+    block = _pack_file_block(sequences, k) if isinstance(sequences, str) else None
+    if block is not None:
+        seen["spots"], seen["bp"], packed, valid_words, blen, buf = block
+        rows = packed.shape[0]
+        step = None if chunk_bp is None else max(1, -(-chunk_bp * rows // max(seen["bp"], 1)))
+        blocks = [(packed, valid_words, blen, step)]
+    else:
+        buf = None
+        blocks = ((p, v, blen, None if chunk_bp is None else p.shape[0])
+                  for p, v, blen in _string_chunks(_src_iter(sequences), k, chunk_bp, seen))
+
+    acc = None   # (words, counts) of the distinct k-mers so far, on the card
+    with _page_locked(buf, device):
+        for (p, v, length, step), last_block in _with_last(blocks):
+            r = 0
+            while r < p.shape[0]:
+                with _CARD_TURN:
+                    n = step or _chunk_rows(device, length - k + 1)
+                    last = last_block and r + n >= p.shape[0]
+                    acc, kept, selected = _count_into(acc, p[r : r + n], v[r : r + n], length,
+                                                      k, min_count, last, max_kmers, device)
+                r += n
+    if acc is None:
         raise BloomInvalid("no reads of length >= k")
 
-    thresholded = acc_words[acc_counts >= opts.min_kmer_count]
-    param = _solve_param(opts, int(thresholded.size), max_kmers)
-    words = words_u64_to_tensor(thresholded, device)
-    packed = set_filter_bits(words, torch.ones(words.shape, dtype=torch.bool, device=device),
-                             k, param.num_hash, param.log_2_filter_len)
-    info.number_of_bases = info.number_of_bases or num_bp
-    info.number_of_spots = info.number_of_spots or num_spots
-    return _record(param, filter_words_to_bytes(packed, param.log_2_filter_len), info)
+    param = _solve_param(opts, kept, max_kmers)
+    with _CARD_TURN:
+        image = set_filter_bits(acc[0], selected, k, param.num_hash, param.log_2_filter_len)
+        bits = filter_words_to_bytes(image, param.log_2_filter_len)
+    info.number_of_bases = info.number_of_bases or seen["bp"]
+    info.number_of_spots = info.number_of_spots or seen["spots"]
+    return _record(param, bits, info)
+
+
+def _count_into(acc, packed: torch.Tensor, valid_words: torch.Tensor, length: int, k: int,
+                min_count: int, last: bool, max_kmers: int, device: torch.device):
+    """One chunk counted (count_chunk) and merged into the accumulator
+    ``acc`` (merge_counts; the chunk's runs become it when there is none):
+    the new accumulator, its kept count and its selected flags (both only
+    on the last chunk, which thresholds). BloomInvalid past
+    max_kmers distinct k-mers."""
+    _need_card(device, packed.shape[0] * (length - k + 1) * BYTES_PER_WINDOW, "a chunk's count")
+    out = count_chunk(packed, valid_words, length, k, min_count,
+                      min_count if last and acc is None else 0)
+    if acc is not None:
+        num = int(out[2][0])
+        _need_card(device, MERGE_BYTES_PER_WORD * (acc[0].shape[0] + num),
+                   f"merging {num} k-mers into {acc[0].shape[0]}")
+        out = merge_counts(*acc, out[0][:num], out[1][:num], min_count,
+                           min_count if last else 0)
+    words, counts, stats, selected = out
+    num, kept = stats.tolist()
+    if num > max_kmers:
+        raise BloomInvalid(f"k-mer count {num} exceeds feasible maximum {max_kmers}")
+    return (words[:num], counts[:num]), kept, None if selected is None else selected[:num]
 
 
 @dataclass
@@ -500,12 +675,13 @@ def scatter_device_batch(prep: DeviceBatchPrep, opts: BuildOptions, handles):
 def complete_device_batch(prep: DeviceBatchPrep, opts: BuildOptions,
                           state: DeviceScatterState) -> list:
     """Final phase: wait for the (already in-flight) image copies,
-    assemble the records, and build the chunked big jobs."""
+    assemble the records, and build the big jobs alone (a path is packed
+    natively; chunks sized from the card). The big jobs' paths are scanned
+    again: prepare_device_batch, the JAX module's, keeps no scan."""
     jobs, results, small = prep.jobs, prep.results, prep.small
     for j in prep.big:
         try:
-            results[j] = build_bloom_device(
-                _src_iter(prep.seq_cache.get(j, jobs[j][0])), opts, jobs[j][1], prep.chunk_bp)
+            results[j] = build_bloom_device(prep.seq_cache.get(j, jobs[j][0]), opts, jobs[j][1])
         except Exception as e:  # noqa: BLE001 -- per-job fault isolation
             results[j] = e
 

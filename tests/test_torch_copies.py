@@ -93,8 +93,7 @@ REQUIRED = {
                "transpose_bits_native", "scan_file_native", "pack_file_native"},
     "pipeline.build_db": {"transpose_filters", "build_dbz_from_bloom_files"},
     "pipeline.make_bloom": {"BuildOptions", "BloomInvalid", "counting_filter_log2_len",
-                            "build_bloom_from_sequences", "_finish_build",
-                            "_pad_reads_to_batch", "_merge_sorted_counts", "DeviceBatchPrep",
+                            "build_bloom_from_sequences", "_finish_build", "DeviceBatchPrep",
                             "_src_iter", "prepare_device_batch", "DeviceScatterState",
                             "finish_device_batch", "build_blooms_device_batch",
                             "build_bloom_from_file"},

@@ -64,7 +64,8 @@ def test_reset_launch_counts():
         "bit_transpose": 0, "search_complete": 0, "search_counts": 0, "search_total_hits": 0,
         "canonical_kmers": 0, "murmur32": 0, "radix_sort_pairs": 0, "select_runs": 0,
         "bloom_set_bits": 0,
-        "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "subject_table": 0}
+        "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "subject_table": 0,
+        "run_counts": 0, "merge_counts": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

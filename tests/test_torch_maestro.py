@@ -255,7 +255,7 @@ COPIES = [
 ] + [
     (jax_make_bloom, torch_make_bloom, name) for name in (
         "build_bloom_from_sequences", "build_bloom_from_file", "_finish_build",
-        "counting_filter_log2_len", "_merge_sorted_counts", "_pad_reads_to_batch")
+        "counting_filter_log2_len")
 ]
 
 
