@@ -52,7 +52,7 @@ one line each; any failure raises and exits non-zero:
               record == the exact ground truth, under phase 6's refusals;
               walls beside the native host builder's, and the device
               memory a window of a chunk's count takes (all valid too) and
-              a word of a merge.
+              a word of a merge, each held to its make_bloom constant.
 7. entry   -- the port's ``entry()`` forward on the card equals the plain
               versions' result on the CPU.
 9. mesh    -- the sharded search (``parallel.sharded_search``) over phase
@@ -67,7 +67,9 @@ one line each; any failure raises and exits non-zero:
               bytes for every case. ``ShardedDatabase.total_hits`` equals
               the host engine's hit-list lengths a query at -t 1.0 and
               0.5, resident and in waves; the streamed runs' peak device
-              memory stays within the budget times the shards on the card.
+              memory stays within the budget times the shards on the card,
+              and every searcher, dropped, frees its device memory at once
+              (allocated memory back to its value before the run).
               Then ``dryrun_multichip(4)``: device ingest + device
               transpose -> .db files + status checkpoint -> the mesh
               search in waves == the host engine.
@@ -118,10 +120,13 @@ one line each; any failure raises and exits non-zero:
               three shapes), and on rows around the 2^14-word tile; both
               probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
               (k = 11): the LUT / hash crossover. run_counts and
-              merge_counts at a 46 Mbp accession's shape (beside
-              torch.unique_consecutive), at the tile edges, on k = 32
-              signed words, with saturating weights, and on empty,
-              disjoint, interleaved and identical runs.
+              merge_counts at a 46 Mbp accession's shape and at a real
+              accession's (a chunk of 2^27 windows; 2^28 + 2^26 words
+              merged), run_counts beside torch.unique_consecutive; at the
+              tile edges, on k = 32 signed words, with saturating weights
+              and a cap of 40, on inputs off a 16-byte boundary, and on
+              empty, disjoint, interleaved and identical runs and runs
+              with an equal pair at every tile edge.
 5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 12,
               11, 7, 8, 10); the worker process of phase 11 reports its own counts;
               each path's counts are zeroed just before it and read just
@@ -152,7 +157,6 @@ import collections
 import contextlib
 import csv
 import functools
-import gc
 import hashlib
 import io
 import json
@@ -461,8 +465,8 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
     server.start()
     try:
         lat = []
-        with socket.create_connection(server.address, timeout=600) as sock:
-            f = sock.makefile("rw", encoding="utf-8")
+        with socket.create_connection(server.address, timeout=600) as sock, \
+                sock.makefile("rw", encoding="utf-8") as f:
             for threshold, fmt in CASES:
                 t0 = time.perf_counter()
                 f.write(json.dumps({"queries": seqs, "threshold": threshold,
@@ -538,13 +542,11 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
             ("1 x %d part resident" % shards, (1, shards), wave_budget, MeshResidentSearcher),
             ("1 x %d one stream" % shards, (1, shards), wave_budget, OneStreamSearcher)]
     for tag, shape, budget, make in runs:
-        # The run before may sit in a reference cycle: collect it, so that
-        # the peak below is this run's alone.
-        gc.collect()
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated(device) if cuda else 0
         mesh = make_search_mesh(*shape, devices)
         t0 = time.perf_counter()
         searcher = make(files, mesh, budget_bytes=budget)
@@ -584,6 +586,12 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
                       + f", peak device memory {peak} B"
                       + (f" of {on_a_card} x {budget} B" if budget is not None else ""))
         del searcher, sdbs
+        if cuda:
+            # Dropped, the searcher frees its device memory at once: nothing
+            # of it may wait in a reference cycle for the collector.
+            torch.cuda.synchronize()
+            left = torch.cuda.memory_allocated(device)
+            check(left == base, f"{tag}: {left} B allocated after del, {base} B before the run")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as said:
         dryrun_multichip(dryrun_devices)
@@ -1541,7 +1549,7 @@ def search_launcher(name, db, idx, valid, out, tcount=None):
     W, (nq, nk, nh) = db.shape[1], idx.shape
     held = [db, idx, valid, out]
     if tcount is not None:
-        held[3:] = [tcount, out, torch.empty(kernels.search_scratch_words(nq, W),
+        held[3:] = [tcount, out, torch.empty(kernels.scratch_words("search", nq, W),
                                              dtype=torch.int32, device=db.device)]
     ptrs = [t.data_ptr() for t in held]
     return lambda stream, held=held: kernels.launch(name, *ptrs, nq, nk, nh, W, stream)
@@ -1921,49 +1929,78 @@ def merge_checks(device: torch.device, gen, record, lines: list, results: dict,
     path's call), beside torch.unique_consecutive(return_counts=True), which
     computes run_counts' function; then the last merge of its CHUNK_BP chunks
     (the runs of all but the last chunk's windows with the last chunk's, the
-    threshold too; no PyTorch call merges counted runs). Then the tile edges
-    (2048 positions), k = 32 signed words, weights that saturate, and empty,
-    disjoint, identical and interleaved runs."""
+    threshold too; no PyTorch call merges counted runs). Then a real
+    accession's shape: run_counts over a chunk of CHUNK_WINDOWS_MAX windows,
+    merge_counts of an accumulator of 2^28 words with a chunk's 2^26. Then
+    the tile edges (RUN_TILE positions), k = 32 signed words, weights that
+    saturate, inputs off a 16-byte boundary, and empty, disjoint, identical,
+    interleaved runs and runs with an equal pair at every tile edge."""
     k, cap = INGEST_K, MIN_COUNT
-    n, distinct = chunked["windows"], chunked["distinct"]
-    words = sorted_words(n, distinct, k, gen, device)
-    got = tcount.run_counts(words, None, cap, cap)
-    want = tcount.run_counts_ref(words, None, cap, cap)
-    err = counts_err(got, want)
-    num = int(want[2][0])
-    del got, want
-    ms = cuda_ms(lambda: tcount.run_counts(words, None, cap, cap), 10)
-    plain = cuda_ms(lambda: tcount.run_counts_ref(words, None, cap, cap), 3)
-    library = cuda_ms(lambda: torch.unique_consecutive(words, return_counts=True), 3)
-    # Bytes: the words in, the distinct words, counts and flags out.
-    # Operations: about 4 a position (the compare, the flag, the scan).
-    record("run_counts", f"a 46 Mbp accession's valid windows n={n} distinct={num} "
-           f"cap=min_count={cap}", err, ms, plain,
-           f" ({n / ms / 1e6:.1f} G positions/s; torch.unique_consecutive {library:.4f} ms)",
-           n * 8 + num * 13, 4 * n)
-    results["run_counts"]["library_ms"] = library
-    del words
 
-    chunks = chunked["chunks"]
+    def timed_run_counts(tag, words, reps):
+        """run_counts with the threshold (the main path's call) against
+        its plain version and timed, beside torch.unique_consecutive.
+        Bytes: the words in, the distinct words, counts and flags out;
+        operations: about 4 a position (the compare, the flag, the scan)."""
+        n = words.shape[0]
+        want = tcount.run_counts_ref(words, None, cap, cap)
+        err, num = counts_err(tcount.run_counts(words, None, cap, cap), want), int(want[2][0])
+        del want
+        ms = cuda_ms(lambda: tcount.run_counts(words, None, cap, cap), reps)
+        plain = cuda_ms(lambda: tcount.run_counts_ref(words, None, cap, cap), 3)
+        library = cuda_ms(lambda: torch.unique_consecutive(words, return_counts=True), 3)
+        by = bound(n * 8 + num * 13, 4 * n)
+        record("run_counts", f"{tag} n={n} distinct={num} cap=min_count={cap}", err, ms, plain,
+               f" ({n / ms / 1e6:.1f} G positions/s, {by['bound_ms'] / ms:.3f} of its "
+               f"{by['bound_ms']:.4f} ms bound; torch.unique_consecutive {library:.4f} ms)",
+               by["bytes"], by["operations"])
+        return library
+
+    def timed_merge(tag, wa, ca, wb, cb, reps):
+        """merge_counts with the threshold against its plain version and
+        timed (no PyTorch call merges counted runs). Bytes: both runs in,
+        the merged distinct words, counts and flags out; operations: about
+        8 a pair."""
+        na, nb = wa.shape[0], wb.shape[0]
+        want = tcount.merge_counts_ref(wa, ca, wb, cb, cap, cap)
+        err = counts_err(tcount.merge_counts(wa, ca, wb, cb, cap, cap), want)
+        num = int(want[2][0])
+        del want
+        ms = cuda_ms(lambda: tcount.merge_counts(wa, ca, wb, cb, cap, cap), reps)
+        plain = cuda_ms(lambda: tcount.merge_counts_ref(wa, ca, wb, cb, cap, cap), 1)
+        by = bound((na + nb) * 12 + num * 13, 8 * (na + nb))
+        record("merge_counts", f"{tag} na={na} nb={nb} distinct={num} cap=min_count={cap}", err,
+               ms, plain, f" ({(na + nb) / ms / 1e6:.1f} G pairs/s, {by['bound_ms'] / ms:.3f} "
+               f"of its {by['bound_ms']:.4f} ms bound)", by["bytes"], by["operations"])
+
+    n, distinct, chunks = chunked["windows"], chunked["distinct"], chunked["chunks"]
+    results["run_counts"]["library_ms"] = timed_run_counts(
+        "a 46 Mbp accession's valid windows", sorted_words(n, distinct, k, gen, device), 10)
     last = n // chunks
     pool = word_pool(distinct, k, gen, device)
     wa, ca = distinct_run(n - last, pool, cap, gen, device)
     wb, cb = distinct_run(last, pool, cap, gen, device)
     del pool
-    got = tcount.merge_counts(wa, ca, wb, cb, cap, cap)
-    want = tcount.merge_counts_ref(wa, ca, wb, cb, cap, cap)
-    err = counts_err(got, want)
-    num = int(want[2][0])
-    del got, want
-    ms = cuda_ms(lambda: tcount.merge_counts(wa, ca, wb, cb, cap, cap), 10)
-    plain = cuda_ms(lambda: tcount.merge_counts_ref(wa, ca, wb, cb, cap, cap), 3)
-    na, nb = wa.shape[0], wb.shape[0]
-    # Bytes: both runs in, the merged distinct words, counts and flags out.
-    # Operations: about 8 a pair (the merge's compare, the fold's).
-    record("merge_counts", f"the last of {chunks} chunks' merges na={na} nb={nb} "
-           f"distinct={num} cap=min_count={cap}", err, ms, plain,
-           f" ({(na + nb) / ms / 1e6:.1f} G pairs/s)", (na + nb) * 12 + num * 13,
-           8 * (na + nb))
+    timed_merge(f"the last of {chunks} chunks' merges", wa, ca, wb, cb, 10)
+    del wa, ca, wb, cb
+    torch.cuda.empty_cache()
+
+    # A real accession's shape: a chunk of CHUNK_WINDOWS_MAX sorted windows,
+    # about half distinct; an accumulator of 2^28 distinct words merged with
+    # a chunk's 2^26, half of them in the accumulator.
+    n = torch_make_bloom.CHUNK_WINDOWS_MAX
+    timed_run_counts("a chunk at CHUNK_WINDOWS_MAX", sorted_words(n, n * 7 // 10, k, gen, device),
+                     5)
+    torch.cuda.empty_cache()
+    acc = 2 * n                      # 2^28 distinct words, sorted: running sums of gaps
+    wa = torch.cumsum(torch.randint(1, (1 << (2 * k)) // acc, (acc,), device=device,
+                                    generator=gen), 0)
+    wb = torch.unique(torch.cat([
+        wa[torch.randint(0, acc, (n // 4,), device=device, generator=gen)],
+        word_pool(n // 4, k, gen, device)]))
+    ca = torch.randint(1, cap + 1, wa.shape, dtype=torch.int32, device=device, generator=gen)
+    cb = torch.randint(1, cap + 1, wb.shape, dtype=torch.int32, device=device, generator=gen)
+    timed_merge("an accumulator of 2^28 words and a chunk's", wa, ca, wb, cb, 5)
     del wa, ca, wb, cb
     torch.cuda.empty_cache()
 
@@ -1986,6 +2023,17 @@ def merge_checks(device: torch.device, gen, record, lines: list, results: dict,
     for length in (tile - 1, tile, tile + 1, 5000):
         run_case(f"runs of {length}", torch.repeat_interleave(ar(600), length)[: 1 << 20] * 7 - 9,
                  cap=5, min_count=5)
+    words = sorted_words(3 * tile + 7, tile, 31, gen, device)
+    for off in (1, 2, 3):            # 8, 16, 24 bytes in: inputs and outputs off 16 bytes
+        run_case(f"a misaligned head, {off} words in", words[off:], cap=5, min_count=5)
+        w = torch.randint(1, 3, (words.shape[0] + off,), dtype=torch.int32, device=device,
+                          generator=gen)[off:]
+        run_case(f"misaligned weights, {off} in", words[: w.shape[0]], w, 5, 5)
+    lengths = torch.randint(1, 100, (3000,), device=device, generator=gen)
+    run_case("runs of 1-99, cap 40", torch.repeat_interleave(ar(3000), lengths), cap=40,
+             min_count=40)
+    run_case("one run over a stage and the ring's end (4 tiles)",
+             torch.full((4 * tile + 3,), 11, dtype=torch.int64, device=device))
     run_case("one run of 2^20", torch.full((1 << 20,), -3, dtype=torch.int64, device=device))
     run_case("one run of 2^20, cap 5", torch.full((1 << 20,), 3, dtype=torch.int64,
                                                   device=device), cap=5, min_count=5)
@@ -2020,14 +2068,23 @@ def merge_checks(device: torch.device, gen, record, lines: list, results: dict,
         merge_case(f"identical, n={m}", run, run.clone(), tcount.COUNT_CAP, 3)
         merge_case(f"shifted by one (pairs across tile edges), n={m}", run, run + 2)
     merge_case("both empty", empty, empty)
+    for m in (tile, 3 * tile + 5, 1 << 20):
+        # A = 0 .. m - 1, B = 1 .. m - 1: the merge path at every tile edge
+        # (an even diagonal) falls between A's and B's copy of one word.
+        merge_case(f"an equal pair at every tile edge, n={2 * m - 1}", ar(m), ar(m)[1:])
+        merge_case(f"a misaligned head, n={2 * m - 3}", ar(m)[1:], ar(m)[2:] * 3)
+    run = ar(3 * tile)
+    merge_case("counts that saturate on the fused add", run, run.clone(), 5, 5)
     for m in (tile - 1, 3 * tile + 5, 1 << 20):
         wa = torch.unique(sorted_words(m, m, 32, gen, device))
         wb = torch.unique(torch.cat([wa[::3], sorted_words(m, m, 32, gen, device)]))
         merge_case(f"k=32 signed words, na={wa.shape[0]} nb={wb.shape[0]}", wa, wb)
     lines.append(f"run_counts and merge_counts ({n_cmp} inputs: n = 0 .. 3 tiles + 5 and 2^20 "
                  "at k = 31 and 32, runs of a tile's length and across tile edges, one run, "
-                 "all distinct, saturating weights; empty, disjoint, interleaved, identical and "
-                 "shifted runs, k = 32 signed words; with and without the threshold) == plain")
+                 "one over 4 tiles, all distinct, saturating weights, inputs 8-24 bytes off a "
+                 "16-byte boundary; empty, disjoint, interleaved, identical and shifted runs, an "
+                 "equal pair at every tile edge, k = 32 signed words, counts that saturate on "
+                 "the add; with and without the threshold) == plain")
 
 
 def transpose_bits_checks(device: torch.device, gen, record, lines: list) -> dict:

@@ -12,8 +12,10 @@ Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; ``launch`` raises when that is not 0
 and otherwise adds one to the kernel's launch count. The counts let a run
 show that its main path went through the kernels (``launch_counts``).
-One exported function launches nothing: ``kw_search_scratch_words``, the
-size of the scratch ``search_total_hits`` takes (``search_scratch_words``).
+Three exported functions launch nothing: ``kw_search_scratch_words``,
+``kw_run_scratch_words`` and ``kw_merge_scratch_words``, the sizes of the
+scratch ``search_total_hits``, ``run_counts`` and ``merge_counts`` take
+(``scratch_words``).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ _ENTRIES = {
     "search_complete": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     "search_counts": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     # (db, idx, valid, tcount, out, scratch, nq, nk, nh, W, stream); scratch:
-    # search_scratch_words(nq, W) int32 words
+    # scratch_words("search", nq, W) int32 words
     "search_total_hits": [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP],
     # (packed, valid_words, words, valid, R, w16, w32, length, k, stream)
     "canonical_kmers": [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _VP],
@@ -79,13 +81,16 @@ _ENTRIES = {
     # (words, weights, words_out, counts_out, selected, stats, scratch, n, cap,
     #  min_count, stream)
     "run_counts": [_VP] * 7 + [_I64] * 3 + [_VP],
-    # (words_a, counts_a, words_b, counts_b, words_out, counts_out, part, na,
-    #  nb, stream)
-    "merge_counts": [_VP] * 7 + [_I64] * 2 + [_VP],
+    # (words_a, counts_a, words_b, counts_b, words_out, counts_out, selected,
+    #  stats, scratch, na, nb, cap, min_count, stream)
+    "merge_counts": [_VP] * 9 + [_I64] * 4 + [_VP],
 }
 
 # Entry points that launch another entry's kernel on another input layout,
 # or a step of it; their launches count under that kernel's name.
+# The scratch-size functions: name -> argument types.
+_SCRATCH = {"search": [_I64, _I64], "run": [_I64], "merge": [_I64, _I64]}
+
 _KERNEL_OF = {"canonical_kmers_ascii": "canonical_kmers", "radix_sort_hist": "radix_sort_pairs"}
 
 _LOCK = threading.Lock()
@@ -170,8 +175,10 @@ def get_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.kw_error_string.argtypes = [ctypes.c_int]
             lib.kw_error_string.restype = ctypes.c_char_p
-            lib.kw_search_scratch_words.argtypes = [_I64, _I64]
-            lib.kw_search_scratch_words.restype = ctypes.c_int64
+            for name, argtypes in _SCRATCH.items():
+                fn = getattr(lib, f"kw_{name}_scratch_words")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int64
             _LIB = lib
         return _LIB
 
@@ -189,10 +196,13 @@ def launch(name: str, *args) -> None:
         _LAUNCHES[_KERNEL_OF.get(name, name)] += 1
 
 
-def search_scratch_words(nq: int, W: int) -> int:
-    """int32 words of scratch the search_total_hits entry takes for nq
-    queries over W word columns (its counts, int32 [nq, W*32])."""
-    return get_lib().kw_search_scratch_words(nq, W)
+def scratch_words(name: str, *sizes: int) -> int:
+    """Words of scratch an entry takes: ``search`` (nq, W): int32 words for
+    search_total_hits (its counts, int32 [nq, W*32]); ``run`` (n): uint64
+    words for run_counts; ``merge`` (na, nb): uint64 words for
+    merge_counts."""
+    return getattr(get_lib(), f"kw_{name}_scratch_words")(*sizes)
+
 
 
 def launch_counts() -> dict[str, int]:

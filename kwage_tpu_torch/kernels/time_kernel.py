@@ -20,8 +20,9 @@ milliseconds are launched a few times in a row. To time an earlier
 commit's kernel: ``git show <commit>:kwage_tpu_torch/csrc/counting.cu >
 build/counting_old.cu`` and name that file (for ``bitset.cu`` and
 ``murmur.cu``, put that commit's ``murmur.cuh`` beside it). Where a C entry's arguments changed
-(``radix_sort_pairs``; ``search_total_hits`` gained a scratch), each
-version is called with its own. Exit code 1 when two versions disagree.
+(``radix_sort_pairs``; ``search_total_hits`` gained a scratch;
+``merge_counts`` now folds its pairs itself), each version is called with
+its own. Exit code 1 when two versions disagree.
 
 Cases. ``kmers``: the ASCII entry at SriRachA's batch shapes ([512, 256] at
 k = 21 and 11, [4, 32768] and [512, 32768] at k = 21), at the one-query
@@ -53,7 +54,13 @@ ends with the share of the function's bound (the larger of its integer
 operations over the two pipes' issue limit and its bytes), and before the cases each
 version's SASS mix at k = 31, nh = 4 is printed (``cuobjdump -sass``:
 instructions by opcode, the ALU pipe's and the FMA pipe's, and the time
-the ALU pipe's alone take at 2^23 k-mers). ``roof``: chains of int32
+the ALU pipe's alone take at 2^23 k-mers). ``merge``: ``run_counts`` and
+``merge_counts`` at a 46 Mbp accession's shape and at a real accession's
+(a chunk of 2^27 windows; 2^28 + 2^26 words merged), beside the parent's
+source (``git show 54a751d:kwage_tpu_torch/csrc/merge.cu``), whose merge is
+its merge kernel and a run_counts fold; each line ends with the share of
+the byte bound, and run_counts' with torch.unique_consecutive's time.
+``roof``: chains of int32
 IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
 the SM clock it ran at and the operations a clock and SM.
 """
@@ -97,6 +104,9 @@ _EARLIER = {
     "radix_sort_pairs": ("radix_sort_hist", [_VP] * 8 + [_I64] * 3 + [_VP]),
     # (db, idx, valid, tcount, out, nq, nk, nh, W, stream): no scratch
     "search_total_hits": ("search_scratch_words", [_VP] * 5 + [_I64] * 4 + [_VP]),
+    # (words_a, counts_a, words_b, counts_b, words_out, counts_out, part, na,
+    #  nb, stream): the merge alone, folded by run_counts after it
+    "merge_counts": ("merge_scratch_words", [_VP] * 7 + [_I64] * 2 + [_VP]),
 }
 
 
@@ -512,6 +522,150 @@ def murmur_cases(device, gen):
                                                 "bound")
 
 
+MERGE_K, MERGE_CAP = 31, 5      # the build's k and min_count (cap = min_count)
+EARLIER_MERGE_TILE = 2048       # the tile of csrc/merge.cu before its merge and fold were one pass
+
+
+def _distinct_words(n: int, gen, device) -> torch.Tensor:
+    """n distinct sorted int64 k-mer words (k = 31): running sums of random
+    gaps, about 2^62 / n apart."""
+    gap = max(2, (1 << (2 * MERGE_K)) // max(n, 1))
+    return torch.cumsum(torch.randint(1, gap, (n,), device=device, generator=gen), 0)
+
+
+def _drawn_words(n: int, distinct: int, gen, device) -> torch.Tensor:
+    """n sorted words drawn from a pool of ``distinct`` (a chunk's windows)."""
+    pool = torch.randint(0, 1 << (2 * MERGE_K), (distinct,), device=device, generator=gen)
+    pick = torch.randint(0, distinct, (n,), device=device, generator=gen)
+    return torch.sort(pool[pick]).values
+
+
+def _library_note(words):
+    """torch.unique_consecutive(return_counts=True) timed once beside a
+    run_counts case: it computes the kernel's function."""
+    done = {}
+
+    def note(ms):
+        if "ms" not in done:
+            call = lambda: torch.unique_consecutive(words, return_counts=True)  # noqa: E731
+            call()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(3):
+                call()
+            end.record()
+            end.synchronize()
+            done["ms"] = start.elapsed_time(end) / 3
+        return f"; torch.unique_consecutive {done['ms']:.4f} ms"
+    return note
+
+
+def _bound_note(nbytes_of_num, stats, extra=None):
+    """The share of the byte bound, the bytes counted from this run's num
+    (stats[0] after the launches)."""
+    def note(ms):
+        bound = nbytes_of_num(int(stats[0])) / HBM_BYTES_PER_S * 1e3
+        return (f"{bound / ms:.3f} of the {bound:.4f} ms byte bound"
+                + (extra(ms) if extra else ""))
+    return note
+
+
+def merge_cases(device, gen):
+    """run_counts (the main path's call: cap = min_count = 5, the flags) and
+    merge_counts at two shapes each. A 46 Mbp accession: its 36,799,920
+    sorted valid windows with 6.7 M distinct, and the last of its 6 chunk
+    merges (the runs of 5/6 and of 1/6 of its windows). A real accession's
+    chunk at CHUNK_WINDOWS_MAX: 2^27 sorted windows, about half distinct;
+    and an accumulator of 2^28 distinct words merged with a chunk's 2^26
+    (half of them in the accumulator). Also run_counts with weights over
+    the 46 Mbp merge's pairs, the fold the parent's merge_counts ends with.
+    An earlier version's merge (one without kw_merge_scratch_words) is its
+    merge kernel, then the run_counts fold
+    of the merged pairs (the counts as weights). Each line ends with the
+    share of the byte bound (8 bytes a position, 12 with weights, or 12 a
+    pair, in; 13 a distinct word out) and, for run_counts,
+    torch.unique_consecutive's time in the same run."""
+    empty = lambda m, dtype=torch.int64: torch.empty(m, dtype=dtype, device=device)  # noqa: E731
+
+    def run_case(label, words, weights=None):
+        n = words.shape[0]
+        outs = [(empty(n), -7), (empty(n, torch.int32), -7), (empty(n, torch.uint8), 9),
+                (empty(2), -7)]
+        scratch = torch.zeros(-(-n // EARLIER_MERGE_TILE) + 8, dtype=torch.int64, device=device)
+        ptr = 0 if weights is None else weights.data_ptr()
+
+        def call(lib, st):
+            return lib.kw_run_counts(words.data_ptr(), ptr, *(t.data_ptr() for t, _ in outs),
+                                     scratch.data_ptr(), n, MERGE_CAP, MERGE_CAP, st)
+        per = 8 if weights is None else 12
+        return Case(f"run_counts {label}: n={n}", call, outs, 10, graph=False,
+                    note=_bound_note(lambda num: per * n + 13 * num, outs[3][0],
+                                     _library_note(words) if weights is None else None))
+
+    def merge_case(label, wa, ca, wb, cb):
+        na, nb = wa.shape[0], wb.shape[0]
+        n = na + nb
+        outs = [(empty(n), -7), (empty(n, torch.int32), -7), (empty(n, torch.uint8), 9),
+                (empty(2), -7)]
+        tiles = -(-n // EARLIER_MERGE_TILE)
+        scratch = torch.zeros(2 * tiles + 8, dtype=torch.int64, device=device)
+        merged = (empty(n), empty(n, torch.int32))     # the parent's merged pairs
+        run_scratch = torch.zeros(tiles + 1, dtype=torch.int64, device=device)
+        ins = [t.data_ptr() for t in (wa, ca, wb, cb)]
+
+        def call(lib, st):
+            if hasattr(lib, "kw_merge_scratch_words"):
+                return lib.kw_merge_counts(*ins, *(t.data_ptr() for t, _ in outs),
+                                           scratch.data_ptr(), na, nb, MERGE_CAP, MERGE_CAP, st)
+            return (lib.kw_merge_counts(*ins, merged[0].data_ptr(), merged[1].data_ptr(),
+                                        scratch.data_ptr(), na, nb, st)
+                    or lib.kw_run_counts(merged[0].data_ptr(), merged[1].data_ptr(),
+                                         *(t.data_ptr() for t, _ in outs),
+                                         run_scratch.data_ptr(), n, MERGE_CAP, MERGE_CAP, st))
+        return Case(f"merge_counts {label}: na={na} nb={nb}", call, outs, 10, graph=False,
+                    note=_bound_note(lambda num: 12 * n + 13 * num, outs[3][0]))
+
+    from ..ops.counting import run_counts_ref
+
+    n46, distinct46 = 36_799_920, 6_732_793
+    words = _drawn_words(n46, distinct46, gen, device)
+    yield run_case("a 46 Mbp accession's sorted valid windows", words)
+    del words
+    pool = torch.randint(0, 1 << (2 * MERGE_K), (distinct46,), device=device, generator=gen)
+
+    def run_of(m):
+        w, c, st, _ = run_counts_ref(torch.sort(pool[torch.randint(
+            0, distinct46, (m,), device=device, generator=gen)]).values, None, MERGE_CAP)
+        return w[: int(st[0])].clone(), c[: int(st[0])].clone()
+    wa, ca = run_of(n46 - n46 // 6)
+    wb, cb = run_of(n46 // 6)
+    del pool
+    yield merge_case("the last of a 46 Mbp accession's 6 chunk merges", wa, ca, wb, cb)
+    joined, order = torch.sort(torch.cat([wa, wb]), stable=True)
+    weights = torch.cat([ca, cb])[order]
+    del wa, ca, wb, cb, order
+    yield run_case("with weights (the parent merge's fold of those pairs)", joined, weights)
+    del joined, weights
+    torch.cuda.empty_cache()
+    n = 1 << 27
+    words = _drawn_words(n, n * 7 // 10, gen, device)
+    yield run_case("a chunk at CHUNK_WINDOWS_MAX", words)
+    del words
+    torch.cuda.empty_cache()
+    wa = _distinct_words(1 << 28, gen, device)
+    shared = wa[torch.randint(0, wa.shape[0], (1 << 25,), device=device, generator=gen)]
+    wb = torch.unique(torch.cat([shared, torch.randint(0, 1 << (2 * MERGE_K), (1 << 25,),
+                                                       device=device, generator=gen)]))
+    del shared
+    ca = torch.randint(1, MERGE_CAP + 1, wa.shape, dtype=torch.int32, device=device,
+                       generator=gen)
+    cb = torch.randint(1, MERGE_CAP + 1, wb.shape, dtype=torch.int32, device=device,
+                       generator=gen)
+    yield merge_case("an accumulator of 2^28 words and a chunk's 2^26", wa, ca, wb, cb)
+
+
 # Opcodes (before the first '.') by the pipe they issue to; IMAD's forms
 # (IMAD.SHL, IMAD.MOV, IMAD.WIDE, IMAD.IADD) go to the FMA pipe.
 ALU_OPS = {"LOP3", "SHF", "PRMT", "IADD3", "LEA", "ISETP", "SEL", "IABS", "IMNMX"}
@@ -556,6 +710,7 @@ KERNELS = {
     "search": ("search.cu", ("search_complete", "search_counts", "search_total_hits"),
                search_cases),
     "murmur": ("murmur.cu", ("murmur32",), murmur_cases),
+    "merge": ("merge.cu", ("run_counts", "merge_counts"), merge_cases),
 }
 # kernel -> (the kernel's name in the SASS, the instance to show)
 SASS = {"murmur": ("murmur32_kernel", f"ILi{MURMUR_K}E(Li4E)?E")}

@@ -323,7 +323,7 @@ def filter_words_to_bytes(words, log2_filter_len: int) -> np.ndarray:
 
 # --- run_counts and merge_counts ----------------------------------------------------
 
-RUN_TILE = 2048            # positions a block of csrc/merge.cu takes, both kernels
+RUN_TILE = 4096            # positions a tile of csrc/merge.cu, both kernels
 COUNT_CAP = 2**31 - 1      # the largest cap: counts are int32
 
 
@@ -384,8 +384,8 @@ def run_counts(words: torch.Tensor, weights: torch.Tensor | None = None, cap: in
     counts_out = torch.empty(n, dtype=torch.int32, device=device)
     stats = torch.empty(2, dtype=torch.int64, device=device)
     selected = torch.empty(n, dtype=torch.bool, device=device) if min_count else None
-    scratch = torch.empty(-(-n // RUN_TILE) + 1, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
+        scratch = torch.empty(kernels.scratch_words("run", n), dtype=torch.int64, device=device)
         kernels.launch("run_counts", words.data_ptr(),
                        0 if weights is None else weights.data_ptr(), words_out.data_ptr(),
                        counts_out.data_ptr(), 0 if selected is None else selected.data_ptr(),
@@ -416,9 +416,8 @@ def merge_counts(words_a: torch.Tensor, counts_a: torch.Tensor, words_b: torch.T
     run_counts' outputs over their union [na + nb]: the distinct words,
     sorted, with the counts of a word in both runs added (saturating at
     ``cap``), stats, and with min_count > 0 the selected flags. CUDA
-    tensors: the merge_counts kernel (a merge path, then a serial merge of
-    each tile), folded by the run_counts kernel; CPU tensors:
-    merge_counts_ref."""
+    tensors: the merge_counts kernel, which merges, adds and compacts in one
+    pass (a partition kernel beside it); CPU tensors: merge_counts_ref."""
     device = words_a.device
     _check_runs(words_a, counts_a, device)
     _check_runs(words_b, counts_b, device)
@@ -430,15 +429,18 @@ def merge_counts(words_a: torch.Tensor, counts_a: torch.Tensor, words_b: torch.T
     na, nb = words_a.shape[0], words_b.shape[0]
     words = torch.empty(na + nb, dtype=torch.int64, device=device)
     counts = torch.empty(na + nb, dtype=torch.int32, device=device)
-    part = torch.empty(-(-(na + nb) // RUN_TILE) + 1, dtype=torch.int64, device=device)
-    if na + nb:
-        with torch.cuda.device(device):
-            kernels.launch("merge_counts", words_a.contiguous().data_ptr(),
-                           counts_a.contiguous().data_ptr(), words_b.contiguous().data_ptr(),
-                           counts_b.contiguous().data_ptr(), words.data_ptr(),
-                           counts.data_ptr(), part.data_ptr(), na, nb,
-                           torch.cuda.current_stream(device).cuda_stream)
-    return run_counts(words, counts, cap, min_count)
+    stats = torch.empty(2, dtype=torch.int64, device=device)
+    selected = torch.empty(na + nb, dtype=torch.bool, device=device) if min_count else None
+    with torch.cuda.device(device):
+        scratch = torch.empty(kernels.scratch_words("merge", na, nb), dtype=torch.int64,
+                              device=device)
+        kernels.launch("merge_counts", words_a.contiguous().data_ptr(),
+                       counts_a.contiguous().data_ptr(), words_b.contiguous().data_ptr(),
+                       counts_b.contiguous().data_ptr(), words.data_ptr(), counts.data_ptr(),
+                       0 if selected is None else selected.data_ptr(), stats.data_ptr(),
+                       scratch.data_ptr(), na, nb, cap, min_count,
+                       torch.cuda.current_stream(device).cuda_stream)
+    return words, counts, stats, selected
 
 
 # --- counting -------------------------------------------------------------------

@@ -185,7 +185,7 @@ def _launch_search(name: str, db, idx, valid, out: torch.Tensor,
         else:
             # search_total_hits' counts [nq, W*32]; back in the
             # stream-ordered cache once the launch is queued.
-            scratch = torch.empty(kernels.search_scratch_words(nq, W), dtype=torch.int32,
+            scratch = torch.empty(kernels.scratch_words("search", nq, W), dtype=torch.int32,
                                   device=db.device)
             ptrs += [threshold_count.contiguous().data_ptr(), out.data_ptr(),
                      scratch.data_ptr()]

@@ -210,12 +210,13 @@ def _record(param, bits: np.ndarray, info: FilterInfo) -> BloomFilterRecord:
 # a window with 120 of its 130 windows a row valid, 40.65 B with all of them
 # valid and distinct, the most a window takes. The phase fails if a count
 # takes more.
-BYTES_PER_WINDOW = 48
-# Device memory merge_counts takes a word of its two runs: the merge (12 B)
-# and run_counts' fold of it (13 B, and its look-back); 25.03 B measured by
-# phase 12 on the same card, which fails if a merge takes more.
-MERGE_BYTES_PER_WORD = 26
-# The most windows a chunk sized from the card takes: about 6.4 GB at
+BYTES_PER_WINDOW = 41
+# Device memory merge_counts takes a word of its two runs: its outputs, a
+# word (8 B), a count (4) and a flag (1) for each of na + nb, and its splits
+# and look-back (24 B a tile of 4096); 13.02 B measured by phase 12 on the
+# same card, which fails if a merge takes more.
+MERGE_BYTES_PER_WORD = 14
+# The most windows a chunk sized from the card takes: about 5.5 GB at
 # BYTES_PER_WINDOW, so that a process sharing the card (a --worker beside
 # its coordinator), which _CARD_TURN does not reach, still finds most of it
 # free. 2^27 windows are about 155 Mbp of 150 bp reads.
@@ -247,8 +248,10 @@ def _card_free_bytes(device: torch.device) -> int:
 
 
 def _need_card(device: torch.device, need: int, what: str) -> None:
+    """Raise torch.cuda.OutOfMemoryError (a RuntimeError) when ``need``
+    bytes are not free on the card: the chunk loop retries smaller."""
     if device.type == "cuda" and need > _card_free_bytes(device):
-        raise RuntimeError(
+        raise torch.cuda.OutOfMemoryError(
             f"the device build does not fit the card: {what} needs {need} B, "
             f"{_card_free_bytes(device)} B are free")
 
@@ -400,8 +403,11 @@ def build_bloom_device(
     TPU); None sizes each chunk from the card's free memory at its turn
     (``_CARD_TURN``, ``_chunk_rows``), and a 46 Mbp accession is one chunk.
     BloomInvalid past max_kmers distinct k-mers (checked after every chunk,
-    as the JAX version does); a RuntimeError when the accumulator and a
-    chunk do not both fit the card."""
+    as the JAX version does). A chunk whose count or merge runs out of
+    device memory (memory another process took after the chunk was sized)
+    is retried at half its rows, the accumulator as it was; one that does
+    not fit at one row raises torch.cuda.OutOfMemoryError (a
+    RuntimeError). Chunk sizes never change the record's bytes."""
     device = resolve_device()
     k = opts.kmer_len
     max_kmers = _max_kmers(opts)
@@ -427,9 +433,24 @@ def build_bloom_device(
             while r < p.shape[0]:
                 with _CARD_TURN:
                     n = step or _chunk_rows(device, length - k + 1)
-                    last = last_block and r + n >= p.shape[0]
-                    acc, kept, selected = _count_into(acc, p[r : r + n], v[r : r + n], length,
-                                                      k, min_count, last, max_kmers, device)
+                    while True:
+                        last = last_block and r + n >= p.shape[0]
+                        try:
+                            acc, kept, selected = _count_into(
+                                acc, p[r : r + n], v[r : r + n], length, k, min_count, last,
+                                max_kmers, device)
+                            break
+                        except torch.cuda.OutOfMemoryError:
+                            # Memory that another process took after this
+                            # chunk was sized (a --worker beside its
+                            # coordinator, which _CARD_TURN does not reach):
+                            # the same rows in halves, the accumulator as it
+                            # was.
+                            if n == 1:
+                                raise
+                            n = (min(n, p.shape[0] - r) + 1) // 2
+                            if device.type == "cuda":
+                                torch.cuda.empty_cache()
                 r += n
     if acc is None:
         raise BloomInvalid("no reads of length >= k")

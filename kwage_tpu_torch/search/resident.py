@@ -196,6 +196,11 @@ class SearchServer:
         self.searcher = searcher
         lock = threading.Lock()  # one device = one resource: serialize
         server_secret = self._secret
+        # The handler reaches the searcher through its server, not through
+        # this closure: a class defined here sits in a reference cycle (as
+        # every class does), and a searcher held by its closure would keep
+        # its device memory after the server is dropped, until the next
+        # cyclic collection.
 
         class Handler(socketserver.StreamRequestHandler):
             def handle(self) -> None:
@@ -213,7 +218,7 @@ class SearchServer:
                             raise ValueError("0.0 < threshold <= 1.0 required")
                         fmt = req.get("format", "json")
                         with lock:
-                            out = searcher.render(queries, threshold, fmt)
+                            out = self.server.searcher.render(queries, threshold, fmt)
                         reply = {"ok": True, "output": out}
                     except Exception as e:  # noqa: BLE001 -- wire boundary
                         reply = {"ok": False, "error": f"{type(e).__name__}: {e}"}
@@ -225,6 +230,7 @@ class SearchServer:
             daemon_threads = True
 
         self._server = Server((host, port), Handler)
+        self._server.searcher = searcher
         self.address = self._server.server_address
 
     def start(self) -> None:

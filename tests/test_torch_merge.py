@@ -2,9 +2,11 @@
 run_counts / merge_counts and pipeline.make_bloom.build_bloom_device)
 against kwage_tpu's numpy merge of sorted runs, its chunked device build
 on the JAX CPU backend, and the exact ground truth. The CUDA kernels'
-logic (csrc/merge.cu: the merge path, the serial tile merge, the
-look-back and the segments' saturating adds) is held here by a numpy
-emulation at small tiles; the ``cuda`` tests hold the kernels against
+logic (csrc/merge.cu: the ballots that number a tile's starts, the halo
+and the runs past it, the partition and its moved splits, the stage
+layout of a merge tile, the serial merge and its saturating add, the
+look-back over a mix of published counts and prefixes) is held here by a
+numpy emulation at small tiles; the ``cuda`` tests hold the kernels against
 their plain versions on a card. Integer and bit outputs: every
 comparison is exact equality."""
 
@@ -179,58 +181,135 @@ def test_run_counts_empty_and_refusals():
 
 # --- a numpy emulation of csrc/merge.cu ------------------------------------------------
 
-AGGREGATE, PREFIX = 1, 2
+def _walk_back(lookback, tile, lanes, rows):
+    """walk_back: the published counts from tile - 1 down, ``lanes`` tiles a
+    row and up to ``rows`` rows a step, to the nearest inclusive prefix
+    (a row waits only where no nearer row has one: every count it reads
+    here must be published)."""
+    before, top = 0, tile - 1
+    while True:
+        for r in range(rows):
+            vals = [lookback[q] if q >= 0 else ("prefix", 0)
+                    for q in (top - (r * lanes + lane) for lane in range(lanes))]
+            assert all(v is not None for v in vals), "a count read before it was published"
+            prefixes = [lane for lane, v in enumerate(vals) if v[0] == "prefix"]
+            stop = prefixes[0] if prefixes else lanes - 1
+            before += sum(v[1] for v in vals[: stop + 1])
+            if prefixes:
+                return before
+        top -= rows * lanes
 
 
-def _emulate_run_counts(words, weights, cap, min_count, threads, ipt):
-    """run_counts_kernel, block by block in ticket order, thread by thread:
-    the flags (the word before a thread's first from the thread before),
-    the block scan, the look-back over the published tiles, and each run
-    summed by the thread that holds its start, past its own positions
-    where the run goes on, up to cap."""
+def _store(staged, lookback, cap, min_count, lanes, rows, seed):
+    """The storers: each tile's place by the look-back, in an order that
+    mixes published aggregates and prefixes (a random order; every tile's
+    count was published by its consumers first), its counts (positions:
+    the distance to the next start, up to cap; the last run's as counted)
+    and flags. Returns (words, counts, num, kept, flags)."""
+    tiles = len(staged)
+    out = {}
+    for t in np.random.default_rng(seed).permutation(tiles).tolist():
+        words, vals, positions, last = staged[t]
+        before = _walk_back(lookback, t, lanes, rows) if t else 0
+        lookback[t] = ("prefix", before + len(words))
+        counts = [last if r + 1 == len(vals) else min(vals[r + 1] - vals[r], cap)
+                  for r in range(len(vals))] if positions else list(vals)
+        for r, (w, c) in enumerate(zip(words, counts)):
+            out[before + r] = (w, c)
+    num = len(out)
+    assert sorted(out) == list(range(num))
+    words = [out[r][0] for r in range(num)]
+    counts = [out[r][1] for r in range(num)]
+    flags = [c >= min_count for c in counts] if min_count else None
+    return words, counts, num, sum(flags) if flags else 0, flags
+
+
+def _emulate_run_counts(words, weights, cap, min_count, lanes, ipt, warps=2, halo=4, rows=2,
+                        bulk=True, seed=0):
+    """run_counts_kernel, tile by tile: tiles of warps x lanes x ipt
+    positions, lane l of warp w holding positions w * lanes * ipt + i *
+    lanes + l; a bulk tile (a whole one, inputs aligned) comes with the
+    word before it and a halo of up to ``halo`` positions (fewer: a
+    multiple of 4). Starts by the word before each, numbered by the warps'
+    ballots and a scan of the warp totals; unit weights stage each start's
+    position (the storers subtract) and count the tile's last run past the
+    tile (halo, then the array); weights sum each run the same way. Then
+    the storers (``_store``)."""
     words = [int(x) for x in words]
-    wt = [1] * len(words) if weights is None else [int(x) for x in weights]
-    n, tile = len(words), threads * ipt
+    wt = None if weights is None else [int(x) for x in weights]
+    n, tile = len(words), warps * lanes * ipt
     tiles = -(-n // tile)
-    words_out, counts, selected = [0] * n, [0] * n, [False] * n
-    lookback = [None] * tiles
-    num = kept = 0
+    lookback, staged = [None] * tiles, []
     for t in range(tiles):
         base = t * tile
-        flags = [[p < n and (p == 0 or words[p] != words[p - 1])
-                  for p in range(base + th * ipt, base + (th + 1) * ipt)]
-                 for th in range(threads)]
-        nflags = [sum(f) for f in flags]
-        excl = np.concatenate([[0], np.cumsum(nflags)[:-1]]).tolist()
-        total = sum(nflags)
-        before = 0
-        if t == 0:
-            lookback[t] = (PREFIX, total)
-        else:
-            lookback[t] = (AGGREGATE, total)
-            for q in range(t - 1, -1, -1):
-                kind, v = lookback[q]
-                before += v
-                if kind == PREFIX:
-                    break
-            lookback[t] = (PREFIX, before + total)
-        if t == tiles - 1:
-            num = before + total
-        for th in range(threads):
-            run = before + excl[th]
+        length = min(tile, n - base)
+        h = 0
+        if bulk and base + tile <= n:
+            h = n - base - tile
+            h = halo if h >= halo else h & ~3
+        reach = length + h
+
+        def w_at(j):                      # the stage: W[-1 .. reach - 1]
+            assert -1 <= j < reach and base + j >= 0
+            return words[base + j]
+
+        runs = {}                         # run number in the tile -> its start
+        warp_totals = []
+        ballots = {}
+        for w in range(warps):
             for i in range(ipt):
-                p = base + th * ipt + i
-                if not flags[th][i]:
-                    continue
-                total_w, q = wt[p], p + 1
-                while q < n and total_w < cap and words[q] == words[p]:
-                    total_w, q = total_w + wt[q], q + 1
-                words_out[run], counts[run] = words[p], min(total_w, cap)
-                if min_count:
-                    selected[run] = counts[run] >= min_count
-                    kept += selected[run]
-                run += 1
-    return words_out[:num], counts[:num], num, kept, selected[:num] if min_count else None
+                bits = 0
+                for lane in range(lanes):
+                    j = w * lanes * ipt + i * lanes + lane
+                    if j < length and (base + j == 0 or w_at(j) != w_at(j - 1)):
+                        bits |= 1 << lane
+                ballots[w, i] = bits
+            warp_totals.append(sum(bin(ballots[w, i]).count("1") for i in range(ipt)))
+        warp_first = np.concatenate([[0], np.cumsum(warp_totals)[:-1]]).tolist()
+        total = sum(warp_totals)
+        for w in range(warps):
+            run = warp_first[w]
+            for i in range(ipt):
+                for lane in range(lanes):
+                    if ballots[w, i] >> lane & 1:
+                        runs[run + bin(ballots[w, i] & ((1 << lane) - 1)).count("1")] = \
+                            w * lanes * ipt + i * lanes + lane
+                run += bin(ballots[w, i]).count("1")
+        starts = [runs[r] for r in range(total)]
+        assert starts == sorted(starts)   # the ballots number starts in position order
+        lookback[t] = ("prefix" if t == 0 else "aggregate", total)
+
+        def run_sum(j, start_sum, step):
+            """A run's sum from position q = j + 1 on: the stage, then the
+            array, up to cap."""
+            s, q = start_sum, j + 1
+            while s < cap and q < reach and w_at(q) == w_at(j):
+                s, q = s + step(base + q), q + 1
+            if q == reach:
+                g = base + reach
+                while s < cap and g < n and words[g] == w_at(j):
+                    s, g = s + step(g), g + 1
+            return min(s, cap)
+
+        if wt is None:
+            j = starts[-1] if starts else None
+            last = None
+            if starts:
+                # run_tail: the last run to the tile's end, then past it.
+                s, q = length - j, length
+                while s < cap and q < reach and w_at(q) == w_at(j):
+                    s, q = s + 1, q + 1
+                if q == reach:
+                    g = base + reach
+                    while s < cap and g < n and words[g] == w_at(j):
+                        s, g = s + 1, g + 1
+                last = min(s, cap)
+            staged.append(([w_at(j) for j in starts], starts, True, last))
+        else:
+            staged.append(([w_at(j) for j in starts],
+                           [run_sum(j, wt[base + j], lambda g: wt[g]) for j in starts],
+                           False, None))
+    return _store(staged, lookback, cap, min_count, lanes, rows, seed)
 
 
 def _merge_path(a, b, d):
@@ -244,41 +323,115 @@ def _merge_path(a, b, d):
     return lo
 
 
-def _emulate_merge(wa, ca, wb, cb, threads, ipt):
-    """merge_partition_kernel + merge_kernel: a binary search a tile
-    diagonal, then each thread's binary search in the tile's staged pieces
-    and its serial merge of ipt outputs (run A's pair first on equal
-    words)."""
+def _partition(wa, wb, d, probes):
+    """merge_partition_kernel's search at diagonal d: ``probes`` a step,
+    each the last index of its part of the range (one at or past hi counts
+    as above), the first part above holds the answer."""
+    lo, hi = max(0, d - len(wb)), min(d, len(wa))
+    while lo < hi:
+        step = -(-(hi - lo) // probes)
+        above = [q >= hi or wa[q] > wb[d - 1 - q]
+                 for q in (lo + (k + 1) * step - 1 for k in range(probes))]
+        if not any(above):
+            lo = hi
+            break
+        f = above.index(True)
+        lo, hi = lo + f * step, min(lo + (f + 1) * step - 1, hi)
+    return lo
+
+
+def _pieces(a0, b0, la):
+    """Pieces: where a tile's words and counts of A and B sit in its stage."""
+    oaw = a0 & 1
+    obw = ((oaw + la + 1) & ~1) + (b0 & 1)
+    oac = a0 & 3
+    obc = ((oac + la + 3) & ~3) + (b0 & 3)
+    return oaw, obw, oac, obc
+
+
+def _load_piece(stage, owner, tag, off, src, lo, hi, per, bulk):
+    """load_piece into ``stage`` (element e at off + e - lo): with ``bulk``,
+    the 16-byte chunks (``per`` elements) holding [lo, hi) but the array's
+    last, partial one, and plain loads of the rest; else plain loads."""
+    if lo >= hi:
+        return
+    size = len(src)
+    elems = range(lo, hi)
+    if bulk:
+        clo, end = lo // per * per, size // per * per
+        chi = min(-(-hi // per) * per, end)
+        elems = list(range(clo, chi)) + list(range(max(chi, lo), hi))
+    for e in elems:
+        i = off + e - lo
+        assert 0 <= i < len(stage), (i, len(stage))
+        assert owner[i] in (None, tag), "a copy overwrote the other piece"
+        stage[i], owner[i] = src[e], tag
+
+
+def _emulate_merge(wa, ca, wb, cb, cap, min_count, threads, ipt, probes=4, lanes=2, rows=2,
+                   bulk=True, seed=0):
+    """merge_partition_kernel + merge_counts_kernel: the splits at
+    diagonals threads x ipt apart (moved one pair of B on where they would
+    part a word of both runs), each tile's pieces copied into a stage as
+    the producer lays them out, each thread's merge path there and its
+    serial merge of ipt outputs, a word of both runs taking B's count too
+    (saturating at cap), a block scan in thread order; then the storers
+    (``_store``)."""
     wa, wb = [int(x) for x in wa], [int(x) for x in wb]
     ca, cb = [int(x) for x in ca], [int(x) for x in cb]
     n, tile = len(wa) + len(wb), threads * ipt
     tiles = -(-n // tile)
-    part = [_merge_path(wa, wb, min(i * tile, n)) for i in range(tiles + 1)]
-    out_w, out_c = [0] * n, [0] * n
+    split = []
+    for i in range(tiles + 1):
+        d = min(i * tile, n)
+        a = _partition(wa, wb, d, probes)
+        assert a == _merge_path(wa, wb, d)
+        b = d - a
+        if a > 0 and b < len(wb) and wa[a - 1] == wb[b]:
+            b += 1
+        split.append((a, b))
+    lookback, staged = [None] * tiles, []
     for t in range(tiles):
-        d0 = t * tile
-        length = min(d0 + tile, n) - d0
-        a0, a1 = part[t], part[t + 1]
-        b0 = d0 - a0
-        la = a1 - a0
-        lb = length - la
-        s_w = wa[a0:a1] + wb[b0 : b0 + lb]
-        s_c = ca[a0:a1] + cb[b0 : b0 + lb]
+        (a0, b0), (a1, b1) = split[t], split[t + 1]
+        la, lb = a1 - a0, b1 - b0
+        length = la + lb
+        assert 0 <= length <= tile + 1
+        oaw, obw, oac, obc = _pieces(a0, b0, la)
+        sw, sc = [None] * (tile + 8), [None] * (tile + 16)
+        ow_, oc_ = [None] * len(sw), [None] * len(sc)
+        _load_piece(sw, ow_, "a", oaw, wa, a0, a1, 2, bulk)
+        _load_piece(sw, ow_, "b", obw, wb, b0, b1, 2, bulk)
+        _load_piece(sc, oc_, "a", oac, ca, a0, a1, 4, bulk)
+        _load_piece(sc, oc_, "b", obc, cb, b0, b1, 4, bulk)
+        A, B = sw[oaw: oaw + la], sw[obw: obw + lb]
+        CA, CB = sc[oac: oac + la], sc[obc: obc + lb]
+        assert A == wa[a0:a1] and B == wb[b0:b1] and CA == ca[a0:a1] and CB == cb[b0:b1]
+        items = []                         # (word, count) of each thread's starts
         for th in range(threads):
             dt = min(th * ipt, length)
-            ia = _merge_path(s_w[:la], s_w[la:], dt)
+            ia = _merge_path(A, B, dt)
             ib = dt - ia
+            have_prev = dt > 0
+            prev = max(([A[ia - 1]] if ia else []) + ([B[ib - 1]] if ib else []), default=0)
+            mine = []
             for i in range(ipt):
                 if dt + i >= length:
                     break
-                take_a = ib >= lb or (ia < la and s_w[ia] <= s_w[la + ib])
-                src = ia if take_a else la + ib
+                take_a = ib >= lb or (ia < la and A[ia] <= B[ib])
+                word = A[ia] if take_a else B[ib]
+                if not have_prev or word != prev:
+                    c = CA[ia] + (CB[ib] if ib < lb and B[ib] == word else 0) if take_a \
+                        else CB[ib]
+                    mine.append((word, min(c, cap)))
+                prev, have_prev = word, True
                 ia, ib = (ia + 1, ib) if take_a else (ia, ib + 1)
-                out_w[d0 + dt + i], out_c[d0 + dt + i] = s_w[src], s_c[src]
-    return out_w, out_c
+            items += mine
+        lookback[t] = ("prefix" if t == 0 else "aggregate", len(items))
+        staged.append(([w for w, _ in items], [c for _, c in items], False, None))
+    return _store(staged, lookback, cap, min_count, lanes, rows, seed)
 
 
-TILES = [(1, 1), (2, 3), (4, 2), (8, 8)]   # (threads, positions a thread)
+TILES = [(1, 1), (2, 3), (4, 2), (8, 8)]   # (threads or lanes, positions a thread)
 
 
 def _check_emulation(got, want):
@@ -290,50 +443,75 @@ def _check_emulation(got, want):
 
 
 @pytest.mark.parametrize("threads,ipt", TILES)
-@pytest.mark.parametrize("case", MERGE_CASES + ["shifted"])
+@pytest.mark.parametrize("case", MERGE_CASES + ["shifted", "equal_pair_at_every_edge",
+                                                "saturating_add", "misaligned_head"])
 def test_merge_emulation_matches_plain(case, threads, ipt):
-    """The kernels' merge and fold, emulated at tiles of 1-64 outputs:
-    equal words split by a tile edge, empty and identical runs, k = 32
-    signed words, counts that saturate."""
+    """The merge kernel's partition, stage layout, merge and fold,
+    emulated at tiles of 1-64 outputs: equal words on both sides of a tile
+    edge (the split moves), empty and identical runs, k = 32 signed words,
+    counts that saturate on the add, a head off a 16-byte boundary (plain
+    loads, the scalar tile)."""
+    bulk = True
     if case == "shifted":     # A = 0..n-1, B = 1..n: every pair on both sides of an edge
         a = np.arange(0, 97, dtype=np.uint64)
         b = a + np.uint64(1)
         ca, cb = np.full(a.size, 3), np.full(b.size, 4)
+    elif case == "equal_pair_at_every_edge":
+        # A = 0..n-1, B = 1..n-1: A_j at merge position 2j - 1, B_j at 2j, so
+        # every even diagonal falls between a word's two copies.
+        a = np.arange(0, 97, dtype=np.uint64)
+        b = a[1:].copy()
+        ca, cb = np.full(a.size, 2), np.full(b.size, 4)
+    elif case == "saturating_add":
+        a, _, b, _ = _merge_case("overlap", 17)
+        ca, cb = np.full(a.size, 4), np.full(b.size, 3)
     else:
-        a, ca, b, cb = _merge_case(case, 17)
+        a, ca, b, cb = _merge_case("overlap" if case == "misaligned_head" else case, 17)
+        bulk = case != "misaligned_head"
     ra, rb = _run(a, ca), _run(b, cb)
-    mw, mc = _emulate_merge(ra[0].numpy(), ra[1].numpy(), rb[0].numpy(), rb[1].numpy(),
-                            threads, ipt)
-    order = sorted(range(len(mw)), key=lambda i: mw[i])
-    assert [mw[i] for i in order] == mw                        # sorted, A before B on ties
     for cap, min_count in ((CAP, 0), (5, 5)):
         want = tc.merge_counts_ref(*ra, *rb, cap, min_count)
-        got = _emulate_run_counts(mw, mc, cap, min_count, threads, ipt)
+        got = _emulate_merge(ra[0].numpy(), ra[1].numpy(), rb[0].numpy(), rb[1].numpy(), cap,
+                             min_count, threads, ipt, bulk=bulk, seed=threads + ipt)
         _check_emulation(got, want)
 
 
 @pytest.mark.parametrize("threads,ipt", TILES)
-@pytest.mark.parametrize("layout", ["random", "long_runs", "one_run", "distinct", "k32"])
+@pytest.mark.parametrize("layout", ["random", "long_runs", "one_run", "distinct", "k32",
+                                    "across_the_halo", "misaligned_head", "cap_past_two_rows"])
 def test_run_counts_emulation_matches_plain(layout, threads, ipt):
     """The run_counts kernel, emulated: runs that start, end and cross at
-    thread and tile edges, one run over every tile, no run longer than 1."""
+    lane, row, warp and tile edges, runs past a tile's halo into the next
+    tiles (and past a ring stage), one run over every tile, no run longer
+    than 1, inputs off a 16-byte boundary (the scalar tile), and a cap
+    longer than two rows of a warp."""
     rng = np.random.default_rng(5)
+    bulk, caps = True, ((CAP, 0), (5, 5), (1, 1))
     if layout == "random":
         words = np.sort(rng.integers(-40, 40, size=301))
-    elif layout == "long_runs":
+    elif layout in ("long_runs", "misaligned_head"):
         words = np.repeat(np.arange(-4, 5), rng.integers(1, 90, size=9))
+        bulk = layout == "long_runs"
     elif layout == "one_run":
         words = np.full(200, 7)
     elif layout == "distinct":
         words = np.arange(-100, 101)
+    elif layout == "across_the_halo":
+        # Runs of a tile and more (2 warps x lanes x ipt positions), halo 4.
+        tile = 2 * threads * ipt
+        words = np.repeat(np.arange(6), [tile + 5, 1, tile + 4, 3, 2 * tile + 9, 7])
+    elif layout == "cap_past_two_rows":
+        words = np.repeat(np.arange(12), rng.integers(1, 60, size=12))
+        caps = ((2 * threads + 3, 2 * threads + 3), (40, 40))
     else:
         words = np.sort(_words(rng, 60, 32)[rng.integers(0, 60, size=250)].view(np.int64))
     words = words.astype(np.int64)
     weights = rng.integers(1, 4, size=words.size).astype(np.int32)
     for w in (None, weights):
-        for cap, min_count in ((CAP, 0), (5, 5), (1, 1)):
+        for cap, min_count in caps:
             want = tc.run_counts_ref(_t(words), None if w is None else _t(w), cap, min_count)
-            _check_emulation(_emulate_run_counts(words, w, cap, min_count, threads, ipt), want)
+            _check_emulation(_emulate_run_counts(words, w, cap, min_count, threads, ipt,
+                                                 bulk=bulk, seed=threads * ipt), want)
 
 
 # --- build_bloom_device in chunks --------------------------------------------------------
@@ -557,28 +735,40 @@ def test_cpu_build_launches_no_kernel():
 
 @pytest.mark.cuda
 def test_run_and_merge_kernels_match_plain(cuda_device):
+    """The kernels against their plain versions around their tiles' edges
+    (tc.RUN_TILE positions; a tile's halo of 32), a cap past two rows of a
+    warp, inputs 8 bytes off a 16-byte boundary, and merges with an equal
+    pair at every tile edge."""
     rng = np.random.default_rng(9)
-    for n in (0, 1, 2047, 2048, 2049, 3 * 2048 + 5, 1 << 20):
+    tile = tc.RUN_TILE
+
+    def same(got, want):
+        num = int(want[2][0])
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[0][:num], want[0][:num])
+        assert torch.equal(got[1][:num], want[1][:num])
+        if want[3] is not None:
+            assert torch.equal(got[3][:num], want[3][:num])
+
+    for n in (0, 1, tile - 1, tile, tile + 1, tile + 33, 3 * tile + 5, 1 << 20):
         for k in (31, 32):
             words = torch.sort(_t(_words(rng, max(n // 3, 1), k).view(np.int64)[
                 rng.integers(0, max(n // 3, 1), size=n)])).values.to(cuda_device)
-            for cap, m in ((CAP, 0), (5, 5)):
-                got = tc.run_counts(words, None, cap, m)
-                want = tc.run_counts_ref(words, None, cap, m)
-                num = int(want[2][0])
-                assert torch.equal(got[2], want[2])
-                assert torch.equal(got[0][:num], want[0][:num])
-                assert torch.equal(got[1][:num], want[1][:num])
+            for cap, m in ((CAP, 0), (5, 5), (40, 40)):
+                same(tc.run_counts(words, None, cap, m), tc.run_counts_ref(words, None, cap, m))
+            if n > 1:
+                same(tc.run_counts(words[1:], None, 5, 5), tc.run_counts_ref(words[1:], None, 5, 5))
     for case in MERGE_CASES:
         a, ca, b, cb = _merge_case(case, 23)
         ra = [x.to(cuda_device) for x in _run(a, ca)]
         rb = [x.to(cuda_device) for x in _run(b, cb)]
-        got = tc.merge_counts(*ra, *rb, 5, 5)
-        want = tc.merge_counts_ref(*ra, *rb, 5, 5)
-        num = int(want[2][0])
-        assert torch.equal(got[2], want[2]) and torch.equal(got[0][:num], want[0][:num])
-        assert torch.equal(got[1][:num], want[1][:num])
-        assert torch.equal(got[3][:num], want[3][:num])
+        same(tc.merge_counts(*ra, *rb, 5, 5), tc.merge_counts_ref(*ra, *rb, 5, 5))
+    for m in (tile, 3 * tile + 5):
+        w = torch.arange(m, dtype=torch.int64, device=cuda_device)
+        c = torch.full((m,), 3, dtype=torch.int32, device=cuda_device)
+        same(tc.merge_counts(w, c, w[1:], c[1:], 5, 5), tc.merge_counts_ref(w, c, w[1:], c[1:], 5, 5))
+        same(tc.merge_counts(w[1:], c[1:], w[2:], c[2:], CAP, 0),
+             tc.merge_counts_ref(w[1:], c[1:], w[2:], c[2:], CAP, 0))
     torch.cuda.synchronize()
 
 
@@ -609,3 +799,41 @@ def test_builds_in_threads_share_a_full_card(cuda_device, monkeypatch, tmp_path)
             [path, iter(READS), path, iter(READS)]))
     del ballast
     assert all(r.bits.tobytes() == _jax_build(31, 3).bits.tobytes() for r in recs)
+
+
+@pytest.mark.parametrize("source", ["strings", "fastq"])
+def test_chunk_out_of_memory_retries_smaller(monkeypatch, source, tmp_path):
+    """A chunk whose count runs out of device memory once (another process
+    took it after the chunk was sized) is counted again at half its rows,
+    the accumulator intact: the record is byte-equal to the JAX build's.
+    One row that does not fit raises."""
+    real, calls = tmb.count_chunk, []
+
+    def short_of_memory(packed, *args, **kwargs):
+        calls.append(packed.shape[0])
+        if len(calls) == 2:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (a test)")
+        return real(packed, *args, **kwargs)
+
+    monkeypatch.setattr(tmb, "count_chunk", short_of_memory)
+    src = iter(READS) if source == "strings" else _write_fastq(tmp_path / "a.fastq", READS)
+    rec = tmb.build_bloom_device(src, _opts(31, 3), FilterInfo(), chunk_bp=3000)
+    want = _jax_build(31, 3)
+    assert _same(rec.param, want.param) and rec.bits.tobytes() == want.bits.tobytes()
+    assert calls[2] == (calls[1] + 1) // 2 and len(calls) > 3
+
+    def never(*args, **kwargs):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (a test)")
+
+    monkeypatch.setattr(tmb, "count_chunk", never)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        tmb.build_bloom_device(iter(READS), _opts(31, 3), FilterInfo(), chunk_bp=3000)
+
+
+def test_merge_roles_patches_the_kernels():
+    """kernels/merge_roles.py's counters find every border they time in
+    csrc/merge.cu (it raises when the source has moved on)."""
+    from kwage_tpu_torch.kernels import merge_roles
+
+    src = merge_roles.patched_source()
+    assert src.count("atomicAdd(prof + ") == 17

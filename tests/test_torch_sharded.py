@@ -7,6 +7,9 @@ exact."""
 import dataclasses
 import json
 import os
+import socket
+import threading
+import time
 import tracemalloc
 
 import numpy as np
@@ -546,3 +549,59 @@ def test_mesh_on_logical_shards_of_the_card(cuda_device, corpus):
     queries = [rand_seq(100), rand_seq(200), rand_seq(64)]
     np.testing.assert_array_equal(waved.search_counts(queries)[0], cpu.search_counts(queries)[0])
     np.testing.assert_array_equal(waved.total_hits(queries, 0.3), cpu.total_hits(queries, 0.3))
+
+
+@pytest.mark.parametrize("kind", ["single", "mesh", "mesh_streamed", "server", "server_mesh"])
+def test_searchers_are_freed_on_del(golden_dbs, golden_queries, kind, monkeypatch):
+    """With the cyclic collector off, dropping a searcher (or a server that
+    served a request) frees it and every ShardedDatabase at once: nothing
+    of them sits in a reference cycle, which would keep a card's matrices
+    allocated until the next collection."""
+    import gc
+    import weakref
+
+    from kwage_tpu_torch.search.resident import (
+        MeshResidentSearcher,
+        ResidentSearcher,
+        SearchServer,
+    )
+
+    monkeypatch.setenv("KWAGE_TORCH_DEVICE", "cpu")
+    if kind == "server_mesh":
+        monkeypatch.setattr(tmesh, "default_devices", lambda: [CPU] * 4)
+    seqs = [s for _, s in golden_queries]
+    gc.collect()
+    gc.disable()
+    try:
+        server = None
+        if kind == "single":
+            searcher = ResidentSearcher(golden_dbs, CPU)
+        elif kind.startswith("mesh"):
+            searcher = MeshResidentSearcher(golden_dbs, port_mesh(1, 8),
+                                            budget_bytes=1 << 10 if kind == "mesh_streamed"
+                                            else None)
+        else:
+            threads = threading.active_count()
+            server = SearchServer(golden_dbs)
+            server.start()
+            with socket.create_connection(server.address) as conn, conn.makefile("rw") as f:
+                f.write(json.dumps({"queries": seqs[:2], "threshold": 0.5}) + "\n")
+                f.flush()
+                assert json.loads(f.readline())["ok"]
+            searcher = server.searcher
+        assert searcher.render(seqs, 1.0, "csv")
+        refs = [weakref.ref(searcher)] + [weakref.ref(sdb) for sdb, _ in
+                                          getattr(searcher, "groups", [])]
+        assert isinstance(searcher, MeshResidentSearcher) == (kind in (
+            "mesh", "mesh_streamed", "server_mesh"))
+        if server is not None:
+            server.shutdown()
+            # The connection's handler thread ends once it reads the close.
+            for _ in range(1000):
+                if threading.active_count() <= threads:
+                    break
+                time.sleep(0.01)
+        del searcher, server
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
