@@ -131,6 +131,14 @@ one line each; any failure raises and exits non-zero:
               11, 7, 8, 10); the worker process of phase 11 reports its own counts;
               each path's counts are zeroed just before it and read just
               after.
+13. bench  -- the bench programs (kwage_tpu_torch.bench), each in a process
+              of its own on the card, each exiting 0 only when its own checks
+              pass: search at bench.py's full width (2^22 rows x 8 files,
+              8 GiB; the kernels == their plain versions, every sample under
+              the memory ceiling), build at bench_build.py's defaults (the
+              device filters == exact ground truth), SriRachA at its tool's
+              defaults and at k=11 on the LUT, serve at 4350 accessions (the
+              resident renders == the host searcher's); their lines printed.
 
 It ends with one JSON line a kernel (its shape on the main path, its time
 beside its bound, its launches on each path), the card's name and power
@@ -180,7 +188,8 @@ from kwage_tpu_torch.cli.kwage import main as torch_kwage_main
 from kwage_tpu_torch.cli.maestro import main as torch_maestro_main
 from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
 from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
-from kwage_tpu_torch.core.params import BloomParam, optimal_bloom_param
+from kwage_tpu_torch.core.params import BloomParam
+from kwage_tpu_torch.bench._common import card_identity, exact_bloom
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
 from kwage_tpu_torch.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
@@ -224,7 +233,7 @@ from kwage_tpu_torch.sriracha.engine import (
     iter_reads_range,
     load_subject_kmers,
 )
-from kwage_tpu_torch.utils.runtime import card_identity, resolve_device
+from kwage_tpu_torch.utils.runtime import resolve_device
 
 NUM_FILTER = 2048          # the reference's quota file (options.h:137-157)
 LOG2_FILTER_LEN = 22
@@ -255,6 +264,17 @@ READ_MESH_SLOTS = 4        # phase 10: logical slots of the card for SriRachA's 
 REMOTE_BATCH = 4           # phase 11: accessions a device worker pulls at once
 CHUNK_BP = 8_000_000       # phase 12: the JAX package's chunk_bp (a 16 GB TPU's)
 CROWDED_FREE = 3 << 30     # phase 12: device bytes left free for the builds in threads
+# Phase 13: the bench programs (module, arguments, environment, seconds
+# allowed). Search at bench.py's full width (2^22 rows x 8 files, 8 GiB),
+# build and SriRachA at their JAX programs' defaults and SriRachA at k=11
+# on the LUT, serve at tools/bench_resident.py's 4350 accessions.
+BENCH_RUNS = [
+    ("search", [], {}, 300),
+    ("build", [], {}, 300),
+    ("sriracha", [], {}, 300),
+    ("sriracha", ["11", "128", "65536", "lut"], {}, 300),
+    ("serve", [], {"SCALE_N_ACC": "4350"}, 400),
+]
 # Paths (each driven with the launch counts zeroed just before it) and
 # the kernels each must launch.
 PATH_KERNELS = {
@@ -636,22 +656,6 @@ def write_fastq(path: str, reads: np.ndarray) -> None:
         f.write(np.concatenate([head, nl, reads, plus, qual, nl], axis=1).tobytes())
 
 
-def exact_bloom(reads: np.ndarray) -> tuple[BloomParam, np.ndarray, np.ndarray]:
-    """The exact ground truth of one accession's filter: its reads joined
-    with N, every canonical k-mer counted exactly, the words seen
-    MIN_COUNT times or more (returned too) hashed into an image of the
-    adaptive shape."""
-    joined = np.concatenate([reads, np.full((reads.shape[0], 1), ord("N"), np.uint8)], axis=1)
-    uniq, counts = np.unique(canonical_kmers_native(joined.tobytes(), INGEST_K),
-                             return_counts=True)
-    kept = uniq[counts >= MIN_COUNT]
-    param = optimal_bloom_param(INGEST_K, int(kept.size), 0.25)
-    image = np.zeros(param.filter_len, bool)
-    image[(murmur32_native(kept, INGEST_K, param.num_hash)
-           & np.uint32(param.filter_len - 1)).reshape(-1)] = True
-    return param, np.packbits(image, bitorder="little"), kept
-
-
 def run_maestro_golden(work: str) -> None:
     """The golden corpus through the port's Maestro with --device-build and
     --device-transpose: the .db files must have the golden digests."""
@@ -847,7 +851,7 @@ def run_ingest(work: str, device: torch.device, ingest, seed: int,
             reads = make_reads(rng, genomes[acc], coverage)
             total_bp += reads.size
             write_fastq(os.path.join(src, f"{acc}.fastq"), reads)
-            truth[acc] = exact_bloom(reads)
+            truth[acc] = exact_bloom(reads, INGEST_K, MIN_COUNT)
             del reads
     t_data = time.perf_counter() - t0
     write_inventory(os.path.join(work, "inv.bin"),
@@ -1443,6 +1447,37 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict,
           f"and {len(dbs)} .db == phase 6's bytes and ground truth; every accession done",
           flush=True)
     return json.loads(launches.group(1))
+
+
+# --- phase 13: the bench programs --------------------------------------------------
+
+def run_bench(device: torch.device, runs=BENCH_RUNS) -> None:
+    """Phase 13: each bench program (``python3 -m kwage_tpu_torch.bench.<name>``)
+    in a process of its own on the card: it must exit 0, which it does only
+    when its own checks pass (the searches == their plain versions and
+    every sample under the memory ceiling; every accession built and the
+    device filters == exact ground truth; the resident renders == the host
+    searcher's; the SriRachA run whole). Every JSON line it prints is
+    printed here on a line of its own."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, KWAGE_TORCH_DEVICE=str(device),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_phase = time.perf_counter()
+    for name, argv, extra, timeout in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"kwage_tpu_torch.bench.{name}", *argv],
+                             cwd=root, env={**env, **extra}, capture_output=True, text=True,
+                             timeout=timeout)
+        wall = time.perf_counter() - t0
+        lines = [line for line in res.stdout.splitlines() if line.startswith("{")]
+        check(res.returncode == 0 and lines,
+              f"bench.{name} {argv} {extra} exited {res.returncode}: {res.stderr[-3000:]}")
+        said = " ".join(argv + [f"{k}={v}" for k, v in extra.items()])
+        for line in lines:
+            print(f"phase 13 bench {name} {said}: {line}", flush=True)
+        print(f"phase 13 bench {name} {said}: exit 0 in {wall:.1f} s", flush=True)
+    print(f"phase 13 bench: {len(runs)} runs in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # --- phase 4: kernels against their plain versions ------------------------------
@@ -2812,6 +2847,8 @@ def main(argv: list[str] | None = None) -> int:
         for path, names in PATH_KERNELS.items()), flush=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kwage_tpu"))
     check(not loaded, f"jax or kwage_tpu was imported: {loaded}")
+    torch.cuda.empty_cache()
+    run_bench(device)
 
     # One line a kernel: its shape on the main path, its time beside its
     # bound there, and its launches on each path.

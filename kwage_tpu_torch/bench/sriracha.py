@@ -1,0 +1,159 @@
+"""SriRachA's device path: the port's counterpart of
+``tools/bench_sriracha_device.py``.
+
+    python3 -m kwage_tpu_torch.bench.sriracha [k] [read_len] [n_reads] [path] [subj_kmers]
+
+Defaults: k=21, read_len 128, n_reads 65536, path auto, subj_kmers 2048.
+The JAX tool's seeded inputs (``make_inputs``): 4 subjects of about
+subj_kmers k-mers each and n_reads random reads. End to end: the port's
+``search_reads_device`` over one warm-up span of 16 x 512 reads (its wall
+is ``warmup_compile_s``), then over the rest of the stream, timed (host
+packing, uploads and readbacks included: ``value``, Mbp/s).
+
+Kernel only: the ``canonical_kmers`` and ``sriracha_counts_{hash,lut}``
+launches on one [512, read_len] block of the reads (the reads repeat when
+there are fewer than 512), timed with CUDA events over a CUDA graph of
+raw launches that cycles RING copies of the block, each rolled by one more
+row: the counterpart of the JAX tool's chained ``jnp.roll``. ``path``
+picks the subject tables: ``lut``, ``hash``, or ``auto``, the port's own
+router (``sriracha.device.use_lut``). On the CPU the plain versions run,
+timed by the host clock.
+
+The last line has the JAX tool's keys; ``platform`` is the torch device
+type and the device's name goes on an earlier line.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..kernels.time_kernel import cuda_ms
+from ..ops import kmers as tk
+from ..sriracha import device as tsr
+from ..sriracha.engine import SrirachaOptions, canonical_kmers
+from ._common import bench_device, check, print_device
+
+BATCH = 512
+SPAN = 16 * BATCH
+RING = 8
+SAMPLES = 5
+REPLAYS = 5
+
+
+def make_reads(n: int, read_len: int, rng: np.random.Generator) -> list[str]:
+    bases = np.array(list("ACGT"))
+    arr = rng.integers(0, 4, size=(n, read_len))
+    return ["".join(bases[row]) for row in arr]
+
+
+def make_inputs(k: int, read_len: int, n_reads: int, subj_kmers: int, seed: int = 7):
+    """The JAX tool's inputs: 4 subjects (name, sorted distinct canonical
+    k-mers) of a random sequence of subj_kmers + k - 1 bases each, then
+    n_reads random reads, from one generator in that order."""
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    subjects = []
+    for i in range(4):
+        seq = "".join(bases[rng.integers(0, 4, size=subj_kmers + k - 1)])
+        subjects.append((f"subject{i}", np.unique(canonical_kmers(seq, k))))
+    return subjects, make_reads(n_reads, read_len, rng)
+
+
+def kernel_ms(block: torch.Tensor, lengths: torch.Tensor, tables) -> float:
+    """ms of one step (canonical_kmers + sriracha_counts on a [512,
+    read_len] block): on a card the median of SAMPLES readings, each the
+    mean of REPLAYS replays of a CUDA graph of raw launches cycling RING
+    blocks rolled a row apart; on the CPU the median of SAMPLES host-clock
+    passes of the plain versions over the same blocks."""
+    k = tables.k
+    ring = [torch.roll(block, i, dims=0).contiguous() for i in range(RING)]
+    if block.device.type != "cuda":
+        def one_pass() -> float:
+            t0 = time.perf_counter()
+            for b in ring:
+                words, valid = tk.canonical_kmers(b, k)
+                tsr.sriracha_counts(words, valid, lengths, tables)
+            return (time.perf_counter() - t0) * 1e3 / RING
+
+        return statistics.median(one_pass() for _ in range(SAMPLES))
+    B, L = block.shape
+    nwin = L - k + 1
+    words = [torch.empty((B, nwin), dtype=torch.int64, device=block.device) for _ in ring]
+    valid = [torch.empty((B, nwin), dtype=torch.bool, device=block.device) for _ in ring]
+    out = torch.empty((B, tables.ns + 2), dtype=torch.int32, device=block.device)
+    scratch = tsr.counts_scratch(B, nwin, block.device)
+    turn = itertools.count()
+
+    def call(stream):
+        j = next(turn) % RING
+        kernels.launch("canonical_kmers_ascii", ring[j].data_ptr(), words[j].data_ptr(),
+                       valid[j].data_ptr(), B, L, L, k, stream)
+        launch = tsr.counts_launch(words[j], valid[j], lengths, tables, out, scratch)
+        kernels.launch(*launch[:-1], stream)
+
+    with torch.cuda.device(block.device):
+        return statistics.median(cuda_ms(call, REPLAYS) for _ in range(SAMPLES))
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    k = int(argv[0]) if len(argv) > 0 else 21
+    read_len = int(argv[1]) if len(argv) > 1 else 128
+    n_reads = int(argv[2]) if len(argv) > 2 else 65536
+    path = argv[3] if len(argv) > 3 else "auto"
+    subj_kmers = int(argv[4]) if len(argv) > 4 else 2048
+    check(path in ("auto", "lut", "hash"), f"path must be auto, lut or hash, not {path}")
+    check(n_reads >= 1 and read_len >= k, "need at least one read of at least k bases")
+    device = bench_device()
+    print_device(device)
+
+    subjects, reads = make_inputs(k, read_len, n_reads, subj_kmers)
+    opt = SrirachaOptions(kmer_len=k)
+    stream = [(seq, i, 0) for i, seq in enumerate(reads)]
+
+    # Warm-up: one span pays the first launches and allocations of this
+    # (k, padded length) shape.
+    t0 = time.time()
+    tsr.search_reads_device(stream[:SPAN], subjects, opt, batch_size=BATCH, span_reads=SPAN)
+    warm_s = time.time() - t0
+
+    timed = stream[SPAN:]
+    t0 = time.time()
+    res = tsr.search_reads_device(timed, subjects, opt, batch_size=BATCH, span_reads=SPAN)
+    dt = time.time() - t0
+    mbps = len(timed) * read_len / dt / 1e6
+
+    block = np.stack([np.frombuffer(reads[r % n_reads].encode("ascii"), dtype=np.uint8)
+                      for r in range(BATCH)])
+    block_d = torch.from_numpy(block).to(device)
+    lengths = torch.full((BATCH,), read_len, dtype=torch.int32, device=device)
+    use_lut = tsr.use_lut(subjects, k, device) if path == "auto" else path == "lut"
+    tables = (tsr.build_lut_tables if use_lut else tsr.build_hash_tables)(subjects, k, device)
+    step_ms = kernel_ms(block_d, lengths, tables)
+
+    print(json.dumps({
+        "metric": "sriracha_device_mbps",
+        "kernel_only_mbps": BATCH * read_len / (step_ms * 1e-3) / 1e6,
+        "k": k,
+        "read_len": read_len,
+        "reads_timed": len(timed),
+        "value": mbps,
+        "unit": "Mbp/s",
+        "warmup_compile_s": warm_s,
+        "timed_s": dt,
+        "matches": sum(len(r) for r in res),
+        "platform": device.type,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

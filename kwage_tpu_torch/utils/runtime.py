@@ -1,4 +1,4 @@
-"""Device selection, card identity and shared-secret auth for the port.
+"""Device selection and shared-secret auth for the port.
 
 ``KWAGE_TORCH_DEVICE`` is the port's counterpart of ``JAX_PLATFORMS``: it
 names the torch device the device paths run on (default ``cuda``). A
@@ -10,7 +10,6 @@ which routes every kernel wrapper to its plain PyTorch version.
 from __future__ import annotations
 
 import os
-import subprocess
 
 import torch
 
@@ -55,13 +54,3 @@ def resolve_device(name: str | None = None) -> torch.device:
             dev = torch.device("cuda", 0)
     return dev
 
-
-def card_identity() -> str:
-    """The card's name and power limit as ``nvidia-smi --query-gpu=
-    name,power.limit --format=csv,noheader`` prints them (first card).
-    Raises when nvidia-smi is missing or fails."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0].strip()
