@@ -87,6 +87,27 @@ one line each; any failure raises and exits non-zero:
               ``kwage-sriracha-torch --device`` with the card listed 4
               times as the visible devices: each TSV equals phase 8's
               bytes; walls, Mbp/s and profiles beside phase 8's.
+14. prod-L -- the production filter length at full width: the first 64
+              accessions of the JAX prodL corpus (30 kbp genomes at 4x, 160 bp
+              reads, k=31, min count 2) through ``kwage-maestro-torch
+              --device-build --device-transpose --len.min 26 --len.max 26``
+              under phase 6's refusals: every 8 MiB .bloom equals the exact
+              ground truth, the partial .db the host pack. Then each .bloom
+              listed 32 times packs one full quota file through the device
+              transpose (2048 filters, 16 GiB, 32 chunks of 2^21 bits), whose
+              sha256 equals the host pack's, computed chunk by chunk and never
+              written (each chunk also equal to the file's rows). The two
+              files searched by ``kwage-torch --device`` (the 16 GiB file in
+              slabs of the 8 GiB default budget) at -t 1.0 JSON and -t 0.8 CSV
+              == the host engine, with the step times and the upload's GB/s;
+              complete reads hit their accession's 33 filters; a
+              ResidentSearcher (17 GiB budget) holding both (both cases),
+              and a MeshResidentSearcher on 4 logical shards of 2 GiB (the
+              full file in waves; a render and total_hits at -t 0.8, ==
+              the hit-list lengths; peak memory within the budget), each ==
+              the host engine and each freeing its memory on del. The machine is checked first (40 GiB free
+              in the work directory, 24 GiB of host memory), and a shortfall
+              fails the run.
 4. kernels -- every kernel against its plain PyTorch version on the card,
               bit for bit, at the paths' shapes and at R*W > 2^31 words
               (search) and num_acc * 2^L >= 2^32 bits (bloom_set_bits);
@@ -126,9 +147,10 @@ one line each; any failure raises and exits non-zero:
               tile edges, on k = 32 signed words, with saturating weights
               and a cap of 40, on inputs off a 16-byte boundary, and on
               empty, disjoint, interleaved and identical runs and runs
-              with an equal pair at every tile edge.
+              with an equal pair at every tile edge. bloom_set_bits also at
+              phase 14's build (its windows, 2^26-bit images), timed.
 5. counts  -- every kernel was launched by the path phases (1-3, 9, 6, 12,
-              11, 7, 8, 10); the worker process of phase 11 reports its own counts;
+              11, 7, 8, 10, 14); the worker process of phase 11 reports its own counts;
               each path's counts are zeroed just before it and read just
               after.
 13. bench  -- the bench programs (kwage_tpu_torch.bench), each in a process
@@ -147,6 +169,14 @@ Without a CUDA device it exits 1. The kernels (nvcc, kwage_tpu_torch/csrc)
 and the host library (g++, kwage_tpu_torch/native) build into
 build/kwage_tpu_torch/. Nothing of kwage_tpu or jax is imported: the host
 references are the port's own host engines and tests/golden.
+
+The at-scale proofs and the parity soak are programs of their own, run
+alone (``kwage_tpu_torch.scale``; each keeps its JAX tool's env knobs):
+``python3 -m kwage_tpu_torch.scale.at_scale`` (L=18, SCALE_N_ACC 4350,
+SCALE_HALT 4200, SCALE_DEVICE_N 1024), ``... scale.prod_l`` (SCALE_L 26,
+SCALE_N_ACC 2268, one full 16 GiB file; ``--device-only WORKDIR``) and
+``... scale.soak ROUNDS SEED_BASE``; with ``KWAGE_TORCH_DEVICE=cpu`` and
+small knobs they run on the CPU, as tests/test_torch_scale.py runs them.
 
 ``--profile`` runs phases 6, 11 and 8 alone, with their checks, and breaks
 down the kwage-maestro-torch calls (phase 11: the coordinator's process)
@@ -171,6 +201,7 @@ import json
 import os
 import re
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -192,7 +223,9 @@ from kwage_tpu_torch.core.params import BloomParam
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
+from kwage_tpu_torch.io.binary import BinaryReader, BinaryWriter
 from kwage_tpu_torch.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
+from kwage_tpu_torch.io.db_file import HEADER_SIZE, DBFileHeader
 from kwage_tpu_torch.io.dbz_file import open_database
 from kwage_tpu_torch.io.inventory import write_inventory
 from kwage_tpu_torch.io.status import read_status_file
@@ -220,10 +253,13 @@ from kwage_tpu_torch.parallel.maestro import (
     Maestro,
     MaestroOptions,
 )
+from kwage_tpu_torch.pipeline import build_db as torch_build_db
 from kwage_tpu_torch.pipeline import make_bloom as torch_make_bloom
 from kwage_tpu_torch.pipeline.build_db import build_db_from_bloom_files
 from kwage_tpu_torch.pipeline.make_bloom import BuildOptions, build_bloom_from_file
-from kwage_tpu_torch.search.resident import MeshResidentSearcher, SearchServer
+from kwage_tpu_torch.scale import _corpus as scale_corpus
+from kwage_tpu_torch.search.engine import search_database_files
+from kwage_tpu_torch.search.resident import MeshResidentSearcher, ResidentSearcher, SearchServer
 from kwage_tpu_torch.search.resident import render as render_searcher
 from kwage_tpu_torch.sriracha import device as tsr
 from kwage_tpu_torch.sriracha.engine import (
@@ -264,6 +300,19 @@ READ_MESH_SLOTS = 4        # phase 10: logical slots of the card for SriRachA's 
 REMOTE_BATCH = 4           # phase 11: accessions a device worker pulls at once
 CHUNK_BP = 8_000_000       # phase 12: the JAX package's chunk_bp (a 16 GB TPU's)
 CROWDED_FREE = 3 << 30     # phase 12: device bytes left free for the builds in threads
+# Phase 14, the production-L path: the prodL corpus's first 64 accessions
+# (30 kbp genomes at 4x, 160 bp reads, min count 2) built at L pinned to 26
+# (8 MiB filters), each .bloom listed 32 times to pack one full quota file
+# (2048 filters, 16 GiB, twice the default fusion budget).
+PROD_L = 26
+PROD_ACC = 64
+PROD_COPIES = 32
+PROD_GENOME = 30_000
+PROD_MIN_COUNT = 2
+PROD_RANDOM_QUERIES = 8
+PROD_CASES = [(1.0, "json"), (0.8, "csv")]
+PROD_RESIDENT_BUDGET = 17 << 30   # both files resident
+PROD_MESH_BUDGET = 2 << 30        # a logical shard's: the full file in waves
 # Phase 13: the bench programs (module, arguments, environment, seconds
 # allowed). Search at bench.py's full width (2^22 rows x 8 files, 8 GiB),
 # build and SriRachA at their JAX programs' defaults and SriRachA at k=11
@@ -292,6 +341,8 @@ PATH_KERNELS = {
                "bit_transpose", "run_counts"),
     "chunked": ("canonical_kmers", "radix_sort_pairs", "run_counts", "merge_counts",
                 "bloom_set_bits"),
+    "prod_l": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
+               "bit_transpose", "search_complete", "search_counts", "search_total_hits"),
 }
 # The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -1449,6 +1500,326 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict,
     return json.loads(launches.group(1))
 
 
+# --- phase 14: the production-L path (L=26, a full quota file) ----------------------
+
+@contextlib.contextmanager
+def search_steps(steps: dict):
+    """Inside, every ``search_files_device`` call (the kwage CLI's --device
+    path on one card) adds its step times to ``steps``."""
+    real = ts.search_files_device
+
+    def profiled(*args, **kwargs):
+        return real(*args, **{**kwargs, "profile": steps})
+
+    ts.search_files_device = profiled
+    try:
+        yield steps
+    finally:
+        ts.search_files_device = real
+
+
+def db_tail(infos, info_start: int) -> bytes:
+    """What a .db holds after its slices (io.db_file.write_db_file_streaming):
+    the FilterInfo records' absolute offsets, then the records."""
+    records = io.BytesIO()
+    locs = []
+    for info in infos:
+        locs.append(info_start + 8 * len(infos) + records.tell())
+        BinaryWriter(records).filter_info(info)
+    return struct.pack(f"<{len(infos)}Q", *locs) + records.getvalue()
+
+
+def bloom_data_offset(path: str) -> int:
+    """Where a .bloom file's filter bits start (after its magic, shape,
+    crc32 and FilterInfo record)."""
+    with open(path, "rb") as f:
+        r = BinaryReader(f)
+        r.u8()
+        r.bloom_param()
+        r.u32()
+        r.filter_info()
+        return f.tell()
+
+
+PACK_AHEAD = 4   # host chunks transposed ahead, each ~1.5 GiB of host memory at L=26
+
+
+def host_pack_sha256(db_path: str, param: BloomParam, blooms: list[str],
+                     chunk_bits: int = torch_build_db.DEFAULT_CHUNK_BITS) -> tuple[str, str]:
+    """(the sha256 of the .db that the host pack -- ``build_db_from_bloom_files``
+    without a device -- writes from ``blooms``, the sha256 of ``db_path``).
+    The host pack's digest is computed chunk by chunk with
+    ``transpose_filters`` and never written: PACK_AHEAD chunks transpose
+    ahead in threads (a .bloom listed many times is read once a chunk),
+    the main thread hashes them in order. A thread reads ``db_path`` beside
+    it; each chunk's crc32 must equal that of the same rows of the file,
+    and the header the host pack would write must equal the file's."""
+    rank = {p: i for i, p in enumerate(dict.fromkeys(blooms))}
+    distinct, where = list(rank), np.array([rank[p] for p in blooms])
+    offsets = [bloom_data_offset(p) for p in distinct]
+    filter_bytes, chunk_bytes = param.filter_len // 8, chunk_bits // 8
+    starts = list(range(0, filter_bytes, chunk_bytes))
+    slice_size = -(-len(blooms) // 8)
+
+    def transposed(start: int) -> np.ndarray:
+        n = min(chunk_bytes, filter_bytes - start)
+        rows = np.empty((len(distinct), n), np.uint8)
+        for i, (path, off) in enumerate(zip(distinct, offsets)):
+            with open(path, "rb") as f:
+                f.seek(off + start)
+                rows[i] = np.frombuffer(f.read(n), np.uint8)
+        return np.ascontiguousarray(torch_build_db.transpose_filters(rows[where], len(blooms)))
+
+    def file_side() -> tuple[str, list[int]]:
+        with open(db_path, "rb") as f:
+            digest = hashlib.sha256(f.read(HEADER_SIZE))
+            crcs = []
+            for start in starts:
+                data = f.read(min(chunk_bytes, filter_bytes - start) * 8 * slice_size)
+                digest.update(data)
+                crcs.append(zlib.crc32(data))
+            for block in iter(lambda: f.read(1 << 24), b""):
+                digest.update(block)
+        return digest.hexdigest(), crcs
+
+    with open(db_path, "rb") as f:
+        header = f.read(HEADER_SIZE)
+    digest = hashlib.sha256(header)
+    crc, crcs = 0, []
+    with ThreadPoolExecutor(PACK_AHEAD + 1) as pool:
+        side = pool.submit(file_side)
+        ahead = collections.deque(pool.submit(transposed, st) for st in starts[:PACK_AHEAD])
+        for i in range(len(starts)):
+            chunk = ahead.popleft().result()
+            if i + PACK_AHEAD < len(starts):
+                ahead.append(pool.submit(transposed, starts[i + PACK_AHEAD]))
+            digest.update(chunk)
+            crc = zlib.crc32(chunk, crc)
+            crcs.append(zlib.crc32(chunk))
+            del chunk
+        file_sha, file_crcs = side.result()
+    bad = [i for i, (a, b) in enumerate(zip(crcs, file_crcs)) if a != b]
+    check(not bad, f"{db_path}: chunks {bad} of {chunk_bits} bits differ from the host pack's")
+    hdr = DBFileHeader(kmer_len=param.kmer_len, num_hash=param.num_hash,
+                       log_2_filter_len=param.log_2_filter_len, num_filter=len(blooms),
+                       hash_func=param.hash_func, crc32=crc & 0xFFFFFFFF)
+    hdr.info_start = HEADER_SIZE + hdr.filter_len * hdr.slice_size
+    check(hdr.pack() == header, f"{db_path}: header differs from the host pack's")
+    digest.update(db_tail([read_bloom_file(p, with_bits=False).info for p in blooms],
+                          hdr.info_start))
+    return digest.hexdigest(), file_sha
+
+
+def complete_reads(fasta: str, kept: np.ndarray, n: int) -> list[str]:
+    """The first ``n`` reads of ``fasta`` whose every k-mer the exact count
+    kept: a filter has no false negatives, so each is a complete match of
+    its accession."""
+    out = []
+    for read in scale_corpus.fasta_reads(fasta):
+        if np.isin(canonical_kmers_native(read.tobytes(), KMER_LEN), kept).all():
+            out.append(read.tobytes().decode())
+            if len(out) == n:
+                break
+    check(len(out) == n, f"{fasta}: fewer than {n} reads with every k-mer kept")
+    return out
+
+
+def run_prod_l(work: str, device: torch.device, seed: int, log2_len: int = PROD_L,
+               n_acc: int = PROD_ACC, copies: int = PROD_COPIES,
+               genome_bp: int = PROD_GENOME, resident_budget: int = PROD_RESIDENT_BUDGET,
+               mesh_budget: int = PROD_MESH_BUDGET) -> dict:
+    """Phase 14 through the port's entry points; returns the L=26 build's
+    shape for phase 4. Runs on any torch device (on the CPU with the plain
+    versions, at a small L; the card is where it counts)."""
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    filter_bytes = (1 << log2_len) // 8
+    full_bytes = n_acc * copies * filter_bytes
+    # Disk: the full file, the .bloom files, the partial and room to
+    # spare (40 GiB at L=26); memory: the full file's pages stay cached
+    # between its searches, and the packs' 512 MiB blocks beside them.
+    machine = scale_corpus.require_machine(work, full_bytes * 5 // 2, full_bytes * 3 // 2)
+
+    # 1. The build at L=26: the prodL corpus's first accessions.
+    t0 = time.perf_counter()
+    # The planted 400 bp queries: 4 accessions spread over the build.
+    corpus = scale_corpus.generate(work, n_acc, genome_bp, 4, seed=1, prefix="SRR8",
+                                   query_at=tuple(i * (n_acc - 1) // 3 for i in range(4)))
+    truth = {acc: exact_bloom(scale_corpus.fasta_reads(os.path.join(corpus.src, f"{acc}.fasta")),
+                              KMER_LEN, PROD_MIN_COUNT, min_log_2_filter_len=log2_len,
+                              max_log_2_filter_len=log2_len)
+             for acc in corpus.accessions}
+    t_data = time.perf_counter() - t0
+    with no_library_sort() as guard:
+        t0 = time.perf_counter()
+        rc = torch_maestro_main([
+            "--meta", corpus.inv, "--scratch", work, "--status", os.path.join(work, "status.bin"),
+            "--source-dir", corpus.src, "-k", str(KMER_LEN), "--min-kmer-count",
+            str(PROD_MIN_COUNT), "--len.min", str(log2_len), "--len.max", str(log2_len),
+            "--device-build", "--device-transpose", "--workers", "2", "--save.bloom"])
+        t_build = time.perf_counter() - t0
+    check(rc == 0, f"kwage-maestro-torch exited {rc}")
+    check(guard["sorts"] > 0, f"no sort_valid_windows call ran under the guard: {guard}")
+    blooms = [os.path.join(work, "bloom", f"{acc}.bloom") for acc in corpus.accessions]
+    for acc, path in zip(corpus.accessions, blooms):
+        rec = read_bloom_file(path)
+        param, bits, _ = truth[acc]
+        check(rec.param == param and rec.bits.tobytes() == bits.tobytes() and rec.test_crc32(),
+              f"{acc}: the L={log2_len} .bloom differs from the exact ground truth")
+    dbs = sorted(os.listdir(os.path.join(work, "database")))
+    check(len(dbs) == 1, f"expected one partial .db, got {dbs}")
+    partial = os.path.join(work, "database", dbs[0])
+    reader = open_database(partial)
+    param = reader.header.param
+    check(param.log_2_filter_len == log2_len and reader.header.num_filter == n_acc,
+          f"partial .db: {reader.header}")
+    members = [accession_to_str(reader.read_filter_info(i).run_accession) for i in range(n_acc)]
+    host_partial = os.path.join(work, "host_partial.db")
+    build_db_from_bloom_files(host_partial, param,
+                              [os.path.join(work, "bloom", f"{a}.bloom") for a in members])
+    check(sha256(partial) == sha256(host_partial), "the partial .db differs from the host pack")
+    os.remove(host_partial)
+    print(f"phase 14 build: {n_acc} accessions x {corpus.bp_per_acc} bp (data + ground truth "
+          f"{t_data:.1f} s), kwage-maestro-torch --device-build --device-transpose --len.min "
+          f"{log2_len} --len.max {log2_len} {t_build:.2f} s ({n_acc / t_build:.2f} filters/s; "
+          f"{guard['sorts']} fused sorts, no library sort or compaction); every .bloom "
+          f"({filter_bytes} B, nh={param.num_hash}) == exact ground truth; the partial .db == "
+          f"host pack; machine {machine}", flush=True)
+
+    # 2. The full quota file: each .bloom listed ``copies`` times.
+    full = os.path.join(work, "full.db")
+    repeated = blooms * copies
+    t0 = time.perf_counter()
+    build_db_from_bloom_files(full, param, repeated, device=device)
+    t_dev = time.perf_counter() - t0
+    size = os.path.getsize(full)
+    t0 = time.perf_counter()
+    host_digest, digest = host_pack_sha256(full, param, repeated)
+    t_host = time.perf_counter() - t0
+    check(digest == host_digest, "the full .db's sha256 differs from the host pack's")
+    print(f"phase 14 pack: {len(repeated)} filters at L={log2_len} -> {size} B .db through "
+          f"transpose_chunks_device ({-(-(1 << log2_len) // torch_build_db.DEFAULT_CHUNK_BITS)} "
+          f"chunks), sha256 {digest[:16]} == host pack's (chunk by chunk, not written; each "
+          f"chunk's crc32 == the file's rows); device pack {t_dev:.2f} s "
+          f"({size / t_dev / 1e6:.1f} MB/s), host pack + the file's sha256 beside it "
+          f"{t_host:.2f} s ({size / t_host / 1e6:.1f} MB/s)", flush=True)
+
+    # 3. The searches over both files.
+    rng = np.random.default_rng(seed + 14)
+    seqs = [q for _, q in corpus.queries]
+    owners = [corpus.queries[0][0], corpus.queries[-1][0]]
+    seqs += [complete_reads(os.path.join(corpus.src, f"{acc}.fasta"), truth[acc][2], 1)[0]
+             for acc in owners]
+    seqs += [ACGT[rng.integers(0, 4, size=400)].tobytes().decode()
+             for _ in range(PROD_RANDOM_QUERIES)]
+    files = [full, partial]
+    matrix_bytes = ts.chunk_words([open_database(f) for f in files], [0, 1]) * (1 << log2_len) * 4
+    check(size > ts.fusion_budget_bytes(), "the full file fits the fusion budget: no slabs")
+    outputs, times, steps = {}, [], {}
+    base = [a for f in files for a in ("-d", f)]
+    for threshold, fmt in PROD_CASES:
+        got = {}
+        for name, extra in (("device", ["--device"]), ("host", [])):
+            out = os.path.join(work, f"{name}.out")
+            t0 = time.perf_counter()
+            if name == "device":
+                steps = {}   # the last device call's steps are printed
+            with search_steps(steps) if name == "device" else contextlib.nullcontext():
+                rc = torch_kwage_main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out]
+                                      + extra + seqs)
+            times.append(f"{name} t={threshold} {fmt} {time.perf_counter() - t0:.2f} s")
+            check(rc == 0, f"{name} kwage exited {rc}")
+            with open(out) as f:
+                got[name] = f.read()
+        check(got["device"] == got["host"],
+              f"--device output differs from the host engine at -t {threshold} {fmt}")
+        outputs[(threshold, fmt)] = got["host"]
+    host = {t: search_database_files(files, list(enumerate(seqs)), t) for t, _ in PROD_CASES}
+    first = len(corpus.queries)
+    for i, acc in enumerate(owners):
+        hits = [accession_to_str(m.subject_info.run_accession) for m in host[1.0][first + i]]
+        check(hits.count(acc) == copies + 1,
+              f"complete read of {acc}: {hits.count(acc)} hits at -t 1.0, {copies + 1} expected")
+    check(steps.get("slabs", 0) >= 2, f"the full file did not stream in slabs: {steps}")
+    print(f"phase 14 search: {len(seqs)} queries ({len(corpus.queries)} planted 400 bp, "
+          f"{len(owners)} complete reads, {PROD_RANDOM_QUERIES} random) over the full and the "
+          f"partial .db (W={-(-len(repeated) // 32)} + {-(-n_acc // 32)}), kwage --device == "
+          f"host engine at " + ", ".join(f"-t {t} {f}" for t, f in PROD_CASES) + "; "
+          + "; ".join(times) + f"; the last device call: the full file in "
+          f"{steps['slabs']} slabs of the {ts.fusion_budget_bytes()} B budget, "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items() if k != "slabs")
+          + f", upload {matrix_bytes / steps['upload_s'] / 1e9:.2f} GB/s", flush=True)
+
+    # The resident searcher, then the mesh on logical shards of the card;
+    # each, dropped, frees its device memory at once (no gc.collect()).
+    def allocated():
+        if cuda:
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated(device)
+        return 0
+
+    base_mem = allocated()
+    t0 = time.perf_counter()
+    resident = ResidentSearcher(files, device, budget_bytes=resident_budget)
+    t_load = time.perf_counter() - t0
+    check(resident.resident_bytes == matrix_bytes,
+          f"not all resident: {resident.resident_bytes} of {matrix_bytes} B")
+    lat = []
+    for threshold, fmt in PROD_CASES:
+        for _ in range(2):   # cold, then warm
+            t0 = time.perf_counter()
+            out = resident.render(seqs, threshold, fmt)
+            lat.append(time.perf_counter() - t0)
+            check(out == outputs[(threshold, fmt)],
+                  f"ResidentSearcher differs from the host engine at -t {threshold} {fmt}")
+    held = resident.resident_bytes
+    del resident
+    check(allocated() == base_mem, "ResidentSearcher kept device memory after del")
+
+    cards = [device] * MESH_SHARDS
+    mesh = make_search_mesh(1, MESH_SHARDS, cards)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    mesh_searcher = MeshResidentSearcher(files, mesh, budget_bytes=mesh_budget)
+    t_mesh_load = time.perf_counter() - t0
+    sdbs = [sdb for sdb, _ in mesh_searcher.groups]
+    waves = max(sdb.num_waves for sdb in sdbs)
+    check(waves >= 2, f"the mesh ran {waves} wave(s) at {mesh_budget} B a shard")
+    # Every wave re-stages the full file from its pages, a row piece a
+    # shard (ROADMAP queue 1, item 3): one render and one count, at -t 0.8.
+    threshold, fmt = PROD_CASES[-1]
+    t0 = time.perf_counter()
+    out = mesh_searcher.render(seqs, threshold, fmt)
+    mesh_times = [time.perf_counter() - t0]
+    check(out == outputs[(threshold, fmt)],
+          f"MeshResidentSearcher differs from the host engine at -t {threshold} {fmt}")
+    t0 = time.perf_counter()
+    got = sum(sdb.total_hits(seqs, threshold) for sdb in sdbs)
+    mesh_times.append(time.perf_counter() - t0)
+    want = [len(host[threshold].get(i, [])) for i in range(len(seqs))]
+    check(got.tolist() == want, f"mesh total_hits at -t {threshold} {got.tolist()} != the "
+                                f"hit-list lengths {want}")
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    check(not cuda or peak <= mesh_budget * MESH_SHARDS + (64 << 20),
+          f"mesh peak {peak} B passes {MESH_SHARDS} x {mesh_budget} B")
+    del mesh_searcher, sdbs
+    check(allocated() == base_mem, "MeshResidentSearcher kept device memory after del")
+    print(f"phase 14 serve: ResidentSearcher ({resident_budget} B budget) holds {held} B, "
+          f"load {t_load:.2f} s, renders (cold, warm) "
+          + ", ".join(f"{x * 1e3:.1f} ms" for x in lat)
+          + f" == host engine; MeshResidentSearcher 1 x {MESH_SHARDS} at {mesh_budget} B a "
+          f"shard: load {t_mesh_load:.2f} s, {waves} waves, a render at -t {threshold} "
+          f"{mesh_times[0]:.2f} s == host engine, total_hits {mesh_times[1]:.2f} s == the "
+          f"hit-list lengths, peak device memory {peak} B; "
+          f"each searcher freed its device memory on del; phase 14 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    n_reads = genome_bp * 4 // scale_corpus.READ_LEN
+    return {"num_acc": n_acc, "log2_len": log2_len, "num_hash": param.num_hash,
+            "windows": n_acc * n_reads * (scale_corpus.READ_LEN - KMER_LEN + 1),
+            "selected": sum(t[2].size for t in truth.values())}
+
+
 # --- phase 13: the bench programs --------------------------------------------------
 
 def run_bench(device: torch.device, runs=BENCH_RUNS) -> None:
@@ -2287,6 +2658,28 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
     del acc, words, sel, got, want
     torch.cuda.empty_cache()
 
+    # bloom_set_bits at phase 14's build: its windows over 64 accessions,
+    # as many selected as the exact count kept, 2^26-bit images.
+    prod = ingest["prod_l"]
+    n, num_acc, L, nh = prod["windows"], prod["num_acc"], prod["log2_len"], prod["num_hash"]
+    acc = torch.randint(0, num_acc, (n,), device=device, generator=gen).sort().values
+    words = torch.randint(0, 1 << 62, (n,), device=device, generator=gen)
+    sel = torch.rand((n,), device=device, generator=gen) < prod["selected"] / n
+    slot = torch.tensor(list(range(num_acc)) + [-1], dtype=torch.int32, device=device)
+    got = tcount.bloom_set_bits(acc, words, sel, slot, k, nh, L)
+    ms = cuda_ms(lambda: kernels.launch(
+        "bloom_set_bits", acc.data_ptr(), words.data_ptr(), sel.data_ptr(), slot.data_ptr(),
+        got.data_ptr(), n, num_acc, k, nh, L, got.shape[1], stream()), 10)
+    n_sel = int(sel.sum())
+    b = bound(nbytes_of(sel, slot, got) + n_sel * (acc.element_size() + words.element_size()),
+              n_sel * murmur_ops(k, nh) + 3 * n)
+    record("bloom_set_bits", f"phase 14's L={L} build n={n} selected={n_sel} num_acc={num_acc} "
+           f"nh={nh}", max_abs_err(got, tcount.bloom_set_bits_ref(acc, words, sel, slot, k, nh, L)),
+           ms, cuda_ms(lambda: tcount.bloom_set_bits_ref(acc, words, sel, slot, k, nh, L), 2),
+           f" (bound {b['bound_ms']:.4f} ms by {b['bound_by']})")
+    del acc, words, sel, got
+    torch.cuda.empty_cache()
+
     # murmur32 as slice_indices at the ingest's distinct-word count, then
     # at the entry() forward's shape.
     for tag, n, nh, L in (("ingest", 1 << 23, ingest["num_hash"], ingest["log2_len"]),
@@ -2834,6 +3227,12 @@ def main(argv: list[str] | None = None) -> int:
         kernels.reset_launch_counts()
         run_sriracha_mesh(work, device, phase8)
         paths["sriracha_mesh"] = kernels.launch_counts()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
+        kernels.reset_launch_counts()
+        shapes["prod_l"] = run_prod_l(work, device, args.seed)
+        paths["prod_l"] = kernels.launch_counts()
+        print("phase 14 counts: " + json.dumps(paths["prod_l"]), flush=True)
     torch.cuda.empty_cache()
 
     results = phase_kernels(device, args.seed, shapes)

@@ -191,8 +191,15 @@ def main(argv: list[str] | None = None) -> int:
             qid += 1
 
     if use_device:
+        from ..io.dbz_file import open_database
+        from ..ops.search import check_device_filter_len
         from ..parallel.mesh import default_devices
 
+        try:
+            check_device_filter_len([open_database(p) for p in subject_files])
+        except ValueError as e:
+            print(f"--device: {e}", file=sys.stderr)
+            return 1
         devices = default_devices()
         if len(devices) > 1:
             # Several cards: shard the fused matrices over a filters-axis

@@ -35,11 +35,27 @@ from ..core.words import canonical_kmers
 from ..native import murmur32_native
 
 DEFAULT_FUSION_BUDGET_BYTES = 8 << 30
+# Slice rows are int32 on the card (``make_query_batch``, the kernels'
+# idx), so a file at L = 32 has rows the device search cannot address.
+MAX_DEVICE_LOG2_LEN = 31
 
 
 def fusion_budget_bytes() -> int:
     """Bytes of fused matrix per device chunk (KWAGE_FUSION_BUDGET_BYTES)."""
     return int(os.environ.get("KWAGE_FUSION_BUDGET_BYTES", DEFAULT_FUSION_BUDGET_BYTES))
+
+
+def check_device_filter_len(readers) -> None:
+    """Refuse, from the headers alone (before any slice is read or
+    uploaded), a database file whose filter length the device search
+    cannot index: L > MAX_DEVICE_LOG2_LEN. The host engine searches it."""
+    for r in readers:
+        L = r.header.log_2_filter_len
+        if L > MAX_DEVICE_LOG2_LEN:
+            raise ValueError(
+                f"{r.path}: L={L}; the device search indexes slice rows as int32 and takes "
+                f"L <= {MAX_DEVICE_LOG2_LEN}: search this file with the host engine "
+                "(kwage-torch without --device)")
 
 
 # --- host helpers (numpy; the JAX module's twins) ---------------------------
@@ -250,6 +266,7 @@ def eval_chunk_cols(
     valid_d: torch.Tensor,
     threshold: float,
     budget_bytes: int,
+    profile: dict | None = None,
 ) -> np.ndarray:
     """Hit counts (threshold < 1, int32 [nq, 32*W]) or packed complete
     mask (threshold == 1.0, uint32 [nq, W]) for one fused chunk.
@@ -259,7 +276,8 @@ def eval_chunk_cols(
     wider than ``budget_bytes`` streams through the device in column slabs
     of ``budget_bytes // (L * 4)`` words, each uploaded (through pinned
     staging) as its own contiguous buffer and released before the next
-    upload (peak device memory: one slab).
+    upload (peak device memory: one slab). ``profile`` accumulates
+    ``slabs`` and ``upload_s`` (a host chunk's uploads, to their end).
     """
     if isinstance(words, torch.Tensor):
         return _reduce(words, idx_d, valid_d, threshold)
@@ -267,14 +285,16 @@ def eval_chunk_cols(
     device = idx_d.device
     L, Wc = chunk.shape
     slab_w = max(int(budget_bytes // (L * 4)), 1)
-    if slab_w >= Wc:
-        return _reduce(chunk.columns(0, Wc, device), idx_d, valid_d, threshold)
+    prof = profile if profile is not None else {}
     parts = []
     for w0 in range(0, Wc, slab_w):
+        t0 = time.perf_counter()
         db = chunk.columns(w0, min(w0 + slab_w, Wc), device)
+        prof["upload_s"] = prof.get("upload_s", 0.0) + time.perf_counter() - t0
+        prof["slabs"] = prof.get("slabs", 0) + 1
         parts.append(_reduce(db, idx_d, valid_d, threshold))
         del db  # release before the next slab uploads
-    return np.concatenate(parts, axis=1)
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
 
 
 STAGE_BYTES = 64 << 20
@@ -515,8 +535,8 @@ def search_files_device(
     KWAGE_FUSION_BUDGET_BYTES (default 8 GiB); a single file wider than
     the budget streams in column slabs. Hit lists are identical to the
     host engine / reference binary. ``profile`` accumulates ``read_s``,
-    ``upload_s``, ``search_s`` (query prep, kernels and readback) and
-    ``hits_s`` (hit lists).
+    ``upload_s``, ``search_s`` (query prep, kernels and readback),
+    ``hits_s`` (hit lists) and ``slabs`` (a chunk streamed: its slabs).
     """
     from ..io.dbz_file import open_database
 
@@ -524,6 +544,7 @@ def search_files_device(
         return {}
     prof = profile if profile is not None else {}
     readers = [open_database(p) for p in db_paths]
+    check_device_filter_len(readers)
     budget = fusion_budget_bytes()
     qids = [qid for qid, _ in queries]
     buckets: dict[int, dict[int, list]] = {}
@@ -544,11 +565,14 @@ def search_files_device(
             batch_cache[param] = (torch.from_numpy(idx).to(device),
                                   torch.from_numpy(valid).to(device), nk)
         idx_d, valid_d, nk = batch_cache[param]
-        out = eval_chunk_cols(fused, idx_d, valid_d, threshold, budget)
+        uploaded = prof.get("upload_s", 0.0)
+        out = eval_chunk_cols(fused, idx_d, valid_d, threshold, budget, prof)
         del fused
         t1 = time.perf_counter()
         chunk_hits(out, nk, spans, readers, threshold, buckets, qids)
-        prof["search_s"] = prof.get("search_s", 0.0) + t1 - t0
+        # A host chunk's slab uploads count under upload_s alone.
+        prof["search_s"] = (prof.get("search_s", 0.0) + t1 - t0
+                            - (prof.get("upload_s", 0.0) - uploaded))
         prof["hits_s"] = prof.get("hits_s", 0.0) + time.perf_counter() - t1
     t0 = time.perf_counter()
     results = collect_results(buckets, readers, {})

@@ -26,6 +26,7 @@ import torch
 from ..ops.search import (
     HostChunk,
     _slices,
+    check_device_filter_len,
     chunk_words,
     collect_results,
     fusion_budget_bytes,
@@ -447,6 +448,7 @@ def build_sharded_groups(
     from ..io.dbz_file import open_database
 
     readers = [open_database(p) for p in db_paths]
+    check_device_filter_len(readers)
     if budget_bytes is None:
         budget_bytes = fusion_budget_bytes()
     n_shards = mesh.shape["filters"]

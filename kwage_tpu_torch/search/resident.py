@@ -26,6 +26,7 @@ import threading
 import torch
 
 from ..ops.search import (
+    check_device_filter_len,
     chunk_hits,
     chunk_words,
     collect_results,
@@ -66,6 +67,7 @@ class ResidentSearcher:
         self._budget_bytes = budget_bytes
         self.db_paths = list(db_paths)
         self._readers = [open_database(p) for p in self.db_paths]
+        check_device_filter_len(self._readers)
         self._groups = []  # (param, device tensor or HostChunk, spans)
         self.resident_bytes = 0
 

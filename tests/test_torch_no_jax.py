@@ -314,3 +314,25 @@ def test_remote_worker_and_a_small_cli_load_no_jax(tmp_path, golden_dir, data_di
     for gi in range(len(manifest["db_groups"])):
         got = hashlib.sha256((tmp_path / "database" / f"sra.{gi + 1}.db").read_bytes()).hexdigest()
         assert got == digests[f"sra.{gi}.db"], gi
+
+
+@pytest.mark.parametrize("program,argv,env", [
+    ("soak", ["2", "1003"], {}),
+    ("at_scale", ["{work}"], {"SCALE_N_ACC": "12", "SCALE_HALT": "8", "SCALE_GENOME": "3000",
+                              "SCALE_DEVICE_N": "2", "SCALE_REQUIRE_FULL": "0"}),
+    ("prod_l", ["{work}"], {"SCALE_N_ACC": "40", "SCALE_HALT": "36", "SCALE_GENOME": "3000",
+                            "SCALE_L": "16", "SCALE_DEVICE_N": "2", "SCALE_REQUIRE_FULL": "0"}),
+])
+def test_scale_programs_load_no_jax(tmp_path, program, argv, env):
+    """Each scale program, run whole on the CPU (the plain versions, tiny
+    knobs), exits 0 and loads neither jax nor kwage_tpu."""
+    argv = [a.format(work=tmp_path / "work") for a in argv]
+    code = (
+        "import sys\n"
+        f"from kwage_tpu_torch.scale.{program} import main\n"
+        f"assert main({argv!r}) == 0\n"
+        + ASSERT_CLEAN
+    )
+    res = _run(code, KWAGE_TORCH_DEVICE="cpu", TMPDIR=str(tmp_path), **env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert '"ok": true' in res.stdout or "0 failures" in res.stdout
