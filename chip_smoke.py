@@ -161,10 +161,36 @@ one line each; any failure raises and exits non-zero:
               device filters == exact ground truth), SriRachA at its tool's
               defaults and at k=11 on the LUT, serve at 4350 accessions (the
               resident renders == the host searcher's); their lines printed.
+15. tools -- the JAX package's last programs, each in a process of its
+              own on the card at its JAX tool's defaults, each exiting 0
+              only when its checks pass: bench.search_phases (2^22 x 512, 8 x
+              1024, nh 5: gather1, gather5_and, search_complete,
+              search_counts, each == its plain version first),
+              bench.sorted_gather, bench.ingest (== the host's exact count),
+              bench.build_phases (== exact ground truth), bench.sriracha_model
+              (== the host engine), bench.scaling (logical slots of the card
+              == one device), scale.distributed (1000 accessions, a
+              coordinator and 2 device worker processes, a single run, a
+              SIGKILLed worker; result sets equal, kwage --device == the
+              host engine) without its latency regime (SCALE_SKIP_LATENCY=1:
+              the smoke's time; the program runs whole apart), and
+              scale.dry_sched (50,000 accessions, no .bloom opened; its
+              checkpoints timed), which runs before phase 1, while the disk
+              holds nothing yet to write back; each cut, with its output
+              printed, where it would pass SMOKE_SECONDS less SMOKE_RESERVE
+              from the start; their lines
+              printed and their reported launches (the checks' left out)
+              counted as the path "tools". Then gather1 and gather5_and
+              (csrc/variants/search_phases.cu, built alone beside the
+              library) bit for bit against their plain versions at the
+              chunked layout's edges; at the main shape, search_phases'
+              own check and times.
 
 It ends with one JSON line a kernel (its shape on the main path, its time
-beside its bound, its launches on each path), the card's name and power
-limit, one JSON line of kernels and the line {"ok": true, "device": {...}}.
+beside its bound, its launches on each path; gather1 and gather5_and, which
+replace no TPU kernel, name the JAX phase function they stand for), the
+card's name and power limit, one JSON line of kernels and the line
+{"ok": true, "device": {...}}.
 Without a CUDA device it exits 1. The kernels (nvcc, kwage_tpu_torch/csrc)
 and the host library (g++, kwage_tpu_torch/native) build into
 build/kwage_tpu_torch/. Nothing of kwage_tpu or jax is imported: the host
@@ -220,6 +246,7 @@ from kwage_tpu_torch.cli.maestro import main as torch_maestro_main
 from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
 from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu_torch.core.params import BloomParam
+from kwage_tpu_torch.bench import search_phases
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
@@ -324,6 +351,35 @@ BENCH_RUNS = [
     ("sriracha", ["11", "128", "65536", "lut"], {}, 300),
     ("serve", [], {"SCALE_N_ACC": "4350"}, 400),
 ]
+# Phase 15: the JAX package's last programs (module, environment, seconds
+# allowed), each at its JAX tool's defaults; the distributed proof without
+# its latency regime (SCALE_SKIP_LATENCY=1, for the smoke's time; it runs
+# whole apart: README).
+TOOL_RUNS = [
+    ("bench.search_phases", {}, 300),
+    ("bench.sorted_gather", {}, 200),
+    ("bench.ingest", {}, 200),
+    ("bench.build_phases", {}, 200),
+    ("bench.sriracha_model", {}, 200),
+    ("bench.scaling", {}, 300),
+    ("scale.distributed", {"SCALE_SKIP_LATENCY": "1"}, 600),
+]
+# The dry scheduler runs before phase 1, on a disk nothing has written to
+# yet: its 28 checkpoints are fsynced, and an fsync waits on what the disk
+# still has to write. After phase 14's 17 GB .db it took 22.7-31.6 s and
+# once ran past 300 s; alone, 17.7-22.7 s.
+SCHEDULER_RUNS = [("scale.dry_sched", {}, 300)]
+# The smoke's limit, seconds from the start of main (the command's limit is
+# 1200 s): a phase-15 program is cut this long before it, with its output
+# printed, so that what follows it still runs and the cause is seen.
+SMOKE_SECONDS = 1200
+SMOKE_RESERVE = 60
+# The measurement-only kernels of phase 15 (csrc/variants/search_phases.cu):
+# they replace no TPU kernel; "replaces" names the JAX tool's phase function
+# each stands for.
+VARIANT_SOURCE = "kwage_tpu_torch/csrc/variants/search_phases.cu"
+VARIANT_OF = {"gather1": "tools/bench_search_phases.py:104",
+              "gather5_and": "tools/bench_search_phases.py:109"}
 # Paths (each driven with the launch counts zeroed just before it) and
 # the kernels each must launch.
 PATH_KERNELS = {
@@ -343,6 +399,9 @@ PATH_KERNELS = {
                 "bloom_set_bits"),
     "prod_l": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
                "bit_transpose", "search_complete", "search_counts", "search_total_hits"),
+    "tools": ("search_complete", "search_counts", "canonical_kmers", "radix_sort_pairs",
+              "select_runs", "bloom_set_bits", "sriracha_counts_hash", "bit_transpose",
+              "gather1", "gather5_and"),
 }
 # The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -1851,6 +1910,126 @@ def run_bench(device: torch.device, runs=BENCH_RUNS) -> None:
           flush=True)
 
 
+# --- phase 15: the JAX package's last programs ----------------------------------------
+
+def program_launches(rec: dict) -> dict:
+    """The launches a program's line reports: its own (``launches``) and
+    its device children's (``children``, the distributed proof's)."""
+    out = collections.Counter(rec.get("launches") or {})
+    for child in rec.get("children") or []:
+        out.update((child or {}).get("launches") or {})
+    return out
+
+
+def run_tools(device: torch.device, deadline: float, runs=TOOL_RUNS) -> tuple[dict, dict]:
+    """Phase 15: each program (``python3 -m kwage_tpu_torch.<module>``) in a
+    process of its own on the card; it must exit 0, which it does only when
+    its own checks pass (the gather kernels and the searches == their plain
+    versions; the ingest images == the host's exact count; the .bloom files
+    == exact ground truth; the SriRachA matches == the host engine's; the
+    mesh's counts == one device's; no .bloom opened by the dry scheduler;
+    every accession terminal and the result sets equal in the distributed
+    proof, its device search == the host engine's bytes). Each is allowed
+    its seconds, and no more than is left before ``deadline`` (a
+    ``time.perf_counter()`` reading). Every JSON line is printed here;
+    returns the launches the programs report (each process starts at zero:
+    the path's counts) and each program's last JSON object."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, KWAGE_TORCH_DEVICE=str(device),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    launches, last = collections.Counter(), {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_tools_") as out_dir:
+        for module, extra, timeout in runs:
+            name = module.split(".")[1]
+            t0 = time.perf_counter()
+            timeout = max(1.0, min(timeout, deadline - t0))
+            try:
+                res = subprocess.run(
+                    [sys.executable, "-m", f"kwage_tpu_torch.{module}", "--out",
+                     os.path.join(out_dir, f"{name}.json")],
+                    cwd=root, env={**env, **extra}, capture_output=True, text=True,
+                    timeout=timeout)
+            except subprocess.TimeoutExpired as e:
+                said = [(x or b"")[-3000:].decode(errors="replace") for x in (e.stdout, e.stderr)]
+                check(False, f"{module} {extra} ran past {timeout:.0f} s; its output: {said[0]}"
+                             f"; its errors: {said[1]}")
+            wall = time.perf_counter() - t0
+            lines = [line for line in res.stdout.splitlines() if line.startswith("{")]
+            check(res.returncode == 0 and lines,
+                  f"{module} {extra} exited {res.returncode}: {res.stderr[-3000:]}")
+            said = " ".join(f"{k}={v}" for k, v in extra.items())
+            for line in lines:
+                print(f"phase 15 tools {name} {said}: {line}", flush=True)
+                last[module] = json.loads(line)
+                launches.update(program_launches(last[module]))
+            print(f"phase 15 tools {name} {said}: exit 0 in {wall:.1f} s", flush=True)
+    cuts = "; ".join(f"{module} {k}={v}" for module, extra, _ in runs for k, v in extra.items())
+    print(f"phase 15 tools: {len(runs)} programs in {time.perf_counter() - t_phase:.1f} s"
+          + (f" (cut: {cuts})" if cuts else ""), flush=True)
+    return dict(launches), last
+
+
+# The chunked layout's edges: (tag, R, W, nq, nk, nh, valid positions a
+# query or None for all but every third, byte offset of db).
+VARIANT_SHAPES = [
+    ("W=131 shard", 4096, 131, 3, 77, 3, [77, 40, 0], 0),
+    ("nh=1, nk=33", 2048, 64, 2, 33, 1, [33, 1], 0),
+    ("nh=9 (at run time)", 2048, 64, 2, 100, 9, None, 0),
+    ("W=3, nk=1", 512, 3, 4, 1, NUM_HASH, [1, 0, 1, 1], 0),
+    ("db 4 bytes off 16", 1024, 512, 2, 64, NUM_HASH, None, 4),
+]
+
+
+def variant_checks(device: torch.device, seed: int, phases: dict) -> dict:
+    """gather1 and gather5_and (csrc/variants/search_phases.cu) against
+    their plain versions, bit for bit, at the chunked layout's edges (a W
+    with no multiple of 4: the 4-byte path; nk past a 32-k-mer chunk; nh = 1
+    and nh = 9, the run-time path; a query with no valid k-mer; valid flags
+    with holes; a db 4 bytes off a 16-byte boundary). The main shape's
+    check, time and plain time are ``bench.search_phases``' own from this
+    run's phase 15 (``phases``, its last line: 2^22 x 512, 8 x 1024 valid
+    k-mers, nh = 5, the kernels timed by CUDA-graph replays cycling 8 index
+    sets). Bound: bytes, the rows the valid k-mers gather (seed 0 alone for
+    gather1), idx, valid and the output word; operations, one XOR (or AND)
+    a gathered word."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = phases["shape"]
+    results = {}
+    for name in search_phases.ENTRIES:
+        r = phases["phases"][name]
+        results[name] = {"max_abs_err": r["max_abs_err"], "ms": r["ms_per_iter"],
+                         "plain_ms": r["plain_ms"], "library_ms": None,
+                         "shape": "R=2^{log2_rows} W={w} nq={nq} nk={nk} nh={seeds}".format(
+                             w=shape["row_bytes"] // 4, **shape),
+                         **bound(r["bytes"], r["operations"])}
+    for tag, R, W, nq, nk, nh, n_valid, offset in VARIANT_SHAPES:
+        base = random_words((R * W + offset // 4,), gen, device)
+        db = base[offset // 4:].view(R, W)
+        idx = torch.randint(0, R, (nq, nk, nh), dtype=torch.int32, device=device, generator=gen)
+        idx[0, 0, 0] = R - 1
+        if n_valid is None:
+            valid = torch.ones((nq, nk), dtype=torch.bool, device=device)
+            valid[:, 1::3] = False
+        else:
+            valid = torch.zeros((nq, nk), dtype=torch.bool, device=device)
+            for q, n in enumerate(n_valid):
+                valid[q, :n] = True
+            valid[0, 5::7] = False
+        for name, fn, ref in (("gather1", search_phases.gather1, search_phases.gather1_ref),
+                              ("gather5_and", search_phases.gather5_and,
+                               search_phases.gather5_and_ref)):
+            err = max_abs_err(fn(db, idx, valid), ref(db, idx, valid))
+            check(err == 0, f"{name} differs from its plain version at {tag}")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    print("phase 15 variants: gather1 and gather5_and == their plain versions at "
+          + ", ".join(t[0] for t in VARIANT_SHAPES) + "; main (bench.search_phases): " + "; ".join(
+              f"{k} {r['ms']:.4f} ms graph of a {r['bound_ms']:.4f} ms bound ({r['bound_by']}), "
+              f"plain {r['plain_ms']:.3f} ms" for k, r in results.items()), flush=True)
+    return results
+
+
 # --- phase 4: kernels against their plain versions ------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
@@ -3174,8 +3353,13 @@ def main(argv: list[str] | None = None) -> int:
     device = resolve_device("cuda")
     card = card_identity()
     t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"build: {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s; "
+    deadline = time.perf_counter() + SMOKE_SECONDS - SMOKE_RESERVE
+    with ThreadPoolExecutor(1) as pool:   # phase 15's variant library beside the library
+        variant = pool.submit(search_phases.get_lib)
+        lib = kernels.build()
+        variant.result()
+    print(f"build: {os.path.relpath(lib)} and {VARIANT_SOURCE} in "
+          f"{time.perf_counter() - t0:.1f} s; "
           f"torch {torch.__version__} CUDA {torch.version.cuda}; {card}", flush=True)
     t0 = time.perf_counter()
     check(native_available(), "the host library (native/kwage_native.cpp, g++) did not build")
@@ -3190,6 +3374,9 @@ def main(argv: list[str] | None = None) -> int:
         print(card)
         return 0
 
+    # Phase 15's dry scheduler first, on a disk nothing has written to yet
+    # (SCHEDULER_RUNS); it launches nothing.
+    scheduler, _ = run_tools(device, deadline, SCHEDULER_RUNS)
     # Each path runs with the launch counts zeroed just before it and read
     # just after; phase 4's comparison launches are not counted.
     paths = {}
@@ -3236,22 +3423,32 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
 
     results = phase_kernels(device, args.seed, shapes)
-    for path, names in PATH_KERNELS.items():
+    driven = {path: names for path, names in PATH_KERNELS.items() if path in paths}
+    for path, names in driven.items():
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was never launched: {paths[path]}")
-    launches = {k: sum(p[k] for p in paths.values()) for k in REPLACES}
-    check(all(launches[k] > 0 for k in REPLACES), f"a kernel was never launched: {launches}")
     print("phase 5 counts: " + "; ".join(
         f"{path} {{{', '.join(f'{k}: {paths[path][k]}' for k in names)}}}"
-        for path, names in PATH_KERNELS.items()), flush=True)
+        for path, names in driven.items()), flush=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kwage_tpu"))
     check(not loaded, f"jax or kwage_tpu was imported: {loaded}")
     torch.cuda.empty_cache()
     run_bench(device)
+    torch.cuda.empty_cache()
+    tools, reports = run_tools(device, deadline)
+    tools = collections.Counter(tools) + collections.Counter(scheduler)
+    paths["tools"] = {k: tools.get(k, 0) for k in [*REPLACES, *VARIANT_OF]}
+    check(all(paths["tools"][k] > 0 for k in PATH_KERNELS["tools"]),
+          f"a kernel of the tools path was never launched: {paths['tools']}")
+    print("phase 15 counts: " + json.dumps(paths["tools"]), flush=True)
+    results.update(variant_checks(device, args.seed, reports["bench.search_phases"]))
+    every = [*REPLACES, *VARIANT_OF]
+    launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in every}
+    check(all(launches[k] > 0 for k in every), f"a kernel was never launched: {launches}")
 
     # One line a kernel: its shape on the main path, its time beside its
     # bound there, and its launches on each path.
-    for k in REPLACES:
+    for k in every:
         r = results[k]
         print(json.dumps({
             "kernel": k, "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3262,19 +3459,21 @@ def main(argv: list[str] | None = None) -> int:
                                        "lsd_pass_operations_ms", "peak_bytes", "sync_ms",
                                        "launch_ms", "own_traffic_ms")
                if key in r},
-            "launches": {path: counts[k] for path, counts in paths.items() if counts[k]}}))
+            "launches": {path: counts[k] for path, counts in paths.items() if counts.get(k)}}))
     # The byte entry of bit_transpose: its launches count under that kernel.
     print(json.dumps(results["transpose_bits_device"]))
     print(card)
     # library_ms: compaction + torch.sort twice computes radix_sort_pairs'
     # function on the main path (the valid windows, sorted); no single
-    # PyTorch call computes any of the others.
+    # PyTorch call computes any of the others. gather1 and gather5_and
+    # replace no TPU kernel: "replaces" names the JAX phase function.
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+        {"name": k, "route": "cuda", "source": SOURCES.get(k, VARIANT_SOURCE),
+         "replaces": REPLACES.get(k) or VARIANT_OF[k],
          "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
-         "library_ms": results[k].get("library_ms")} for k in REPLACES]}))
+         "library_ms": results[k].get("library_ms")} for k in every]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,9 +10,12 @@ the CPU, for the tests; its figures are then the CPU's and say so.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -73,6 +76,29 @@ def print_device(device: torch.device) -> str:
     print(json.dumps({"device": str(device), "card": label, "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
     return label
+
+
+def phase_log(device: torch.device):
+    """The device line (``print_device``), then a ``scale._corpus.PhaseLog``
+    that stamps every phase line with the card's name and power limit (or
+    the CPU's note)."""
+    from ..scale._corpus import PhaseLog
+
+    return PhaseLog(device, {"card": print_device(device)})
+
+
+def out_arg(doc: str, argv: list[str] | None) -> argparse.Namespace:
+    """A program's ``--out PATH`` (its phase lines as one JSON list)."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    ap.add_argument("--out", help="where to write the phase lines as one JSON list "
+                                  "(default: NAME.json in the temporary directory)")
+    return ap.parse_args(argv)
+
+
+def out_path(out: str | None, name: str, work: str | None = None) -> str:
+    """``out``, else ``name``.json in ``work`` (default: the temporary
+    directory): never the working directory, which may be the repository."""
+    return out or os.path.join(work or tempfile.gettempdir(), f"{name}.json")
 
 
 def median_spread(values: list[float]) -> dict:

@@ -94,8 +94,12 @@ GRAPH_LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 2 * 64 * 132 * 1.98e9
 ONE_PIPE_OPS_PER_S = 63.5 * 132 * 1.98e9
-# C entries this tool alone calls: (out, grid, steps, mode, stream).
-_OWN_ENTRIES = {"int_roof": [_VP, _I64, _I64, _I64, _VP]}
+# C entries of the sources built alone: int_roof (out, grid, steps, mode,
+# stream); gather1 and gather5_and (variants/search_phases.cu, for
+# bench.search_phases) take search_complete's arguments.
+_OWN_ENTRIES = {"int_roof": [_VP, _I64, _I64, _I64, _VP],
+                "gather1": _ENTRIES["search_complete"],
+                "gather5_and": _ENTRIES["search_complete"]}
 # Entries whose arguments changed: name -> (the entry only the current
 # version has, the earlier version's argument types).
 _EARLIER = {
@@ -110,22 +114,37 @@ _EARLIER = {
 }
 
 
-def load(source: str, entries: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile ``source`` alone into a shared library (cached by its bytes
-    and those of a ``murmur.cuh`` beside it) and bind the ``entries`` it
-    exports."""
+def build_alone(source: str) -> tuple[str, str | None]:
+    """Compile ``source`` alone (``-I csrc/``) into a shared library under
+    BUILD_DIR, named by a sha256 of its bytes and of a ``murmur.cuh`` and a
+    ``search.cu`` beside it or in csrc/ (headers it may include); return
+    (its path, nvcc's report, or None when that build existed). The library
+    appears whole or not at all, so processes may build it at once."""
     tag = hashlib.sha256()
-    for path in (source, os.path.join(os.path.dirname(source), "murmur.cuh")):
+    for path in (source, *(os.path.join(d, name) for d in (os.path.dirname(source), CSRC_DIR)
+                           for name in ("murmur.cuh", "search.cu"))):
         if os.path.exists(path):
             with open(path, "rb") as f:
                 tag.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"libtime_kernel_{tag.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-shared", "-o", so, source],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        print(f"{source}:\n{ptxas_report(res.stdout)}", flush=True)
-        res.check_returncode()
+    if os.path.exists(so):
+        return so, None
+    tmp = f"{so}.{os.getpid()}"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-shared", "-o", tmp, source],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed ({res.returncode}) on {source}:\n{res.stdout}")
+    os.replace(tmp, so)
+    return so, res.stdout
+
+
+def load(source: str, entries: tuple[str, ...]) -> ctypes.CDLL:
+    """Compile ``source`` alone (``build_alone``) and bind the ``entries``
+    it exports."""
+    so, report = build_alone(source)
+    if report is not None:
+        print(f"{source}:\n{ptxas_report(report)}", flush=True)
     lib = ctypes.CDLL(so)
     for name in entries:
         if not hasattr(lib, "kw_" + name):

@@ -166,11 +166,11 @@ def total_hits_ref(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
 # --- kernel wrappers ----------------------------------------------------------
 
 def _launch_search(name: str, db, idx, valid, out: torch.Tensor,
-                   threshold_count: torch.Tensor | None = None) -> torch.Tensor:
+                   threshold_count: torch.Tensor | None = None, launch=None) -> torch.Tensor:
     """Check the arguments and launch search kernel ``name`` into ``out``
-    (int32, nq rows) on the current stream of db's device. What the checks
-    need from the device (idx's range, the least threshold) comes back in
-    one host read."""
+    (int32, nq rows) on the current stream of db's device, through
+    ``launch`` (default ``kernels.launch``). What the checks need from the
+    device (idx's range, the least threshold) comes back in one host read."""
     nq, nk, nh = idx.shape
     R, W = db.shape
     if db.dtype != torch.int32 or idx.dtype != torch.int32 or valid.dtype != torch.bool:
@@ -205,8 +205,8 @@ def _launch_search(name: str, db, idx, valid, out: torch.Tensor,
                                   device=db.device)
             ptrs += [threshold_count.contiguous().data_ptr(), out.data_ptr(),
                      scratch.data_ptr()]
-        kernels.launch(name, *ptrs, nq, nk, nh, W,
-                       torch.cuda.current_stream(db.device).cuda_stream)
+        (launch or kernels.launch)(name, *ptrs, nq, nk, nh, W,
+                                   torch.cuda.current_stream(db.device).cuda_stream)
     return out
 
 

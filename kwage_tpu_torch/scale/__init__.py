@@ -10,7 +10,12 @@ JAX program:
   search streaming it, the mesh wave plan and the device build at L=26;
 - ``python3 -m kwage_tpu_torch.scale.soak``: ``tools/soak_parity.py``,
   randomized parity of the device filter, the device search and the host
-  engine (and the reference binary, where it is built).
+  engine (and the reference binary, where it is built);
+- ``python3 -m kwage_tpu_torch.scale.distributed``:
+  ``tools/run_at_scale_distributed.py``, the work queue's coordinator and
+  device worker processes, a killed worker and the latency regime;
+- ``python3 -m kwage_tpu_torch.scale.dry_sched``: ``tools/dry_sched_50k.py``,
+  the scheduler alone at 50,000 accessions.
 
 Each keeps its JAX program's environment knobs and defaults, runs on the
 card unless ``KWAGE_TORCH_DEVICE=cpu`` (and raises without one), prints

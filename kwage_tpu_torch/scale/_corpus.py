@@ -1,4 +1,4 @@
-"""What the scale programs share: the seeded corpus of the JAX tools, the
+"""What the scale programs share: the seeded corpora of the JAX tools, the
 phase logger, the quota table, the machine check and the exact ground
 truth of a built accession.
 
@@ -8,7 +8,9 @@ genome of ``genome_bp`` bases and ``genome_bp * coverage // READ_LEN``
 reads of READ_LEN bases at random starts, one FASTA record a read, every
 draw from one ``default_rng(seed)`` in the same order, so the same seed
 and knobs give the same bytes; a 400 bp slice (bases 1000-1400) of the
-genomes at the ``query_at`` indices is the query set.
+genomes at the ``query_at`` indices is the query set. The distributed
+proof's corpus (``generate_dscale``) is that tool's own: Python's
+``random.Random(20260818)``, records of up to 3000 bases.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import random
 import resource
 import shutil
 
@@ -72,6 +75,76 @@ def generate(work: str, n_acc: int, genome_bp: int, coverage: int, seed: int,
     return Corpus(src, inv, accs, n_reads * READ_LEN, queries)
 
 
+# The distributed proof's corpus (tools/run_at_scale_distributed.py:165-177).
+DSCALE_SEED = 20260818
+DSCALE_RECORD = 150 * 20   # bases a FASTA record holds at most
+
+
+def _choices_acgt(rng: random.Random, n: int) -> np.ndarray:
+    """``n`` draws of ``rng.choice("ACGT")`` as codes 0-3, leaving ``rng``
+    where those calls would. ``choice`` of 4 items draws
+    ``getrandbits(3)`` (the top 3 bits of one 32-bit word) and draws again
+    above 3; so the draws are the top 3 bits
+    of the next words, those above 3 skipped. The words come in bulk
+    (``getrandbits``, first word lowest), then the generator is set back
+    and advanced by the words the n draws used."""
+    parts, have = [], 0
+    while have < n:
+        need = n - have
+        m = 2 * need + 64
+        state = rng.getstate()
+        top = np.frombuffer(rng.getrandbits(32 * m).to_bytes(4 * m, "little"),
+                            dtype=np.uint32) >> np.uint32(29)
+        ok = np.flatnonzero(top < 4)
+        if ok.size >= need:
+            rng.setstate(state)
+            rng.getrandbits(32 * int(ok[need - 1] + 1))
+            ok = ok[:need]
+        parts.append(top[ok])
+        have += ok.size
+    return np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+
+
+@dataclasses.dataclass
+class DscaleCorpus:
+    src: str                          # one <accession>.fasta a run
+    inv: str                          # the inventory
+    accessions: list[str]
+    infos: list[FilterInfo]
+    queries: list[tuple[str, str]]    # (q<i>, the first 200 bases of a run's first record)
+
+
+def generate_dscale(work: str, n_acc: int, genome_bp: int, coverage: int) -> DscaleCorpus:
+    """Write the distributed proof's corpus under ``work`` (``src/`` and
+    ``inventory.bin``), byte for byte the JAX tool's: one
+    ``random.Random(20260818)``; for SRR9000000 + i a genome of
+    ``genome_bp`` ``rng.choice("ACGT")`` bases, then ``coverage`` records of
+    up to 3000 bases from ``rng.randrange(0, genome_bp - 150)``; then 4
+    queries, the first 200 bases of a random accession's first record."""
+    rng = random.Random(DSCALE_SEED)
+    src = os.path.join(work, "src")
+    os.makedirs(src, exist_ok=True)
+    accs, infos = [], []
+    for i in range(n_acc):
+        acc = f"SRR{9000000 + i}"
+        g = _LUT[_choices_acgt(rng, genome_bp)].tobytes().decode()
+        with open(os.path.join(src, acc + ".fasta"), "w") as f:
+            for r in range(coverage):
+                a = rng.randrange(0, max(1, genome_bp - 150))
+                f.write(f">r{r}\n{g[a:a + DSCALE_RECORD]}\n")
+        accs.append(acc)
+        infos.append(FilterInfo(run_accession=str_to_accession(acc),
+                                number_of_bases=genome_bp * coverage))
+    inv = os.path.join(work, "inventory.bin")
+    write_inventory(inv, infos)
+    queries = []
+    for i in range(4):
+        with open(os.path.join(src, f"SRR{9000000 + rng.randrange(n_acc)}.fasta")) as g:
+            g.readline()
+            queries.append((f"q{i}", g.readline().strip()[:200]))
+    return DscaleCorpus(src, inv, accs, infos, queries)
+
+
 def write_queries(path: str, queries: list[tuple[str, str]]) -> None:
     with open(path, "w") as f:
         for acc, q in queries:
@@ -79,11 +152,14 @@ def write_queries(path: str, queries: list[tuple[str, str]]) -> None:
 
 
 def fasta_reads(path: str) -> np.ndarray:
-    """The reads of one corpus FASTA (one line a record) as ASCII uint8
-    [n, READ_LEN]."""
+    """The records of a corpus FASTA (one line a sequence) as ASCII uint8
+    [n, the longest]: READ_LEN wide for the seeded corpus; a shorter record
+    (the distributed proof's) padded with N, which no k-mer spans."""
     with open(path, "rb") as f:
         seqs = f.read().split(b"\n")[1::2]
-    return np.frombuffer(b"".join(seqs), dtype=np.uint8).reshape(len(seqs), READ_LEN)
+    width = max(map(len, seqs), default=0)
+    return np.frombuffer(b"".join(s.ljust(width, b"N") for s in seqs),
+                         dtype=np.uint8).reshape(len(seqs), width)
 
 
 def bloom_matches_truth(bloom_path: str, fasta_path: str, min_count: int,
@@ -124,17 +200,19 @@ def rss_now_mb() -> float:
 class PhaseLog:
     """One JSON line a phase, with the peak host RSS so far, the resident
     memory now and the peak device memory of the phase (the count is reset
-    after each line)."""
+    after each line); ``stamp`` (the card's identity, say) goes into every
+    line."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stamp: dict | None = None):
         self.device = device
+        self.stamp = stamp or {}
         self.results: list[dict] = []
         if device.type == "cuda":
             torch.cuda.init()   # the memory statistics need the allocator up
             torch.cuda.reset_peak_memory_stats(device)
 
     def log(self, phase: str, **kw) -> dict:
-        rec = {"phase": phase, **kw, "peak_rss_mb": round(peak_rss_mb(), 1),
+        rec = {"phase": phase, **kw, **self.stamp, "peak_rss_mb": round(peak_rss_mb(), 1),
                "rss_now_mb": rss_now_mb(),
                "peak_device_bytes": peak_device_bytes(self.device)}
         if self.device.type == "cuda":

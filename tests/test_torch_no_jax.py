@@ -322,6 +322,9 @@ def test_remote_worker_and_a_small_cli_load_no_jax(tmp_path, golden_dir, data_di
                               "SCALE_DEVICE_N": "2", "SCALE_REQUIRE_FULL": "0"}),
     ("prod_l", ["{work}"], {"SCALE_N_ACC": "40", "SCALE_HALT": "36", "SCALE_GENOME": "3000",
                             "SCALE_L": "16", "SCALE_DEVICE_N": "2", "SCALE_REQUIRE_FULL": "0"}),
+    ("dry_sched", ["--out", "{work}.json"], {"DRY_N": "300"}),
+    ("distributed", ["{work}"], {"SCALE_N_ACC": "6", "SCALE_GENOME": "1500",
+                                 "SCALE_SKIP_CRASH": "1", "SCALE_SKIP_LATENCY": "1"}),
 ])
 def test_scale_programs_load_no_jax(tmp_path, program, argv, env):
     """Each scale program, run whole on the CPU (the plain versions, tiny
@@ -336,3 +339,33 @@ def test_scale_programs_load_no_jax(tmp_path, program, argv, env):
     res = _run(code, KWAGE_TORCH_DEVICE="cpu", TMPDIR=str(tmp_path), **env)
     assert res.returncode == 0, res.stderr[-3000:]
     assert '"ok": true' in res.stdout or "0 failures" in res.stdout
+
+
+@pytest.mark.parametrize("program,env", [
+    ("search_phases", {"BENCH_LOG2_L": "10", "BENCH_NQ": "2", "BENCH_NK": "64"}),
+    ("sorted_gather", {"LOG2_L": 10, "N": 1024}),
+    ("ingest", {"INGEST_ACCS": "2", "INGEST_READS": "32", "INGEST_LEN": "64",
+                "INGEST_LOG2L": "12"}),
+    ("build_phases", {"PH_N_ACC": "2", "PH_BP": "12000", "PH_REPS": "1"}),
+    ("sriracha_model", {"SRIRACHA_NREADS": "600"}),
+    ("scaling", {"SCALING_LOG2_L": "9", "SCALING_W_PER_DEV": "8", "SCALING_NQ": "2",
+                 "SCALING_NK": "48", "LOGICAL": 2}),
+])
+def test_tool_programs_load_no_jax(tmp_path, program, env):
+    """The counterparts of the JAX package's last programs
+    (kwage_tpu_torch.bench), each run whole on the CPU with tiny knobs (the
+    JAX tools' env knobs; a shape the tool fixed is set on the module),
+    exit 0 and load neither jax nor kwage_tpu."""
+    fixed = {k: v for k, v in env.items() if not isinstance(v, str)}
+    env = {k: v for k, v in env.items() if isinstance(v, str)}
+    code = (
+        "import sys\n"
+        f"import kwage_tpu_torch.bench.{program} as program\n"
+        f"for name, value in {fixed!r}.items():\n"
+        "    setattr(program, name, value)\n"
+        f"assert program.main(['--out', {str(tmp_path / 'out.json')!r}]) == 0\n"
+        + ASSERT_CLEAN
+    )
+    res = _run(code, KWAGE_TORCH_DEVICE="cpu", TMPDIR=str(tmp_path), **env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads((tmp_path / "out.json").read_text())
