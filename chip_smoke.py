@@ -16,12 +16,20 @@ one line each; any failure raises and exits non-zero:
               the port's device transpose; its sha256 must equal the host
               builder's.
 2. search  -- the port's ``kwage --device`` over the fused copies with 64
-              queries, at -t 1.0 and -t 0.5: output bytes must equal the
-              host engine's, and the hits must be exactly the planted ones.
+              queries, at -t 1.0 and -t 0.5, by both routes of the device
+              search (``gather``: only the slice rows the batch touches go
+              to the card; ``full``: the whole chunk, GATHER_SHARE set to
+              0): output bytes must equal the host engine's, and the hits
+              must be exactly the planted ones. Each device call's route,
+              rows, gathered bytes and steps (read, gather, upload, search,
+              hit lists) are printed, beside the pinned and the pageable
+              host-to-device rate of a 1 GiB copy (CUDA events).
 3. serve   -- the port's SearchServer(engine="device") answers the same
-              requests over loopback; the bytes must equal phase 2's.
-              Phase 2 also prints the step times of one device search call
-              (read, upload, search, hit lists).
+              requests over loopback; the bytes must equal phase 2's. Then
+              a ResidentSearcher under half the corpus's bytes (some files
+              resident, the rest streamed per request) renders phase 2's
+              bytes by both routes, the gather route's host chunks as
+              gathered rows.
 6. ingest  -- the port's ``kwage-maestro-torch --device-build
               --device-transpose`` over 14 accessions of a 400 kbp genome at
               15x (fused batch) and 2 of a 4.6 Mbp genome at 10x (chunked),
@@ -97,9 +105,13 @@ one line each; any failure raises and exits non-zero:
               transpose (2048 filters, 16 GiB, 32 chunks of 2^21 bits), whose
               sha256 equals the host pack's, computed chunk by chunk and never
               written (each chunk also equal to the file's rows). The two
-              files searched by ``kwage-torch --device`` (the 16 GiB file in
-              slabs of the 8 GiB default budget) at -t 1.0 JSON and -t 0.8 CSV
-              == the host engine, with the step times and the upload's GB/s;
+              files searched by ``kwage-torch --device`` (the gather route:
+              the rows the queries touch) at -t 1.0 JSON and -t 0.8 CSV
+              == the host engine, each call's route, rows and steps; then
+              once more at -t 0.8 by the full route (the 16 GiB file in
+              column slabs of the 8 GiB default budget) == the host
+              engine, its peak device memory within the budget, with the
+              step times and the upload's GB/s;
               complete reads hit their accession's 33 filters; a
               ResidentSearcher (17 GiB budget) holding both (both cases),
               and a MeshResidentSearcher on 4 logical shards of 2 GiB (the
@@ -248,6 +260,7 @@ from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu_torch.core.params import BloomParam
 from kwage_tpu_torch.bench import search_phases
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
+from kwage_tpu_torch.bench.search_routes import H2D_BYTES, h2d_rates
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
 from kwage_tpu_torch.io.binary import BinaryReader, BinaryWriter
@@ -522,6 +535,66 @@ def csv_hits(text: str) -> collections.Counter:
 
 # --- phases 1-3: the main path -------------------------------------------------
 
+@contextlib.contextmanager
+def search_steps(steps: dict):
+    """Inside, every ``search_files_device`` call (the kwage CLI's --device
+    path on one card) adds its step times to ``steps``."""
+    real = ts.search_files_device
+
+    def profiled(*args, **kwargs):
+        return real(*args, **{**kwargs, "profile": steps})
+
+    ts.search_files_device = profiled
+    try:
+        yield steps
+    finally:
+        ts.search_files_device = real
+
+
+@contextlib.contextmanager
+def gather_share(share: float):
+    """Inside, ``ops.search.GATHER_SHARE`` is ``share``: 0 sends every host
+    chunk by the full route."""
+    real = ts.GATHER_SHARE
+    ts.GATHER_SHARE = share
+    try:
+        yield
+    finally:
+        ts.GATHER_SHARE = real
+
+
+@contextlib.contextmanager
+def counted_gathers():
+    """Inside, every chunk of gathered rows that ``ops.search.eval_chunk_cols``
+    uploads (a ``HostChunk`` with ``rows``) appends its (rows, words) to
+    the list yielded."""
+    real, shapes = ts.eval_chunk_cols, []
+
+    def counting(words, *args, **kwargs):
+        if isinstance(words, ts.HostChunk) and words.rows is not None:
+            shapes.append(words.shape)
+        return real(words, *args, **kwargs)
+
+    ts.eval_chunk_cols = counting
+    try:
+        yield shapes
+    finally:
+        ts.eval_chunk_cols = real
+
+
+def fmt_steps(steps: dict) -> str:
+    """A device search call's profile on one line."""
+    parts = []
+    for k, v in steps.items():
+        if isinstance(v, dict):
+            parts.append(f"{k} " + "/".join(f"{a} {n}" for a, n in v.items()))
+        elif isinstance(v, float):
+            parts.append(f"{k} {v:.4f} s")
+        else:
+            parts.append(f"{k} {v}")
+    return ", ".join(parts)
+
+
 def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
                   copies: int, seed: int) -> dict:
     """Phases 1-3 through the port's entry points; returns phase 2's
@@ -559,34 +632,51 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
         os.link(dev_db, files[-1])
     seqs = [q for q, _, _ in queries]
     base = [a for f in files for a in ("-d", f)]
-    outputs, times = {}, []
+    outputs, times, calls = {}, [], []
+    # (name, GATHER_SHARE or None for the host engine, kwage's extra flags)
+    runs = (("gather", ts.GATHER_SHARE, ["--device"]), ("full", 0.0, ["--device"]),
+            ("host", None, []))
     for threshold, fmt in CASES:
         got = {}
-        for name, main, extra in (("device", torch_kwage_main, ["--device"]),
-                                  ("host", torch_kwage_main, [])):
+        for name, share, extra in runs:
             out = os.path.join(work, f"{name}.out")
+            steps: dict = {}
             t0 = time.perf_counter()
-            rc = main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out] + extra + seqs)
+            with (search_steps(steps) if share is not None else contextlib.nullcontext()), \
+                    gather_share(ts.GATHER_SHARE if share is None else share):
+                rc = torch_kwage_main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out]
+                                      + extra + seqs)
             times.append(f"{name} t={threshold} {fmt} {time.perf_counter() - t0:.2f} s")
             check(rc == 0, f"{name} kwage exited {rc}")
+            if share is not None:
+                check(steps["route"][name] == 1 and sum(steps["route"].values()) == 1,
+                      f"the {name} call took another route: {steps}")
+                calls.append(f"{name} t={threshold} {fmt}: {fmt_steps(steps)}")
             with open(out) as f:
                 got[name] = f.read()
-        check(got["device"] == got["host"],
-              f"--device output differs from the host engine at -t {threshold} {fmt}")
+        for name in ("gather", "full"):
+            check(got[name] == got["host"], f"--device output by the {name} route differs "
+                                            f"from the host engine at -t {threshold} {fmt}")
         if fmt == "csv":
-            check(csv_hits(got["device"]) == expected_hits(queries, holders, threshold, copies),
+            check(csv_hits(got["host"]) == expected_hits(queries, holders, threshold, copies),
                   f"hits at -t {threshold} are not exactly the planted ones")
-        outputs[(threshold, fmt)] = got["device"]
+        outputs[(threshold, fmt)] = got["host"]
     n_hits = sum(expected_hits(queries, holders, 0.5, copies).values())
-    steps: dict = {}
-    t0 = time.perf_counter()
-    ts.search_files_device(files, list(enumerate(seqs)), 0.5, device, profile=steps)
-    t_call = time.perf_counter() - t0
+    one_call = []
+    for name, share, _ in runs[:2]:
+        steps = {}
+        t0 = time.perf_counter()
+        with gather_share(share):
+            ts.search_files_device(files, list(enumerate(seqs)), 0.5, device, profile=steps)
+        one_call.append(f"{name} {time.perf_counter() - t0:.4f} s ({fmt_steps(steps)})")
+    rates = h2d_rates(device)
     print(f"phase 2 search: {len(queries)} queries x {copies} fused files "
-          f"(W={copies * ((n_filter + 31) // 32)}), bytes == host engine, "
-          f"{n_hits} planted hits at -t 0.5; {'; '.join(times)}; steps of one device "
-          f"search call ({t_call:.3f} s): "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()), flush=True)
+          f"(W={copies * ((n_filter + 31) // 32)}), bytes == host engine by both routes, "
+          f"{n_hits} planted hits at -t 0.5; {'; '.join(times)}; the device calls: "
+          f"{'; '.join(calls)}; one device search call at -t 0.5 by each route: "
+          f"{'; '.join(one_call)}; host-to-device "
+          + (", ".join(f"{k} {v:.3f}" for k, v in rates.items()) if rates else "not measured")
+          + f" ({H2D_BYTES} B copies)", flush=True)
 
     # Phase 3: the resident server answers the same requests.
     t0 = time.perf_counter()
@@ -611,9 +701,32 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
     finally:
         server.shutdown()
     del server
+    # The server's streamed groups: half the corpus's bytes keeps some files
+    # resident and streams the rest per request, by each route.
+    total = sum(os.path.getsize(f) for f in files)
+    t0 = time.perf_counter()
+    streamed = ResidentSearcher(files, device, budget_bytes=total // 2)
+    t_part = time.perf_counter() - t0
+    hosted = sum(1 for _, db, _ in streamed._groups if isinstance(db, ts.HostChunk))
+    check(hosted > 0, "the half-budget searcher streams no group")
+    part_lat = []
+    for name, share, _ in runs[:2]:
+        with gather_share(share), counted_gathers() as gathered:
+            for threshold, fmt in CASES:
+                t0 = time.perf_counter()
+                out = streamed.render(seqs, threshold, fmt)
+                part_lat.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f} ms")
+                check(out == outputs[(threshold, fmt)], f"the half-budget searcher by the "
+                                                        f"{name} route differs at -t {threshold} {fmt}")
+        check(len(gathered) == (hosted * len(CASES) if name == "gather" else 0),
+              f"{name} route: {len(gathered)} gathers for {hosted} streamed groups")
     print(f"phase 3 serve: {resident} B resident, load {t_load:.2f} s, "
           f"{len(CASES)} requests == phase 2 bytes, latency "
-          + ", ".join(f"{x * 1e3:.1f} ms" for x in lat), flush=True)
+          + ", ".join(f"{x * 1e3:.1f} ms" for x in lat)
+          + f"; a ResidentSearcher at {total // 2} B: {streamed.resident_bytes} B resident, "
+          f"{hosted} groups streamed, load {t_part:.2f} s, renders == phase 2 bytes by both "
+          f"routes: " + ", ".join(part_lat), flush=True)
+    del streamed
     return {"outputs": outputs, "files": files, "seqs": seqs}
 
 
@@ -1561,22 +1674,6 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict,
 
 # --- phase 14: the production-L path (L=26, a full quota file) ----------------------
 
-@contextlib.contextmanager
-def search_steps(steps: dict):
-    """Inside, every ``search_files_device`` call (the kwage CLI's --device
-    path on one card) adds its step times to ``steps``."""
-    real = ts.search_files_device
-
-    def profiled(*args, **kwargs):
-        return real(*args, **{**kwargs, "profile": steps})
-
-    ts.search_files_device = profiled
-    try:
-        yield steps
-    finally:
-        ts.search_files_device = real
-
-
 def db_tail(infos, info_start: int) -> bytes:
     """What a .db holds after its slices (io.db_file.write_db_file_streaming):
     the FilterInfo records' absolute offsets, then the records."""
@@ -1774,20 +1871,23 @@ def run_prod_l(work: str, device: torch.device, seed: int, log2_len: int = PROD_
     files = [full, partial]
     matrix_bytes = ts.chunk_words([open_database(f) for f in files], [0, 1]) * (1 << log2_len) * 4
     check(size > ts.fusion_budget_bytes(), "the full file fits the fusion budget: no slabs")
-    outputs, times, steps = {}, [], {}
+    outputs, times, calls = {}, [], []
     base = [a for f in files for a in ("-d", f)]
     for threshold, fmt in PROD_CASES:
         got = {}
         for name, extra in (("device", ["--device"]), ("host", [])):
             out = os.path.join(work, f"{name}.out")
+            steps = {}
             t0 = time.perf_counter()
-            if name == "device":
-                steps = {}   # the last device call's steps are printed
             with search_steps(steps) if name == "device" else contextlib.nullcontext():
                 rc = torch_kwage_main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out]
                                       + extra + seqs)
             times.append(f"{name} t={threshold} {fmt} {time.perf_counter() - t0:.2f} s")
             check(rc == 0, f"{name} kwage exited {rc}")
+            if name == "device":
+                check(steps["route"] == {"gather": 2, "full": 0},
+                      f"the device call did not gather both files' rows: {steps}")
+                calls.append(f"t={threshold} {fmt}: {fmt_steps(steps)}")
             with open(out) as f:
                 got[name] = f.read()
         check(got["device"] == got["host"],
@@ -1799,24 +1899,45 @@ def run_prod_l(work: str, device: torch.device, seed: int, log2_len: int = PROD_
         hits = [accession_to_str(m.subject_info.run_accession) for m in host[1.0][first + i]]
         check(hits.count(acc) == copies + 1,
               f"complete read of {acc}: {hits.count(acc)} hits at -t 1.0, {copies + 1} expected")
-    check(steps.get("slabs", 0) >= 2, f"the full file did not stream in slabs: {steps}")
-    print(f"phase 14 search: {len(seqs)} queries ({len(corpus.queries)} planted 400 bp, "
-          f"{len(owners)} complete reads, {PROD_RANDOM_QUERIES} random) over the full and the "
-          f"partial .db (W={-(-len(repeated) // 32)} + {-(-n_acc // 32)}), kwage --device == "
-          f"host engine at " + ", ".join(f"-t {t} {f}" for t, f in PROD_CASES) + "; "
-          + "; ".join(times) + f"; the last device call: the full file in "
-          f"{steps['slabs']} slabs of the {ts.fusion_budget_bytes()} B budget, "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items() if k != "slabs")
-          + f", upload {matrix_bytes / steps['upload_s'] / 1e9:.2f} GB/s", flush=True)
 
-    # The resident searcher, then the mesh on logical shards of the card;
-    # each, dropped, frees its device memory at once (no gc.collect()).
     def allocated():
         if cuda:
             torch.cuda.synchronize()
             return torch.cuda.memory_allocated(device)
         return 0
 
+    # The full route once (path B): the full file in column slabs.
+    threshold, fmt = PROD_CASES[-1]
+    out, steps = os.path.join(work, "streamed.out"), {}
+    base_mem = allocated()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with search_steps(steps), gather_share(0.0):
+        rc = torch_kwage_main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out, "--device"]
+                              + seqs)
+    t_streamed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base_mem if cuda else 0
+    check(rc == 0, f"the streamed kwage --device exited {rc}")
+    with open(out) as f:
+        check(f.read() == outputs[(threshold, fmt)],
+              f"the streamed --device output differs from the host engine at -t {threshold} {fmt}")
+    check(steps["route"] == {"gather": 0, "full": 2} and steps.get("slabs", 0) >= 2,
+          f"the full file did not stream in slabs: {steps}")
+    check(peak <= ts.fusion_budget_bytes(),
+          f"the streamed call's peak device memory {peak} B passes the budget")
+    print(f"phase 14 search: {len(seqs)} queries ({len(corpus.queries)} planted 400 bp, "
+          f"{len(owners)} complete reads, {PROD_RANDOM_QUERIES} random) over the full and the "
+          f"partial .db (W={-(-len(repeated) // 32)} + {-(-n_acc // 32)}), kwage --device == "
+          f"host engine at " + ", ".join(f"-t {t} {f}" for t, f in PROD_CASES) + "; "
+          + "; ".join(times) + "; the gather route's calls: " + "; ".join(calls)
+          + f"; by the full route at -t {threshold} {fmt} == host engine in {t_streamed:.2f} s: "
+          f"the full file in {steps['slabs']} slabs of the {ts.fusion_budget_bytes()} B budget, "
+          f"peak device memory {peak} B, " + fmt_steps(steps)
+          + f", upload {matrix_bytes / steps['upload_s'] / 1e9:.2f} GB/s", flush=True)
+
+    # The resident searcher, then the mesh on logical shards of the card;
+    # each, dropped, frees its device memory at once (no gc.collect()).
     base_mem = allocated()
     t0 = time.perf_counter()
     resident = ResidentSearcher(files, device, budget_bytes=resident_budget)

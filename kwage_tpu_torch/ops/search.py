@@ -20,12 +20,18 @@ Each wrapper launches its CUDA kernel (``csrc/search.cu``) on a CUDA
 tensor and runs its plain PyTorch version (``complete_ref`` /
 ``counts_ref`` / ``total_hits_ref``) on a CPU tensor. The fusion, slab and ordering rules of
 the JAX module are kept, so hit lists stay identical to the host engine.
+Where the JAX module uploads every row of a host chunk, the multi-file
+search uploads only the rows a query batch touches when they are few
+(``search_chunk``'s gather route), and streams a chunk past its budget
+in column slabs staged ahead on reader threads (``eval_chunk_cols``).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -254,10 +260,47 @@ def search_total_hits(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
 
 # --- chunked / multi-file search ----------------------------------------------
 
-def _reduce(db: torch.Tensor, idx_d, valid_d, threshold: float) -> np.ndarray:
+# A query batch whose distinct slice rows are at most this share of the
+# filter length, for each column slab the whole chunk would stream in,
+# uploads only those rows ("gather"); above it the chunk goes to the
+# device whole or in column slabs ("full"), and each slab reads every row
+# of the files again. On an H100's host (bench.search_routes, PERF.md):
+# 8 fused 1 GiB files at L=22, one slab: the gather of 30% of the rows
+# costs about what the whole upload does; one 16 GiB file at L=26, three
+# slabs: the gather of 50% still takes about half of the full route.
+GATHER_SHARE = 0.25
+# Threads that fill a staging block: a file piece each, split by rows so
+# that a block is READER_THREADS jobs however many files it spans.
+READER_THREADS = 8
+
+
+def _reduce(db: torch.Tensor, idx_d, valid_d, threshold: float) -> torch.Tensor:
+    """Complete mask (threshold 1.0) or hit counts of ``db``, on its device."""
     if threshold == 1.0:
-        return tensor_to_words(search_complete(db, idx_d, valid_d))
-    return search_counts(db, idx_d, valid_d).cpu().numpy()
+        return search_complete(db, idx_d, valid_d)
+    return search_counts(db, idx_d, valid_d)
+
+
+def _to_host(out: torch.Tensor, threshold: float) -> np.ndarray:
+    return tensor_to_words(out) if threshold == 1.0 else out.cpu().numpy()
+
+
+def _add(prof: dict, key: str, value) -> None:
+    prof[key] = prof.get(key, 0) + value
+
+
+def _slab_words(L: int, W: int, budget_bytes: int, result_word_bytes: int) -> int:
+    """Words a slab for a host chunk of [L, W] words. One within
+    ``budget_bytes`` goes up whole, in one slab (the budget counts a
+    chunk's rows, as ``group_file_chunks`` does). A wider one streams
+    through one device buffer that shares the budget with the device
+    output and one slab's result (``result_word_bytes`` a word each; the
+    query batch is not counted), of one word column at the least (a budget
+    below that is passed by what lies beside it)."""
+    col = 4 * L
+    if col * W <= budget_bytes:
+        return W
+    return max((budget_bytes - result_word_bytes * W) // (col + result_word_bytes), 1)
 
 
 def eval_chunk_cols(
@@ -273,28 +316,52 @@ def eval_chunk_cols(
 
     ``words`` is a device-resident int32 tensor (searched in one kernel
     call), a ``HostChunk`` or a host uint32 [L, W] matrix. A host chunk
-    wider than ``budget_bytes`` streams through the device in column slabs
-    of ``budget_bytes // (L * 4)`` words, each uploaded (through pinned
-    staging) as its own contiguous buffer and released before the next
-    upload (peak device memory: one slab). ``profile`` accumulates
-    ``slabs`` and ``upload_s`` (a host chunk's uploads, to their end).
+    within ``budget_bytes`` uploads as one slab; a wider one streams in
+    column slabs through one device buffer allocated once, as wide as the
+    budget allows beside the device output (``_slab_words``). A slab's
+    copies and its reduction queue on the current stream, so the host
+    stages the next slab while the card reduces this one; each slab's
+    result goes into its columns of one device output, read back once at
+    the end. ``profile`` accumulates ``upload_s`` (a host chunk's staging
+    and copies, to their end) and, for a chunk that streams, ``slabs``;
+    for a chunk of gathered rows (``HostChunk.rows``) the time the host
+    waited on the gather counts under ``gather_s`` instead.
     """
     if isinstance(words, torch.Tensor):
-        return _reduce(words, idx_d, valid_d, threshold)
+        return _to_host(_reduce(words, idx_d, valid_d, threshold), threshold)
     chunk = words if isinstance(words, HostChunk) else HostChunk([words])
     device = idx_d.device
     L, Wc = chunk.shape
-    slab_w = max(int(budget_bytes // (L * 4)), 1)
-    prof = profile if profile is not None else {}
-    parts = []
-    for w0 in range(0, Wc, slab_w):
+    nq = idx_d.shape[0]
+    per_word = 1 if threshold == 1.0 else 32
+    slab_w = _slab_words(L, Wc, budget_bytes, 4 * nq * per_word)
+    slabs = range(0, Wc, slab_w)
+    out = (torch.empty((nq, per_word * Wc), dtype=torch.int32, device=device)
+           if len(slabs) > 1 else None)
+    buf = torch.empty(L * slab_w, dtype=torch.int32, device=device)
+    t_up = 0.0
+    with PinnedStager(device) as stager:
+        for w0 in slabs:
+            w1 = min(w0 + slab_w, Wc)
+            db = buf[: L * (w1 - w0)].view(L, w1 - w0)
+            t0 = time.perf_counter()
+            chunk.columns(w0, w1, device, out=db, stager=stager)
+            t_up += time.perf_counter() - t0
+            res = _reduce(db, idx_d, valid_d, threshold)
+            if out is None:
+                out = res
+            else:
+                out[:, per_word * w0 : per_word * w1] = res
         t0 = time.perf_counter()
-        db = chunk.columns(w0, min(w0 + slab_w, Wc), device)
-        prof["upload_s"] = prof.get("upload_s", 0.0) + time.perf_counter() - t0
-        prof["slabs"] = prof.get("slabs", 0) + 1
-        parts.append(_reduce(db, idx_d, valid_d, threshold))
-        del db  # release before the next slab uploads
-    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+        stager.finish()
+        t_up += time.perf_counter() - t0
+    if profile is not None:
+        gathered = stager.wait_s if chunk.rows is not None else 0.0
+        _add(profile, "gather_s", gathered)
+        _add(profile, "upload_s", t_up - gathered)
+        if len(slabs) > 1:
+            _add(profile, "slabs", len(slabs))
+    return _to_host(out, threshold)
 
 
 STAGE_BYTES = 64 << 20
@@ -318,44 +385,70 @@ def resident_cap_bytes(total_bytes: int, budget_bytes: int) -> int:
 
 
 class PinnedStager:
-    """Host -> device copies of row blocks through two pinned staging
-    buffers of ``nbytes`` each, used in turn; a buffer is refilled only
-    after the event of its previous copy. On the CPU the rows are copied
-    straight into the destination. ``finish`` waits for the last copies."""
+    """Host -> device copies of row blocks through two staging buffers of
+    ``nbytes`` each (page-locked on the card), used in turn. Reader threads
+    fill the next block while the current one copies; a buffer is refilled
+    only after the event of its previous copy. On the CPU the same blocks
+    go through plain buffers and synchronous copies. ``wait_s`` sums the
+    time the caller waited on the readers. ``finish`` waits for the last
+    copies; leaving a ``with`` block also stops the readers."""
 
     def __init__(self, device: torch.device, nbytes: int = STAGE_BYTES):
         self.device = device
         self.nbytes = nbytes
+        self.cuda = device.type == "cuda"
         self.bufs: list[torch.Tensor] = []
         self.events: list = [None, None]
         self.turn = 0
+        self.wait_s = 0.0
+        self.pool = ThreadPoolExecutor(READER_THREADS)
 
-    def copy(self, dst: torch.Tensor, src: np.ndarray) -> None:
-        """``src`` uint8 [R, n] (n <= 4 * dst's columns; the rest of each
-        row is zero) into the int32 [R, C] view ``dst``."""
+    def __enter__(self) -> "PinnedStager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.pool.shutdown()
+        self.finish()
+
+    def _stage(self, r0: int, r1: int, row_bytes: int, fill):
+        """Start filling rows [r0, r1) into the next buffer once its last
+        copy is done: (the buffer's rows as int32, the fill's futures)."""
+        i = self.turn
+        self.turn ^= 1
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        stage = self.bufs[i][: (r1 - r0) * row_bytes].view(r1 - r0, row_bytes)
+        futures = [self.pool.submit(job) for job in fill(stage.numpy(), r0, r1)]
+        return stage.view(torch.int32), futures, i
+
+    def copy(self, dst: torch.Tensor, fill) -> None:
+        """Rows of the int32 [R, C] ``dst``, a block of rows a copy, from
+        ``fill(host, r0, r1)``: the jobs that write rows [r0, r1) of the
+        source, uint8 [r1 - r0, 4 * C], into ``host``."""
         R, C = dst.shape
-        if self.device.type != "cuda":
-            host = dst.numpy().view(np.uint8)
-            host[:, : src.shape[1]] = src
-            host[:, src.shape[1]:] = 0
+        if R == 0 or C == 0:
             return
-        if not self.bufs:
-            self.bufs = [torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=True)
+        row_bytes = 4 * C
+        size = max(min(self.nbytes, R * row_bytes), row_bytes)
+        if not self.bufs or self.bufs[0].numel() < size:
+            self.finish()
+            self.bufs = [torch.empty(size, dtype=torch.uint8, pin_memory=self.cuda)
                          for _ in range(2)]
-        step = max(self.nbytes // (4 * C), 1)
-        for r0 in range(0, R, step):
-            r1 = min(r0 + step, R)
-            i = self.turn
-            self.turn ^= 1
-            if self.events[i] is not None:
-                self.events[i].synchronize()
-            stage = self.bufs[i][: (r1 - r0) * 4 * C].view(r1 - r0, 4 * C)
-            host = stage.numpy()
-            host[:, : src.shape[1]] = src[r0:r1]
-            host[:, src.shape[1]:] = 0
-            dst[r0:r1].copy_(stage.view(torch.int32), non_blocking=True)
-            self.events[i] = torch.cuda.Event()
-            self.events[i].record(torch.cuda.current_stream(self.device))
+        step = self.bufs[0].numel() // row_bytes
+        blocks = [(r0, min(r0 + step, R)) for r0 in range(0, R, step)]
+        pending = self._stage(*blocks[0], row_bytes, fill)
+        for k, (r0, r1) in enumerate(blocks):
+            stage, futures, i = pending
+            t0 = time.perf_counter()
+            for f in futures:
+                f.result()
+            self.wait_s += time.perf_counter() - t0
+            if k + 1 < len(blocks):
+                pending = self._stage(*blocks[k + 1], row_bytes, fill)
+            dst[r0:r1].copy_(stage, non_blocking=self.cuda)
+            if self.cuda:
+                self.events[i] = torch.cuda.Event()
+                self.events[i].record(torch.cuda.current_stream(self.device))
 
     def finish(self) -> None:
         for ev in self.events:
@@ -370,38 +463,140 @@ def _slices(reader) -> np.ndarray:
     return mm() if mm is not None else reader.read_slices()
 
 
+def _copy_rows(src: np.ndarray, dst: np.ndarray, sel) -> None:
+    """Rows ``sel`` (a slice or sorted row indices) of ``src`` into the
+    first columns of ``dst``; the rest of each row (a file's pad) zeroed."""
+    n = src.shape[1]
+    dst[:, :n] = src[sel]
+    dst[:, n:] = 0
+
+
 class HostChunk:
     """A fused chunk held on the host as its files' slice matrices uint8
-    [L, slice_size_f], side by side and never joined: ``columns`` uploads a
-    word range of it through pinned staging, each file's part into its
-    columns of one device tensor."""
+    [L, slice_size_f], side by side and never joined; with ``rows`` (sorted
+    slice rows: a query batch's), only those rows of them, in that order.
+    ``columns`` uploads a word range of it through pinned staging, a block
+    of rows of every file a copy."""
 
-    def __init__(self, pieces: list[np.ndarray]):
+    def __init__(self, pieces: list[np.ndarray], rows: np.ndarray | None = None):
         self.pieces = [p if p.dtype == np.uint8 else np.ascontiguousarray(p).view(np.uint8)
                        for p in pieces]
+        self.rows = rows
         self.widths = [-(-p.shape[1] // 4) for p in self.pieces]
-        self.shape = (self.pieces[0].shape[0], sum(self.widths))
+        n_rows = self.pieces[0].shape[0] if rows is None else len(rows)
+        self.shape = (n_rows, sum(self.widths))
         self.nbytes = self.shape[0] * self.shape[1] * 4
 
-    def columns(self, lo: int, hi: int, device: torch.device,
-                out: torch.Tensor | None = None) -> torch.Tensor:
-        """Words [lo, hi) of every row as an int32 tensor [L, hi - lo] on
-        ``device``; ``out`` (int32 [L, >= hi - lo]) receives them in its
-        first columns instead and has the rest zeroed."""
-        if out is None:
-            out = torch.empty((self.shape[0], hi - lo), dtype=torch.int32, device=device)
-        else:
-            out[:, max(hi - lo, 0):] = 0
-        stager = PinnedStager(device)
-        w0 = 0
+    def fill(self, host: np.ndarray, r0: int, r1: int, lo: int, hi: int) -> list:
+        """The jobs that write rows [r0, r1) x words [lo, hi) into ``host``
+        (uint8 [r1 - r0, 4 * (hi - lo)]): a file piece each, split by rows
+        into READER_THREADS jobs in all."""
+        spans, w0 = [], 0
         for piece, w in zip(self.pieces, self.widths):
             a, b = max(lo, w0), min(hi, w0 + w)
             if a < b:
-                part = piece[:, 4 * (a - w0) : 4 * (b - w0)]
-                stager.copy(out[:, a - lo : b - lo], part)
+                spans.append((piece[:, 4 * (a - w0) : 4 * (b - w0)],
+                              host[:, 4 * (a - lo) : 4 * (b - lo)]))
             w0 += w
-        stager.finish()
+        n = r1 - r0
+        parts = min(max(READER_THREADS // max(len(spans), 1), 1), n)
+        jobs = []
+        for src, dst in spans:
+            for p in range(parts):
+                q0, q1 = n * p // parts, n * (p + 1) // parts
+                sel = (slice(r0 + q0, r0 + q1) if self.rows is None
+                       else self.rows[r0 + q0 : r0 + q1])
+                jobs.append(functools.partial(_copy_rows, src, dst[q0:q1], sel))
+        return jobs
+
+    def columns(self, lo: int, hi: int, device: torch.device,
+                out: torch.Tensor | None = None,
+                stager: PinnedStager | None = None) -> torch.Tensor:
+        """Words [lo, hi) of every row as an int32 tensor [rows, hi - lo] on
+        ``device``; ``out`` (int32 [rows, >= hi - lo]) receives them in its
+        first columns instead and has the rest zeroed. With ``stager`` the
+        copies are queued on the current stream and the call returns without
+        waiting for them (the stager's ``finish`` does)."""
+        n = hi - lo
+        if out is None:
+            out = torch.empty((self.shape[0], n), dtype=torch.int32, device=device)
+        elif out.shape[1] > max(n, 0):
+            out[:, max(n, 0):] = 0
+        dst = out if out.shape[1] == n else out[:, : max(n, 0)]
+        fill = functools.partial(self.fill, lo=lo, hi=hi)
+        if stager is not None:
+            stager.copy(dst, fill)
+        else:
+            with PinnedStager(device) as own:
+                own.copy(dst, fill)
         return out
+
+
+class QueryBatch:
+    """One BloomParam's query batch (``make_query_batch``) for ``device``:
+    host ``idx`` / ``nk``, ``valid_d`` and ``idx_d`` on the device, and
+    ``rows()``, the distinct slice rows it touches."""
+
+    def __init__(self, queries: list[str], param, device: torch.device):
+        self.idx, valid, self.nk = make_query_batch(
+            queries, param.kmer_len, param.num_hash, param.log_2_filter_len)
+        self.device = device
+        self.valid_d = torch.from_numpy(valid).to(device)
+        self._idx_d = None
+        self._rows = None
+
+    @property
+    def idx_d(self) -> torch.Tensor:
+        if self._idx_d is None:
+            self._idx_d = torch.from_numpy(self.idx).to(self.device)
+        return self._idx_d
+
+    def rows(self) -> tuple[np.ndarray, np.ndarray]:
+        """(the sorted distinct slice rows of ``idx``, padding entries
+        included; ``idx`` as int32 positions in them)."""
+        if self._rows is None:
+            uniq, inv = np.unique(self.idx, return_inverse=True)
+            self._rows = (uniq, inv.reshape(self.idx.shape).astype(np.int32))
+        return self._rows
+
+    def gathers(self, filter_len: int, passes: int = 1) -> bool:
+        """Whether a chunk of this filter length, which the full route would
+        read in ``passes`` column slabs, takes the gather route."""
+        return len(self.rows()[0]) <= GATHER_SHARE * filter_len * passes
+
+
+def search_chunk(words, batch: QueryBatch, threshold: float, budget_bytes: int,
+                 profile: dict | None = None) -> np.ndarray:
+    """One chunk's result (``eval_chunk_cols``' contract) for ``batch``. A
+    device tensor is searched as it is. A ``HostChunk`` takes the gather
+    route when the batch touches at most GATHER_SHARE of its rows for
+    each column slab the full route would read it in: only those rows go
+    to the device, gathered by the stager's reader threads (in column slabs
+    when they pass ``budget_bytes``), searched with ``idx`` remapped to
+    them. Otherwise it goes whole, in one slab or several (the "full"
+    route). ``profile`` also counts ``route``
+    ({"gather": chunks, "full": chunks}), ``rows`` (the distinct slice rows
+    of each chunk's batch, summed) and ``gather_bytes`` (the gathered
+    rows' bytes)."""
+    gather = False
+    if isinstance(words, HostChunk):
+        L, W = words.shape
+        per_word = 1 if threshold == 1.0 else 32
+        passes = -(-W // _slab_words(L, W, budget_bytes, 4 * len(batch.nk) * per_word))
+        gather = batch.gathers(L, passes)
+    if profile is not None:
+        routes = profile.setdefault("route", {"gather": 0, "full": 0})
+        routes["gather" if gather else "full"] += 1
+        _add(profile, "rows", len(batch.rows()[0]))
+    if not gather:
+        return eval_chunk_cols(words, batch.idx_d, batch.valid_d, threshold, budget_bytes,
+                               profile)
+    rows, local = batch.rows()
+    gathered = HostChunk(words.pieces, rows)
+    if profile is not None:
+        _add(profile, "gather_bytes", gathered.nbytes)
+    local_d = torch.from_numpy(local).to(batch.device)
+    return eval_chunk_cols(gathered, local_d, batch.valid_d, threshold, budget_bytes, profile)
 
 
 def group_file_chunks(readers, budget: int) -> list[tuple[object, list[int]]]:
@@ -456,24 +651,24 @@ def fuse_files(readers, file_idxs: list[int], device: torch.device,
     ``upload_s`` (staging and copies, to their end)."""
     L = readers[file_idxs[0]].header.filter_len
     out = torch.empty((L, chunk_words(readers, file_idxs)), dtype=torch.int32, device=device)
-    stager = PinnedStager(device)
     spans, w0 = [], 0
-    for fi in file_idxs:
+    with PinnedStager(device) as stager:
+        for fi in file_idxs:
+            t0 = time.perf_counter()
+            piece = HostChunk([_slices(readers[fi])])
+            t1 = time.perf_counter()
+            w = piece.shape[1]
+            stager.copy(out[:, w0 : w0 + w], functools.partial(piece.fill, lo=0, hi=w))
+            del piece
+            if profile is not None:
+                _add(profile, "read_s", t1 - t0)
+                _add(profile, "upload_s", time.perf_counter() - t1)
+            spans.append((fi, w0, w0 + w))
+            w0 += w
         t0 = time.perf_counter()
-        slices = _slices(readers[fi])
-        t1 = time.perf_counter()
-        w = -(-slices.shape[1] // 4)
-        stager.copy(out[:, w0 : w0 + w], slices)
-        del slices
+        stager.finish()
         if profile is not None:
-            profile["read_s"] = profile.get("read_s", 0.0) + t1 - t0
-            profile["upload_s"] = profile.get("upload_s", 0.0) + time.perf_counter() - t1
-        spans.append((fi, w0, w0 + w))
-        w0 += w
-    t0 = time.perf_counter()
-    stager.finish()
-    if profile is not None:
-        profile["upload_s"] = profile.get("upload_s", 0.0) + time.perf_counter() - t0
+            _add(profile, "upload_s", time.perf_counter() - t0)
     return out, spans
 
 
@@ -529,14 +724,18 @@ def search_files_device(
 ):
     """Device search over many database files -> {query_id: [MatchResult]}.
 
-    Files with the same BloomParam fuse side by side into one wide matrix
-    on the device (per-file column ranges stay word-aligned; each file
-    uploads into its range, ``fuse_files``), in chunks of at most
-    KWAGE_FUSION_BUDGET_BYTES (default 8 GiB); a single file wider than
-    the budget streams in column slabs. Hit lists are identical to the
-    host engine / reference binary. ``profile`` accumulates ``read_s``,
-    ``upload_s``, ``search_s`` (query prep, kernels and readback),
-    ``hits_s`` (hit lists) and ``slabs`` (a chunk streamed: its slabs).
+    Files with the same BloomParam fuse side by side (per-file column
+    ranges stay word-aligned), in chunks of at most
+    KWAGE_FUSION_BUDGET_BYTES (default 8 GiB) of whole files. A chunk
+    whose query batch touches at most GATHER_SHARE of its rows uploads
+    only those rows, gathered from the memory-mapped files (``search_chunk``);
+    otherwise a chunk within the budget uploads whole (``fuse_files``) and
+    a single file wider than the budget streams in column slabs. Hit lists
+    are identical to the host engine / reference binary. ``profile``
+    accumulates ``read_s``, ``gather_s``, ``upload_s``, ``search_s``
+    (query prep, kernels and readback), ``hits_s`` (hit lists), ``slabs``
+    (a chunk streamed: its slabs), ``route``, ``rows`` and
+    ``gather_bytes`` (``search_chunk``).
     """
     from ..io.dbz_file import open_database
 
@@ -548,35 +747,40 @@ def search_files_device(
     budget = fusion_budget_bytes()
     qids = [qid for qid, _ in queries]
     buckets: dict[int, dict[int, list]] = {}
-    batch_cache: dict = {}  # param -> (idx_d, valid_d, nk); shared across chunks
+    batches: dict = {}  # param -> QueryBatch; shared across chunks
     for param, file_idxs in group_file_chunks(readers, budget):
+        t0 = time.perf_counter()
+        if param not in batches:
+            batches[param] = QueryBatch([q for _, q in queries], param, device)
+        batch = batches[param]
         L = readers[file_idxs[0]].header.filter_len
-        if L * chunk_words(readers, file_idxs) * 4 <= budget:
-            fused, spans = fuse_files(readers, file_idxs, device, prof)
+        # A chunk that fits and goes whole is staged file by file, each
+        # file's rows whole into its own staging block and scattered into
+        # its columns on the device: about 1.5x faster than staging the
+        # fused layout, where each reader writes a slice of every row
+        # (bench.search_routes on an H100's host; PERF.md).
+        whole = (L * chunk_words(readers, file_idxs) * 4 <= budget
+                 and not batch.gathers(L))
+        _add(prof, "search_s", time.perf_counter() - t0)
+        if whole:
+            words, spans = fuse_files(readers, file_idxs, device, prof)
         else:
             t0 = time.perf_counter()
-            fused, spans = read_chunk(readers, file_idxs)
-            prof["read_s"] = prof.get("read_s", 0.0) + time.perf_counter() - t0
+            words, spans = read_chunk(readers, file_idxs)
+            _add(prof, "read_s", time.perf_counter() - t0)
         t0 = time.perf_counter()
-        if param not in batch_cache:
-            idx, valid, nk = make_query_batch(
-                [q for _, q in queries], param.kmer_len, param.num_hash,
-                param.log_2_filter_len)
-            batch_cache[param] = (torch.from_numpy(idx).to(device),
-                                  torch.from_numpy(valid).to(device), nk)
-        idx_d, valid_d, nk = batch_cache[param]
-        uploaded = prof.get("upload_s", 0.0)
-        out = eval_chunk_cols(fused, idx_d, valid_d, threshold, budget, prof)
-        del fused
+        moved = prof.get("upload_s", 0.0) + prof.get("gather_s", 0.0)
+        out = search_chunk(words, batch, threshold, budget, prof)
+        del words
         t1 = time.perf_counter()
-        chunk_hits(out, nk, spans, readers, threshold, buckets, qids)
-        # A host chunk's slab uploads count under upload_s alone.
-        prof["search_s"] = (prof.get("search_s", 0.0) + t1 - t0
-                            - (prof.get("upload_s", 0.0) - uploaded))
-        prof["hits_s"] = prof.get("hits_s", 0.0) + time.perf_counter() - t1
+        chunk_hits(out, batch.nk, spans, readers, threshold, buckets, qids)
+        # The chunk's gather and uploads count under gather_s / upload_s alone.
+        _add(prof, "search_s", t1 - t0 - (prof.get("upload_s", 0.0)
+                                          + prof.get("gather_s", 0.0) - moved))
+        _add(prof, "hits_s", time.perf_counter() - t1)
     t0 = time.perf_counter()
     results = collect_results(buckets, readers, {})
-    prof["hits_s"] = prof.get("hits_s", 0.0) + time.perf_counter() - t0
+    _add(prof, "hits_s", time.perf_counter() - t0)
     return results
 
 

@@ -181,7 +181,12 @@ class CoordinatorServer:
             if op == "downloaded":
                 idx = int(msg["idx"])
                 s = int(self.m.status[idx])
-                if not (STATUS_BLOOM_FAIL_1 <= s <= STATUS_BLOOM_FAIL_10):
+                # A task dispatched twice (--task-timeout re-queued a
+                # slow-but-alive worker's task) reports its interim event
+                # late, after the other copy's filter was absorbed: that
+                # filter, and the database state after it, stand.
+                if idx not in self.m._grouped and not (
+                        STATUS_BLOOM_FAIL_1 <= s <= STATUS_BLOOM_FAIL_10):
                     self.m.status[idx] = STATUS_DOWNLOAD_SUCCESS
                 self._mark_seen(msg)
                 return {"op": "ok"}

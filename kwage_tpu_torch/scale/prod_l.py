@@ -17,9 +17,9 @@ the JAX tool's seed-1 corpus of SCALE_N_ACC accessions:
   the rest; ``shape_check`` (every file at L=26, SCALE_REQUIRE_FULL full
   ones); ``merge_partials``; ``search_host`` (against the reference kwage
   where it is built);
-- ``search_device``: ``kwage-torch --device`` over the corpus, the 16 GiB
-  file wider than the 8 GiB fusion budget so it streams in column slabs,
-  byte-identical to the host engine;
+- ``search_device``: ``kwage-torch --device`` over the corpus (of the
+  16 GiB file, wider than the 8 GiB fusion budget, only the rows the
+  queries touch go to the card), byte-identical to the host engine;
 - ``sharded_wave_search``: the mesh wave plan (``build_sharded_groups``)
   with the budget from the card's free memory (``torch.cuda.mem_get_info``,
   80% of it a shard) -- an 80 GB card holds the corpus whole, so it

@@ -29,14 +29,14 @@ from ..ops.search import (
     check_device_filter_len,
     chunk_hits,
     chunk_words,
+    QueryBatch,
     collect_results,
-    eval_chunk_cols,
     fuse_files,
     fusion_budget_bytes,
     group_file_chunks,
-    make_query_batch,
     read_chunk,
     resident_cap_bytes,
+    search_chunk,
 )
 from ..utils.runtime import check_token, resolve_device, resolve_secret
 from .output import render_csv, render_json
@@ -51,10 +51,12 @@ class ResidentSearcher:
     SLAB_RESERVE_BYTES, at most half the budget), the files are
     cut into chunks of what is left so that chunks can go resident, and
     the chunks that do not fit stay on the host and upload per search
-    call, in column slabs of the budget left -- at least the share set
-    aside (a budget spent to the last byte on resident chunks would stream
-    a host chunk one word column a slab). The JAX class streams them with
-    the whole budget, which can double its peak device memory.
+    call within the budget left -- at least the share set aside (a budget
+    spent to the last byte on resident chunks would stream a host chunk one
+    word column a slab): only the rows the request touches where they are
+    few (``ops.search.search_chunk``' gather route), else in column slabs.
+    The JAX class streams them whole with the whole budget, which can
+    double its peak device memory.
     """
 
     def __init__(self, db_paths: list[str], device: torch.device,
@@ -95,18 +97,16 @@ class ResidentSearcher:
             return {}
         qids = [qid for qid, _ in queries]
         buckets: dict[int, dict[int, list]] = {}
+        batches: dict = {}  # param -> QueryBatch; shared across groups
         for param, db, spans in self._groups:
-            idx, valid, nk = make_query_batch(
-                [q for _, q in queries],
-                param.kmer_len, param.num_hash, param.log_2_filter_len)
-            idx_d = torch.from_numpy(idx).to(self.device)
-            valid_d = torch.from_numpy(valid).to(self.device)
-            # Host chunks stream in slabs of the budget the resident chunks
-            # left (at least the share set aside), so device memory stays
-            # within it.
-            out = eval_chunk_cols(db, idx_d, valid_d, threshold,
-                                  self._budget_bytes - self.resident_bytes)
-            chunk_hits(out, nk, spans, self._readers, threshold, buckets, qids)
+            if param not in batches:
+                batches[param] = QueryBatch([q for _, q in queries], param, self.device)
+            batch = batches[param]
+            # Host chunks take the gather route or stream in slabs of the
+            # budget the resident chunks left (at least the share set
+            # aside), so device memory stays within it.
+            out = search_chunk(db, batch, threshold, self._budget_bytes - self.resident_bytes)
+            chunk_hits(out, batch.nk, spans, self._readers, threshold, buckets, qids)
         return collect_results(buckets, self._readers, self._info_cache)
 
     def render(self, queries: list[str], threshold: float, fmt: str = "json") -> str:

@@ -28,7 +28,7 @@ WHOLE = sorted(
     + [f"io/{p.name}" for p in (JAX_PKG / "io").glob("*.py")]
     + ["native/fallback.py", "native/kwage_native.cpp", "search/engine.py",
        "search/output.py", "sriracha/sra_source.py", "sriracha/vdb.py", "cli/_render.py",
-       "utils/mem_usage.py", "parallel/remote.py", "pipeline/inventory.py",
+       "utils/mem_usage.py", "pipeline/inventory.py",
        "pipeline/merge_db.py", "pipeline/sra_meta.py"]
     + [f"cli/{name}.py" for name in (
         "bff", "bloom_diff", "bloom_test", "db_debug", "dump_bloom", "dump_db",
@@ -66,6 +66,9 @@ MERGED = {
     "pipeline.make_bloom": {"build_bloom_device", "dispatch_device_batch",
                             "scatter_device_batch", "complete_device_batch"},
     "parallel.maestro": set(),
+    # a late "downloaded" event of a task dispatched twice leaves an
+    # absorbed filter's status as it is
+    "parallel.remote": {"CoordinatorServer"},
     # a grid of torch devices in place of jax.sharding.Mesh
     "parallel.mesh": {"make_search_mesh"},
     # shards searched slot by slot on torch devices in place of shard_map;
@@ -102,6 +105,7 @@ REQUIRED = {
                          "_build_bloom_streamed", "execute_bloom_task", "prepare_bloom_batch",
                          "finish_bloom_batch", "execute_bloom_batch", "_DeviceDispatcher",
                          "_LazyInfos", "Maestro"},
+    "parallel.remote": {"QueueAuthError", "RemoteWorker", "run_distributed_maestro"},
     "parallel.sharded_search": {"sharded_search_files"},
     "sriracha.engine": {"SrirachaOptions", "SearchMatch", "StreamStats", "search_reads",
                         "load_subject_kmers", "format_results", "iter_reads_range",

@@ -560,3 +560,48 @@ def test_empty_reply_is_retried(manifest, data_dir, tmp_path, monkeypatch):
     assert swallowed["n"] == 2
     assert all(s == STATUS_DATABASE_SUCCESS for s in m.status), m.summary()
     assert m._total_bp == 1000 * len(accs), m._total_bp
+
+
+@pytest.mark.parametrize("late_after", ["bloom_done", "db_done"])
+def test_late_downloaded_of_a_twice_dispatched_task_is_ignored(
+        manifest, tmp_path, late_after):
+    """--task-timeout re-queues a slow-but-alive worker's task, so two
+    workers run it. The first copy's filter is absorbed (and, once the
+    coordinator is idle, packed); the second copy's "downloaded" event
+    arrives after that and must leave the status as it is: a status set
+    back to DOWNLOAD_SUCCESS is terminal for no one, and the coordinator
+    would quit with the accession unpacked on record."""
+    from kwage_tpu_torch.parallel.maestro import STATUS_BLOOM_SUCCESS
+
+    infos = [FilterInfo(run_accession=str_to_accession(manifest["accessions"][0]))]
+    write_inventory(str(tmp_path / "inventory.bin"), infos)
+    m = Maestro(_options(manifest, tmp_path), None)
+    m.restore()
+    coord = CoordinatorServer(m, host="127.0.0.1", task_timeout=0.0)
+    param = {"kmer_len": manifest["k"], "log_2_filter_len": manifest["minL"],
+             "num_hash": 1, "hash_func": 0}
+    try:
+        m._end = m._compute_end()
+        first = coord._handle({"op": "next", "worker": "slow", "n": 1})
+        assert first["op"] == "bloom", first
+        time.sleep(0.01)     # past the timeout: the next pull re-queues it
+        second = coord._handle({"op": "next", "worker": "fast", "n": 1})
+        assert second["op"] == "bloom" and second["idx"] == first["idx"], second
+        idx = first["idx"]
+        coord._handle({"op": "downloaded", "idx": idx, "eid": "slow:0"})
+        coord._handle({"op": "bloom_done", "idx": idx, "status": STATUS_BLOOM_SUCCESS,
+                       "param": param, "eid": "slow:1"})
+        want = STATUS_BLOOM_SUCCESS
+        if late_after == "db_done":
+            db = coord._handle({"op": "next", "worker": "slow", "n": 1})
+            assert db["op"] == "db" and db["members"] == [idx], db
+            coord._handle({"op": "db_done", "db_index": db["db_index"], "members": [idx],
+                           "status": STATUS_DATABASE_SUCCESS, "eid": "slow:2"})
+            want = STATUS_DATABASE_SUCCESS
+        coord._handle({"op": "downloaded", "idx": idx, "eid": "fast:0"})
+        assert int(m.status[idx]) == want
+        coord._handle({"op": "bloom_done", "idx": idx, "status": STATUS_BLOOM_SUCCESS,
+                       "param": param, "eid": "fast:1"})
+        assert int(m.status[idx]) == want
+    finally:
+        coord._server.server_close()

@@ -157,13 +157,17 @@ def test_search_files_device_matches_jax(tmp_path, monkeypatch, threshold):
 @pytest.mark.parametrize("threshold", [1.0, 0.5])
 def test_resident_searcher_spent_budget_streams_in_bounded_slabs(tmp_path, monkeypatch,
                                                                  threshold):
-    """Two files of one chunk's size each. A budget of exactly one chunk:
-    a slab's share is set aside before the chunks are placed (at these
-    sizes half the budget), so a host chunk streams in a bounded number of
-    slabs (never one word column a slab). With the share set to a quarter
-    of a file (what SLAB_RESERVE_BYTES is to a corpus of real size), a
-    budget of a file and a quarter keeps one file resident and streams the
-    other in four slabs. The bytes equal the host engine's."""
+    """Two files of one chunk's size each, the gather route off (every
+    host chunk streams whole). A budget of exactly one chunk: a slab's
+    share is set aside before the chunks are placed (at these sizes half
+    the budget), so a host chunk streams in a bounded number of slabs
+    (never one word column a slab). With the share set to a quarter of a
+    file (what SLAB_RESERVE_BYTES is to a corpus of real size), a budget of
+    a file and a quarter keeps one file resident and streams the other
+    within what is left: its slab buffer shares it with the device output
+    and a slab's result, so a quarter of a file holds one word column a
+    slab, half a file three (t = 1.0) or two (t = 0.5), three quarters
+    five or four. The bytes equal the host engine's."""
     from kwage_tpu_torch.search import resident
     from kwage_tpu_torch.search.engine import search_database_files
 
@@ -176,22 +180,25 @@ def test_resident_searcher_spent_budget_streams_in_bounded_slabs(tmp_path, monke
     widths = []
     upload = ts.HostChunk.columns
 
-    def recording_columns(self, lo, hi, device, out=None):
+    def recording_columns(self, lo, hi, device, out=None, stager=None):
         widths.append(hi - lo)
-        return upload(self, lo, hi, device, out)
+        return upload(self, lo, hi, device, out, stager)
 
     monkeypatch.setattr(ts.HostChunk, "columns", recording_columns)
+    monkeypatch.setattr(ts, "GATHER_SHARE", 0.0)
     rng = np.random.default_rng(8)
     seqs = [_rand_seq(rng, n) for n in (31, 40, 70)]
     host = resident.HostResidentSearcher(paths)
     big = ts.SLAB_RESERVE_BYTES
     quarter = chunk_bytes // 4
-    # (budget, the share kept for slabs, resident files, slabs a host file)
+    half, three_quarters = ([3, 3, 2], [5, 3]) if threshold == 1.0 else ([2] * 4, [4, 4])
+    # (budget, the share kept for slabs, resident files, a host file's slab widths)
     for budget, reserve, resident_chunks, slabs in (
-            (chunk_bytes, big, 0, 1), (chunk_bytes * 3 // 2, big, 0, 1),
-            (2 * chunk_bytes, big, 2, 0), (3 * chunk_bytes, big, 2, 0),
-            (chunk_bytes, quarter, 0, 1), (chunk_bytes + quarter, quarter, 1, 4),
-            (chunk_bytes + 2 * quarter, quarter, 1, 2)):
+            (chunk_bytes, big, 0, [8]), (chunk_bytes * 3 // 2, big, 0, [8]),
+            (2 * chunk_bytes, big, 2, []), (3 * chunk_bytes, big, 2, []),
+            (chunk_bytes, quarter, 0, [8]), (chunk_bytes + quarter, quarter, 1, [1] * 8),
+            (chunk_bytes + 2 * quarter, quarter, 1, half),
+            (chunk_bytes + 3 * quarter, quarter, 1, three_quarters)):
         monkeypatch.setattr(ts, "SLAB_RESERVE_BYTES", reserve)
         widths.clear()
         searcher = resident.ResidentSearcher(paths, CPU, budget_bytes=budget)
@@ -199,8 +206,7 @@ def test_resident_searcher_spent_budget_streams_in_bounded_slabs(tmp_path, monke
         assert searcher.resident_bytes <= budget
         out = searcher.render(seqs, threshold, "csv")
         assert out == host.render(seqs, threshold, "csv")
-        assert len(widths) == slabs * (2 - resident_chunks)
-        assert all(w == 8 // slabs for w in widths)
+        assert widths == slabs * (2 - resident_chunks)
     want = search_database_files(paths, list(enumerate(seqs)), threshold)
     assert _fields(searcher.search(list(enumerate(seqs)), threshold)) == _fields(
         {q: r for q, r in want.items() if r})
