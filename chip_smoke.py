@@ -260,7 +260,7 @@ from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu_torch.core.params import BloomParam
 from kwage_tpu_torch.bench import search_phases
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
-from kwage_tpu_torch.bench.search_routes import H2D_BYTES, h2d_rates
+from kwage_tpu_torch.bench.search_routes import H2D_BYTES, gather_share, h2d_rates
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
 from kwage_tpu_torch.io.binary import BinaryReader, BinaryWriter
@@ -286,7 +286,8 @@ from kwage_tpu_torch.ops import transpose as tt
 from kwage_tpu_torch.parallel import maestro as torch_maestro
 from kwage_tpu_torch.parallel import mesh as tmesh
 from kwage_tpu_torch.parallel.mesh import make_search_mesh
-from kwage_tpu_torch.parallel.sharded_search import ShardedDatabase, search_sharded_groups
+from kwage_tpu_torch.parallel import sharded_search as tsh
+from kwage_tpu_torch.parallel.sharded_search import ShardedDatabase
 from kwage_tpu_torch.parallel.maestro import (
     STATUS_DATABASE_SUCCESS,
     LocalFastaResolver,
@@ -552,15 +553,20 @@ def search_steps(steps: dict):
 
 
 @contextlib.contextmanager
-def gather_share(share: float):
-    """Inside, ``ops.search.GATHER_SHARE`` is ``share``: 0 sends every host
-    chunk by the full route."""
-    real = ts.GATHER_SHARE
-    ts.GATHER_SHARE = share
+def mesh_steps(steps: dict):
+    """Inside, every ``search_sharded_groups`` call (a MeshResidentSearcher's
+    search, the one-shot ``sharded_search_files`` of kwage --device on
+    several cards) adds its step times to ``steps``."""
+    real = tsh.search_sharded_groups
+
+    def profiled(groups, db_paths, queries, threshold, profile=None):
+        return real(groups, db_paths, queries, threshold, profile=steps)
+
+    tsh.search_sharded_groups = profiled
     try:
-        yield
+        yield steps
     finally:
-        ts.GATHER_SHARE = real
+        tsh.search_sharded_groups = real
 
 
 @contextlib.contextmanager
@@ -643,7 +649,7 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
             steps: dict = {}
             t0 = time.perf_counter()
             with (search_steps(steps) if share is not None else contextlib.nullcontext()), \
-                    gather_share(ts.GATHER_SHARE if share is None else share):
+                    gather_share(share):
                 rc = torch_kwage_main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out]
                                       + extra + seqs)
             times.append(f"{name} t={threshold} {fmt} {time.perf_counter() - t0:.2f} s")
@@ -742,7 +748,7 @@ class OneStreamSearcher:
                         list(range(len(db_paths))))]
 
     def search(self, queries, threshold):
-        return search_sharded_groups(self.groups, self.db_paths, queries, threshold)
+        return tsh.search_sharded_groups(self.groups, self.db_paths, queries, threshold)
 
     def render(self, queries, threshold, fmt):
         return render_searcher(self, queries, threshold, fmt)
@@ -752,9 +758,11 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
              wave_budget: int = MESH_WAVE_BUDGET, dryrun_devices: int = 4) -> None:
     """Phase 9 over phase 1-3's files (``main``: run_main_path's result):
     the mesh searchers on ``shards`` logical shards of ``device`` (on
-    every card where several are visible), each against phase 2's bytes,
-    the totals against the hit lists, the streamed run's peak device
-    memory against its budget; then dryrun_multichip."""
+    every card where several are visible), each against phase 2's bytes
+    (the streamed ones by the gather and the full route), the totals
+    against the hit lists, the streamed runs' peak device memory against
+    their budget; kwage --device with the slots listed as cards (the CLI's
+    several-card branch, by both routes); then dryrun_multichip."""
     files, seqs, outputs = main["files"], main["seqs"], main["outputs"]
     cuda = device.type == "cuda"
     cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -765,9 +773,9 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
         r[0] for r in list(csv.reader(io.StringIO(outputs[(t, "csv")])))[1:])
         for t in (1.0, 0.5)}
 
-    def totals_equal_hit_lists(sdbs, tag):
+    def totals_equal_hit_lists(sdbs, tag, steps):
         for t in (1.0, 0.5):
-            got = sum(sdb.total_hits(seqs, t) for sdb in sdbs)
+            got = sum(sdb.total_hits(seqs, t, steps) for sdb in sdbs)
             want = [hits[t][f"command line seq {i}"] for i in range(len(seqs))]
             check(got.tolist() == want, f"{tag}: total_hits at -t {t} {got.tolist()} != the "
                                         f"hit-list lengths {want}")
@@ -806,15 +814,39 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
                   f"{tag}: residency {[sdb.db is not None for sdb in sdbs]}")
             check(waves >= (3 if make is OneStreamSearcher else 2),
                   f"{tag}: at most {waves} waves a stream")
-        times = []
-        for threshold, fmt in CASES:
-            t0 = time.perf_counter()
-            out = searcher.render(seqs, threshold, fmt)
-            times.append(time.perf_counter() - t0)
-            check(out == outputs[(threshold, fmt)],
-                  f"{tag}: bytes differ from phase 2's at -t {threshold} {fmt}")
-        if shape[0] == 1:
-            totals_equal_hit_lists(sdbs, tag)
+        times, calls = [], []
+        streamed = sum(sdb.db is None for sdb in sdbs)
+        # A streamed searcher renders and counts by both routes (the
+        # resident groups stay as they are); a resident one has no route
+        # to choose.
+        routes = (("gather", ts.GATHER_SHARE), ("full", 0.0)) if streamed else (("", None),)
+        for name, share in routes:
+            steps: dict = {}
+            with gather_share(share), mesh_steps(steps):
+                for threshold, fmt in CASES:
+                    t0 = time.perf_counter()
+                    out = searcher.render(seqs, threshold, fmt)
+                    times.append(f"{name} {time.perf_counter() - t0:.3f} s".strip())
+                    check(out == outputs[(threshold, fmt)],
+                          f"{tag}: bytes differ from phase 2's by the {name or 'resident'} "
+                          f"route at -t {threshold} {fmt}")
+            counted: dict = {}
+            if shape[0] == 1:
+                t0 = time.perf_counter()
+                with gather_share(share):
+                    totals_equal_hit_lists(sdbs, tag, counted)
+                t_count = time.perf_counter() - t0
+            if streamed:
+                for what, got, n in (("renders", steps, len(CASES)), ("counts", counted, 2)):
+                    if not got:
+                        continue
+                    want = {"gather": 0, "full": 0, "resident": (len(sdbs) - streamed) * n}
+                    want[name] = streamed * n
+                    check({"resident": 0, **got["route"]} == want,
+                          f"{tag}: the {name} {what} took other routes: {got['route']}")
+                calls.append(f"{name}: {fmt_steps(steps)}"
+                             + (f"; total_hits at -t 1.0 and 0.5 {t_count:.3f} s "
+                                f"({fmt_steps(counted)})" if counted else ""))
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
         if budget is not None and cuda:
             # Two buffers a shard and the query batch, outputs and staging
@@ -824,8 +856,9 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
         report.append(f"{tag}: load {t_load:.2f} s, waves a group "
                       + ", ".join("resident" if sdb.db is not None else
                                   f"{sdb.num_waves} of {sdb.wave_shard_bytes} B a shard"
-                                  for sdb in sdbs) + ", searches "
-                      + ", ".join(f"{x:.3f} s" for x in times)
+                                  for sdb in sdbs) + ", searches " + ", ".join(times)
+                      + (f" (the {len(CASES)} renders' steps by route: " + "; ".join(calls)
+                         + ")" if calls else "")
                       + f", peak device memory {peak} B"
                       + (f" of {on_a_card} x {budget} B" if budget is not None else ""))
         del searcher, sdbs
@@ -835,6 +868,7 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
             torch.cuda.synchronize()
             left = torch.cuda.memory_allocated(device)
             check(left == base, f"{tag}: {left} B allocated after del, {base} B before the run")
+    report.append(run_mesh_cli(main, device, devices, on_a_card))
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as said:
         dryrun_multichip(dryrun_devices)
@@ -844,6 +878,52 @@ def run_mesh(main: dict, device: torch.device, shards: int = MESH_SHARDS,
           f"-t 1.0 and 0.5; " + "; ".join(report)
           + f"; dryrun_multichip({dryrun_devices}) {t_dry:.2f} s ("
           + said.getvalue().strip().replace("\n", " | ") + ")", flush=True)
+
+
+def run_mesh_cli(main: dict, device: torch.device, devices: list, on_a_card: int) -> str:
+    """kwage --device over phase 2's files with ``parallel.mesh.
+    default_devices`` listing ``devices`` (the card as several): the CLI's
+    several-card branch, the one-shot ``sharded_search_files``. Every case
+    by the gather route, one by the full route, each == phase 2's bytes,
+    peak device memory within the budget a shard x the shards a card
+    holds; returns phase 9's report of it."""
+    files, seqs, outputs = main["files"], main["seqs"], main["outputs"]
+    cuda = device.type == "cuda"
+    base = [a for f in files for a in ("-d", f)]
+    out = os.path.join(os.path.dirname(files[0]), "mesh_cli.out")
+    budget = ts.fusion_budget_bytes()
+    saved = tmesh.default_devices
+    tmesh.default_devices = lambda: list(devices)
+    calls = []
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for name, share, cases in (("gather", ts.GATHER_SHARE, CASES), ("full", 0.0, CASES[-1:])):
+            for threshold, fmt in cases:
+                steps: dict = {}
+                t0 = time.perf_counter()
+                with gather_share(share), mesh_steps(steps):
+                    rc = torch_kwage_main(base + ["-t", str(threshold), f"--o.{fmt}", "-o", out,
+                                                  "--device"] + seqs)
+                wall = time.perf_counter() - t0
+                check(rc == 0, f"kwage --device on {len(devices)} slots exited {rc}")
+                with open(out) as f:
+                    check(f.read() == outputs[(threshold, fmt)],
+                          f"kwage --device on {len(devices)} slots by the {name} route differs "
+                          f"from phase 2's bytes at -t {threshold} {fmt}")
+                check(steps["route"][name] >= 1 and sum(steps["route"].values())
+                      == steps["route"][name], f"the {name} CLI call took another route: {steps}")
+                calls.append(f"{name} t={threshold} {fmt} {wall:.3f} s ({fmt_steps(steps)})")
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        check(peak <= budget * on_a_card + (64 << 20),
+              f"kwage --device on {len(devices)} slots: peak {peak} B passes {on_a_card} x "
+              f"{budget} B")
+    finally:
+        tmesh.default_devices = saved
+    return (f"kwage --device with {len(devices)} slots listed as cards (the one-shot mesh "
+            f"search) == phase 2's bytes: " + "; ".join(calls)
+            + f", peak device memory {peak} B of {on_a_card} x {budget} B")
 
 
 # --- phase 6: the device ingest (kwage-maestro-torch --device-build) ---------------
@@ -1966,20 +2046,36 @@ def run_prod_l(work: str, device: torch.device, seed: int, log2_len: int = PROD_
     sdbs = [sdb for sdb, _ in mesh_searcher.groups]
     waves = max(sdb.num_waves for sdb in sdbs)
     check(waves >= 2, f"the mesh ran {waves} wave(s) at {mesh_budget} B a shard")
-    # Every wave re-stages the full file from its pages, a row piece a
-    # shard (ROADMAP queue 1, item 3): one render and one count, at -t 0.8.
+    streamed = sum(sdb.db is None for sdb in sdbs)
+    # A render at -t 0.8 by each route: the streamed group gathers the
+    # request's rows, or (GATHER_SHARE 0) re-stages the full file from its
+    # pages in every wave; then the count by each route.
     threshold, fmt = PROD_CASES[-1]
-    t0 = time.perf_counter()
-    out = mesh_searcher.render(seqs, threshold, fmt)
-    mesh_times = [time.perf_counter() - t0]
-    check(out == outputs[(threshold, fmt)],
-          f"MeshResidentSearcher differs from the host engine at -t {threshold} {fmt}")
-    t0 = time.perf_counter()
-    got = sum(sdb.total_hits(seqs, threshold) for sdb in sdbs)
-    mesh_times.append(time.perf_counter() - t0)
+    mesh_calls = []
+    for name, share in (("gather", ts.GATHER_SHARE), ("full", 0.0)):
+        steps = {}
+        t0 = time.perf_counter()
+        with gather_share(share), mesh_steps(steps):
+            out = mesh_searcher.render(seqs, threshold, fmt)
+        wall = time.perf_counter() - t0
+        check(out == outputs[(threshold, fmt)], f"MeshResidentSearcher by the {name} route "
+                                                f"differs from the host engine at -t {threshold} {fmt}")
+        check(steps["route"][name] == streamed and steps["route"].get("resident", 0)
+              == len(sdbs) - streamed, f"the mesh's {name} render took other routes: {steps}")
+        mesh_calls.append(f"by the {name} route {wall:.3f} s ({fmt_steps(steps)})")
     want = [len(host[threshold].get(i, [])) for i in range(len(seqs))]
-    check(got.tolist() == want, f"mesh total_hits at -t {threshold} {got.tolist()} != the "
-                                f"hit-list lengths {want}")
+    for name, share in (("gather", ts.GATHER_SHARE), ("full", 0.0)):
+        steps = {}
+        t0 = time.perf_counter()
+        with gather_share(share):
+            got = sum(sdb.total_hits(seqs, threshold, steps) for sdb in sdbs)
+        t_total = time.perf_counter() - t0
+        check(got.tolist() == want, f"mesh total_hits by the {name} route at -t {threshold} "
+                                    f"{got.tolist()} != the hit-list lengths {want}")
+        check(steps["route"][name] == streamed,
+              f"the mesh's count took other routes than the {name} route: {steps}")
+        mesh_calls.append(f"total_hits by the {name} route {t_total:.3f} s "
+                          f"({fmt_steps(steps)})")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     check(not cuda or peak <= mesh_budget * MESH_SHARDS + (64 << 20),
           f"mesh peak {peak} B passes {MESH_SHARDS} x {mesh_budget} B")
@@ -1989,8 +2085,8 @@ def run_prod_l(work: str, device: torch.device, seed: int, log2_len: int = PROD_
           f"load {t_load:.2f} s, renders (cold, warm) "
           + ", ".join(f"{x * 1e3:.1f} ms" for x in lat)
           + f" == host engine; MeshResidentSearcher 1 x {MESH_SHARDS} at {mesh_budget} B a "
-          f"shard: load {t_mesh_load:.2f} s, {waves} waves, a render at -t {threshold} "
-          f"{mesh_times[0]:.2f} s == host engine, total_hits {mesh_times[1]:.2f} s == the "
+          f"shard: load {t_mesh_load:.2f} s, {waves} waves, a render at -t {threshold} == "
+          f"host engine " + "; ".join(mesh_calls) + ", total_hits == the "
           f"hit-list lengths, peak device memory {peak} B; "
           f"each searcher freed its device memory on del; phase 14 "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)

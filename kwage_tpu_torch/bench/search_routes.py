@@ -2,7 +2,8 @@
 host-to-device rates.
 
     python3 -m kwage_tpu_torch.bench.search_routes [--work DIR] [--log2-len 22]
-        [--files 8] [--shares 0.023,0.1,0.25,0.5] [--calls 3] [--host] [--out PATH]
+        [--files 8] [--shares 0.023,0.1,0.25,0.5] [--calls 3] [--host] [--mesh N]
+        [--out PATH]
 
 The corpus: one .db of 2048 random filters (each bit set with p = 1/2)
 at L = 2^log2-len, k=31, 5 hashes, hard-linked ``--files`` times, so the
@@ -22,7 +23,10 @@ first call of the process follows only a warm-up of the kernels on a
 tiny matrix, so it carries the first page-locked allocation, as a
 ``kwage --device`` call would. Every route's hit lists equal the first
 route's; with ``--host``, the first share's also equal the host
-engine's, whose wall is printed beside them.
+engine's, whose wall is printed beside them. With ``--mesh N``, each call
+is followed by the one-shot mesh search (``parallel.sharded_search.
+sharded_search_files``) on N logical shards of the card by the same
+route, a "mesh_call" line with the same hits.
 
 One JSON line a call (wall, the rows, their share of L, the steps of the
 call's ``profile``), and first the host-to-device rates of a 1 GiB copy
@@ -34,6 +38,7 @@ plain versions, host clock, for the tests).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import shutil
 import sys
@@ -129,22 +134,40 @@ def routes_of_tree() -> list[tuple[str, float | None]]:
     return [("gather", 1.0), ("full", 0.0)]
 
 
-def timed_call(paths, queries, device, share_setting) -> tuple[dict, float, dict]:
-    """One search_files_device call with ``GATHER_SHARE`` set (unless None):
-    (results, wall seconds, profile)."""
+@contextlib.contextmanager
+def gather_share(share_setting):
+    """Inside, ``ops.search.GATHER_SHARE`` is ``share_setting`` (unless
+    None): 0 sends every host chunk and streamed mesh group by the full
+    route."""
     real = getattr(ts, "GATHER_SHARE", None)
     if share_setting is not None:
         ts.GATHER_SHARE = share_setting
     try:
-        prof: dict = {}
-        t0 = time.perf_counter()
-        res = ts.search_files_device(paths, queries, THRESHOLD, device, profile=prof)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return res, time.perf_counter() - t0, prof
+        yield
     finally:
         if share_setting is not None:
             ts.GATHER_SHARE = real
+
+
+def timed_call(paths, queries, device, share_setting, mesh=None) -> tuple[dict, float, dict]:
+    """One search_files_device call (with ``mesh``, one sharded_search_files
+    call on it) with ``GATHER_SHARE`` set (unless None): (results, wall
+    seconds, profile)."""
+    prof: dict = {}
+    if mesh is None:
+        def search():
+            return ts.search_files_device(paths, queries, THRESHOLD, device, profile=prof)
+    else:
+        from ..parallel.sharded_search import sharded_search_files
+
+        def search():
+            return sharded_search_files(mesh, paths, queries, THRESHOLD, profile=prof)
+    with gather_share(share_setting):
+        t0 = time.perf_counter()
+        res = search()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return res, time.perf_counter() - t0, prof
 
 
 def canon(res: dict) -> dict:
@@ -161,11 +184,18 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--host", action="store_true",
                     help="hold the first share's hit lists to the host engine")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="also time the one-shot mesh search on N logical shards of the card")
     ap.add_argument("--out", help="the lines as one JSON list (default: the temporary "
                                   "directory's search_routes.json)")
     args = ap.parse_args(argv)
     device = bench_device()
     log = phase_log(device)
+    mesh = None
+    if args.mesh:
+        from ..parallel.mesh import make_search_mesh
+
+        mesh = make_search_mesh(1, args.mesh, [device] * args.mesh)
     log.log("h2d", bytes=H2D_BYTES, rates=h2d_rates(device))
     work = args.work or tempfile.mkdtemp(prefix="kwage_routes_")
     os.makedirs(work, exist_ok=True)
@@ -196,6 +226,16 @@ def main(argv: list[str] | None = None) -> int:
                     log.log("call", share_target=share, queries=len(queries), rows=rows,
                             share=rows / (1 << args.log2_len), route=route, call=call,
                             wall_s=wall, hits=sum(map(len, got.values())), steps=prof)
+                    if mesh is None:
+                        continue
+                    res, wall, prof = timed_call(paths, queries, device, setting, mesh)
+                    got = canon(res)
+                    check(got == want, f"share {share}: the mesh's {route} route's hit lists "
+                                       f"differ")
+                    log.log("mesh_call", share_target=share, queries=len(queries), rows=rows,
+                            share=rows / (1 << args.log2_len), route=route, call=call,
+                            mesh=args.mesh, wall_s=wall, hits=sum(map(len, got.values())),
+                            steps=prof)
     finally:
         if not args.work:
             shutil.rmtree(work, ignore_errors=True)

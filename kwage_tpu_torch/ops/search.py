@@ -532,37 +532,52 @@ class HostChunk:
         return out
 
 
+def distinct_rows(idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(the sorted distinct slice rows of ``idx``, padding entries
+    included; ``idx`` as int32 positions in them): what the gather route
+    uploads, and the indices that search it."""
+    uniq, inv = np.unique(idx, return_inverse=True)
+    return uniq, inv.reshape(idx.shape).astype(np.int32)
+
+
 class QueryBatch:
     """One BloomParam's query batch (``make_query_batch``) for ``device``:
     host ``idx`` / ``nk``, ``valid_d`` and ``idx_d`` on the device, and
-    ``rows()``, the distinct slice rows it touches."""
+    ``rows()``, the distinct slice rows it touches. The mesh's batch
+    (``parallel.sharded_search``) places ``idx_d`` through its own
+    ``_place``."""
+
+    _idx_d = None
+    _rows = None
 
     def __init__(self, queries: list[str], param, device: torch.device):
         self.idx, valid, self.nk = make_query_batch(
             queries, param.kmer_len, param.num_hash, param.log_2_filter_len)
         self.device = device
-        self.valid_d = torch.from_numpy(valid).to(device)
-        self._idx_d = None
-        self._rows = None
+        self.valid_d = self._place(valid)
+
+    def _place(self, a: np.ndarray):
+        """Host array ``a`` where the kernels read it."""
+        return torch.from_numpy(a).to(self.device)
 
     @property
-    def idx_d(self) -> torch.Tensor:
+    def idx_d(self):
         if self._idx_d is None:
-            self._idx_d = torch.from_numpy(self.idx).to(self.device)
+            self._idx_d = self._place(self.idx)
         return self._idx_d
 
     def rows(self) -> tuple[np.ndarray, np.ndarray]:
-        """(the sorted distinct slice rows of ``idx``, padding entries
-        included; ``idx`` as int32 positions in them)."""
+        """``distinct_rows(idx)``, computed once."""
         if self._rows is None:
-            uniq, inv = np.unique(self.idx, return_inverse=True)
-            self._rows = (uniq, inv.reshape(self.idx.shape).astype(np.int32))
+            self._rows = distinct_rows(self.idx)
         return self._rows
 
-    def gathers(self, filter_len: int, passes: int = 1) -> bool:
+    def gathers(self, filter_len: int, passes: int = 1, gathered_passes: int = 1) -> bool:
         """Whether a chunk of this filter length, which the full route would
-        read in ``passes`` column slabs, takes the gather route."""
-        return len(self.rows()[0]) <= GATHER_SHARE * filter_len * passes
+        read in ``passes`` column slabs and the gather route in
+        ``gathered_passes``, takes the gather route: the rows read, passes
+        counted, at most GATHER_SHARE of what the full route reads."""
+        return len(self.rows()[0]) * gathered_passes <= GATHER_SHARE * filter_len * passes
 
 
 def search_chunk(words, batch: QueryBatch, threshold: float, budget_bytes: int,

@@ -119,7 +119,8 @@ class MeshResidentSearcher:
     """ResidentSearcher over a device mesh: the fused matrices shard along
     the "filters" axis across every device (ShardedDatabase groups stay
     alive across requests; the same per-shard budget streams over-budget
-    corpora in column waves). ``mesh`` defaults to one filter shard on
+    corpora, per request: only the rows it touches where they are few,
+    else in column waves). ``mesh`` defaults to one filter shard on
     every visible CUDA device. Same search/render contract and bytes as
     ResidentSearcher."""
 
@@ -133,11 +134,13 @@ class MeshResidentSearcher:
         # [(ShardedDatabase, file indices)], alive across requests.
         self.groups = build_sharded_groups(self.mesh, self.db_paths, budget_bytes)
 
-    def search(self, queries: list[tuple[int, str]], threshold: float):
+    def search(self, queries: list[tuple[int, str]], threshold: float,
+               profile: dict | None = None):
+        """``profile``: as ``parallel.sharded_search.search_sharded_groups``."""
         from ..parallel.sharded_search import search_sharded_groups
 
         return search_sharded_groups(
-            self.groups, self.db_paths, queries, threshold
+            self.groups, self.db_paths, queries, threshold, profile=profile
         )
 
     def render(self, queries: list[str], threshold: float, fmt: str = "json") -> str:

@@ -72,10 +72,15 @@ MERGED = {
     # a grid of torch devices in place of jax.sharding.Mesh
     "parallel.mesh": {"make_search_mesh"},
     # shards searched slot by slot on torch devices in place of shard_map;
-    # the files staged from their mmaps, one residency rule
+    # the files staged from their mmaps, one residency rule; the one-shot
+    # call plans its groups without uploading them, so that each takes the
+    # gather route where its queries touch few rows (its hit lists are held
+    # to the JAX package's and the host engine's in
+    # tests/test_torch_sharded_gather.py)
     "parallel.sharded_search": {"to_host", "sharded_total_hits", "sharded_search_counts",
                                 "sharded_search_complete", "ShardedDatabase",
-                                "build_sharded_groups", "search_sharded_groups"},
+                                "build_sharded_groups", "search_sharded_groups",
+                                "sharded_search_files"},
     # torch.distributed in place of jax.distributed
     "parallel.distributed": {"init_distributed", "make_global_search_mesh"},
     # the device argument of the device branch

@@ -10,10 +10,12 @@ import contextlib
 import importlib
 import io
 import json
+import os
 import pathlib
 import re
 import shutil
 import tempfile
+import time
 import tomllib
 
 import numpy as np
@@ -32,6 +34,30 @@ def _mask(text: str) -> str:
     for pattern, repl in _NOISE:
         text = pattern.sub(repl, text)
     return text
+
+
+@pytest.fixture(autouse=True)
+def reference_native_loaded():
+    """kwage_tpu.native builds its library at first use through one
+    temporary file shared by every process, then renames it into place.
+    Test processes that start that build together race on it: a process
+    can load the library while another is still writing it, or find its
+    temporary file renamed away, and then keeps the error (and kwage_tpu's
+    Python fallbacks, whose verbose output the native paths do not print)
+    for the rest of its life. Where the built library is present, the
+    error is cleared and the library loaded again (waiting out a build
+    that is still being written), so that each twin runs kwage_tpu's
+    native path, as it does in a process that won the race."""
+    from kwage_tpu import native
+
+    so = os.path.join(native._DIR, f"libkwage_native_{native._source_tag()}.so")
+    deadline = time.monotonic() + 30
+    while native._LIB is None and native._LIB_ERR is not None and os.path.exists(so):
+        native._LIB_ERR = None
+        if native.get_lib() is not None or time.monotonic() > deadline:
+            break
+        time.sleep(1)
+    yield
 
 
 @pytest.fixture(scope="module")

@@ -205,7 +205,8 @@ def test_budget_waves_match_unbudgeted(corpus, mesh_shape, budget, monkeypatch):
     streaming; counts, complete masks and totals must be identical to the
     fully-resident path and to the JAX class under the same budget, wave
     for wave. A stream never holds a third wave: every wave's shards lie
-    in one of two buffers."""
+    in one of two buffers. (The full route: GATHER_SHARE 0.)"""
+    monkeypatch.setattr(ts, "GATHER_SHARE", 0.0)
     param, slices, num_filter = corpus
     mesh = port_mesh(*mesh_shape)
     resident = tsh.ShardedDatabase(mesh, param, slices, num_filter)
@@ -267,13 +268,15 @@ def _peak_shard_bytes(groups):
     return resident + waves
 
 
-def test_budget_shared_across_groups(tmp_path):
+def test_budget_shared_across_groups(tmp_path, monkeypatch):
     """Resident groups claim from ONE budget pool; streaming groups size
     waves within the remainder. Hit lists equal the host engine's and the
-    JAX mesh's."""
+    JAX mesh's. (The full route: GATHER_SHARE 0.)"""
     from kwage_tpu.search.engine import search_database_files as jax_host_search
     from kwage_tpu_torch.core.params import BloomParam as PortParam
     from kwage_tpu_torch.search.engine import search_database_files
+
+    monkeypatch.setattr(ts, "GATHER_SHARE", 0.0)
 
     param = PortParam(kmer_len=31, log_2_filter_len=12, num_hash=3, hash_func=0)
     lrng = np.random.default_rng(5)
@@ -345,10 +348,12 @@ def test_over_budget_corpus_keeps_chunks_resident(tmp_path, monkeypatch):
     share at half a file (what SLAB_RESERVE_BYTES is to a corpus of real
     size) the files are cut into chunks of two, the first goes resident
     and the second streams in waves of a quarter file, the peak within the
-    budget; the hit lists equal the host engine's."""
+    budget; the hit lists equal the host engine's. (The full route:
+    GATHER_SHARE 0.)"""
     from kwage_tpu_torch.core.params import BloomParam as PortParam
     from kwage_tpu_torch.search.engine import search_database_files
 
+    monkeypatch.setattr(ts, "GATHER_SHARE", 0.0)
     lrng = np.random.default_rng(9)
     param = PortParam(31, 10, 3, 0)
     files = [_mk_db(tmp_path / f"f{i}.db", lrng, param, 64 * 32, 3000 * i) for i in range(4)]
