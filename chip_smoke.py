@@ -86,7 +86,10 @@ one line each; any failure raises and exits non-zero:
               groups of 32 + 8 subjects, ~1.2 M subject k-mers), t=0.8,
               --max-results 100: each TSV must equal the host engine's
               (the same CLI without ``--device``, one thread) byte for byte, and
-              the subjects hit only by 20 kbp reads must list exactly those.
+              the subjects hit only by 20 kbp reads must list exactly those;
+              the 150 bp reads' batches take the fused sriracha_reads kernel
+              of the run's probe and the 20 kbp reads' canonical_kmers and
+              sriracha_counts, and the other probe's kernels never launch.
               Mbp/s, the device path's profile and the host's Mbp/s.
 10. sriracha mesh -- phase 8's runs again, through search_reads_device
               on a mesh of 4 logical slots of the card (each batch's reads
@@ -152,7 +155,13 @@ one line each; any failure raises and exits non-zero:
               and 512 rows (canonical_kmers' ASCII entry too, at these
               three shapes), and on rows around the 2^14-word tile; both
               probes timed at 8 k, 64 k, 256 k and 1 M k-mers per group
-              (k = 11): the LUT / hash crossover. run_counts and
+              (k = 11): the LUT / hash crossover. The fused short-read
+              entries (sriracha_reads_lut / _hash) == read_batch_counts_ref
+              at 512 x 256 (k = 11, 21), 512 x 128 (k = 21) and 8192 x 256
+              (k = 11, 21), each timed beside the two launches they replace
+              (canonical_kmers + sriracha_counts) on the same inputs, on the
+              every-byte block, on rows of 0, 1, k - 1 and k bases at
+              k = 1-32, and in the crossover beside the words route. run_counts and
               merge_counts at a 46 Mbp accession's shape and at a real
               accession's (a chunk of 2^27 windows; 2^28 + 2^26 words
               merged), run_counts beside torch.unique_consecutive; at the
@@ -260,6 +269,7 @@ from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu_torch.core.params import BloomParam
 from kwage_tpu_torch.bench import search_phases
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
+from kwage_tpu_torch.bench.sriracha import probe_work, read_block, reads_work
 from kwage_tpu_torch.bench.search_routes import H2D_BYTES, gather_share, h2d_rates
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
@@ -275,6 +285,7 @@ from kwage_tpu_torch.kernels.time_kernel import (
     fused_batch_pairs,
     murmur_ops,
     sort_case,
+    sriracha_routes,
 )
 from kwage_tpu_torch.native import available as native_available
 from kwage_tpu_torch.native import canonical_kmers_native, murmur32_native
@@ -404,9 +415,9 @@ PATH_KERNELS = {
                "bit_transpose", "search_complete", "search_counts", "run_counts"),
     "entry": ("canonical_kmers", "murmur32", "search_counts"),
     "sriracha": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
-                 "subject_table"),
+                 "sriracha_reads_lut", "sriracha_reads_hash", "subject_table"),
     "sriracha_mesh": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
-                      "subject_table"),
+                      "sriracha_reads_lut", "sriracha_reads_hash", "subject_table"),
     "remote": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
                "bit_transpose", "run_counts"),
     "chunked": ("canonical_kmers", "radix_sort_pairs", "run_counts", "merge_counts",
@@ -414,7 +425,7 @@ PATH_KERNELS = {
     "prod_l": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
                "bit_transpose", "search_complete", "search_counts", "search_total_hits"),
     "tools": ("search_complete", "search_counts", "canonical_kmers", "radix_sort_pairs",
-              "select_runs", "bloom_set_bits", "sriracha_counts_hash", "bit_transpose",
+              "select_runs", "bloom_set_bits", "sriracha_reads_hash", "bit_transpose",
               "gather1", "gather5_and"),
 }
 # The TPU kernel each CUDA kernel replaces.
@@ -430,6 +441,8 @@ REPLACES = {
     "bloom_set_bits": "tools/exp_pallas_bitset.py:76",
     "sriracha_counts_lut": "kwage_tpu/sriracha/device.py:239",
     "sriracha_counts_hash": "kwage_tpu/sriracha/device.py:179",
+    "sriracha_reads_lut": "kwage_tpu/sriracha/device.py:239",
+    "sriracha_reads_hash": "kwage_tpu/sriracha/device.py:179",
     "subject_table": "kwage_tpu/sriracha/device.py:216",
     "run_counts": "kwage_tpu/pipeline/make_bloom.py:222",
     "merge_counts": "kwage_tpu/pipeline/make_bloom.py:156",
@@ -446,6 +459,8 @@ SOURCES = {
     "bloom_set_bits": "kwage_tpu_torch/csrc/bitset.cu",
     "sriracha_counts_lut": "kwage_tpu_torch/csrc/sriracha.cu",
     "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
+    "sriracha_reads_lut": "kwage_tpu_torch/csrc/sriracha.cu",
+    "sriracha_reads_hash": "kwage_tpu_torch/csrc/sriracha.cu",
     "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
     "run_counts": "kwage_tpu_torch/csrc/merge.cu",
     "merge_counts": "kwage_tpu_torch/csrc/merge.cu",
@@ -1536,11 +1551,13 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
         with open(os.path.join(work, "host.tsv"), "rb") as f:
             host = f.read()
         check(dev == host, f"run {tag} (k={k}): --device TSV differs from the host engine's")
-        route = "sriracha_counts_lut" if k <= 13 else "sriracha_counts_hash"
-        other = "sriracha_counts_hash" if k <= 13 else "sriracha_counts_lut"
-        check(device.type != "cuda" or (after[route] > before[route]
-                                        and after[other] == before[other]),
-              f"run {tag} (k={k}) did not take the {route} route: {before} -> {after}")
+        probe, other = ("lut", "hash") if k <= 13 else ("hash", "lut")
+        route = [f"sriracha_reads_{probe}", f"sriracha_counts_{probe}"]
+        check(device.type != "cuda" or (
+            all(after[n] > before[n] for n in route)
+            and all(after[f"sriracha_{n}_{other}"] == before[f"sriracha_{n}_{other}"]
+                    for n in ("reads", "counts"))),
+              f"run {tag} (k={k}) did not take the {probe} route: {before} -> {after}")
         rows = [line.split(b"\t") for line in dev.splitlines() if b"\t" in line]
         per_query = collections.Counter(r[4] for r in rows)
         perfect = sum(1 for r in rows if r[2] == b"1")
@@ -1555,7 +1572,8 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
         shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
         print(f"phase 8 sriracha run {tag}: k={k} -t {t}, {n_reads} reads + {SR_LONG} long, "
               f"{bp / 1e6:.1f} Mbp; --device {t_dev:.2f} s ({bp / 1e6 / t_dev:.2f} Mbp/s, "
-              f"{after[route] - before[route]} {route} launches, profile {shown}, "
+              + ", ".join(f"{after[n] - before[n]} {n}" for n in [*route, "canonical_kmers"])
+              + f" launches, profile {shown}, "
               f"{prof.get('spans')} spans); host engine {t_host:.2f} s "
               f"({bp / 1e6 / t_host:.2f} Mbp/s); TSV == host bytes, {len(rows)} rows, "
               f"{perfect} with score 1", flush=True)
@@ -3094,7 +3112,7 @@ def phase_kernels(device: torch.device, seed: int, ingest: dict) -> dict:
     results["transpose_bits_device"] = transpose_bits_checks(device, gen, record, lines)
     tiled_edge_checks(device, seed, record, lines)
     small_block_checks(device, seed, results, lines)
-    sriracha_kernel_checks(device, seed, record, lines)
+    sriracha_kernel_checks(device, seed, record, lines, results)
     print("phase 4 kernels == plain versions, bit for bit: " + "; ".join(lines), flush=True)
     return results
 
@@ -3357,24 +3375,6 @@ def small_block_checks(device: torch.device, seed: int, results: dict, lines: li
                  f"{ms:.4f} ms plain {plain:.3f} ms")
 
 
-def sriracha_batch(rng, genomes: np.ndarray, B: int, L: int, read_len: int):
-    """ASCII reads uint8 [B, L] of ``read_len`` bases (zero padding after),
-    a fifth drawn from ``genomes`` with substitutions, some with N; the
-    lengths int32 [B], the last rows 0 (batch padding)."""
-    b = np.zeros((B, L), np.uint8)
-    b[:, :read_len] = ACGT[rng.integers(0, 4, size=(B, read_len))]
-    for r in range(0, B, 5):
-        g = genomes[int(rng.integers(0, genomes.shape[0]))]
-        a = int(rng.integers(0, g.shape[0] - read_len + 1))
-        b[r, :read_len] = ACGT[mutate(rng, g[a : a + read_len])]
-    b[rng.random((B, L)) < 0.001] = ord("N")
-    b[:, read_len:] = 0
-    lengths = np.full(B, read_len, np.int32)
-    lengths[-3:] = 0
-    b[-3:] = 0
-    return b, lengths
-
-
 def subject_sets(genomes: np.ndarray, k: int) -> list[tuple[str, np.ndarray]]:
     """load_subject_kmers' output for the genomes: sorted unique canonical
     words."""
@@ -3382,22 +3382,61 @@ def subject_sets(genomes: np.ndarray, k: int) -> list[tuple[str, np.ndarray]]:
             for i, g in enumerate(genomes)]
 
 
-def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list) -> None:
-    """sriracha_counts (both probes), subject_table and canonical_kmers'
-    ASCII entry (at phase 8's batch shapes, timed) against their plain
-    versions, bit for bit: at phase 8's batch shape (512 x 256, 150 bp
-    reads, 40 subjects of 30 kbp) at k = 21 and 11, timed; on a small block
-    holding every byte value at k = 3, 13, 14, 16, 31, 32; on batches of
+def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
+                           results: dict) -> None:
+    """sriracha_reads and sriracha_counts (both probes), subject_table and
+    canonical_kmers' ASCII entry (at phase 8's batch shapes, timed) against
+    their plain versions, bit for bit: at phase 8's batch shape (512 x 256,
+    150 bp reads, 40 subjects of 30 kbp) at k = 21 and 11, timed, the fused
+    sriracha_reads beside the two launches it replaces on the same inputs,
+    and so at bench.sriracha's step (512 x 128, k = 21) and a whole span
+    (8192 x 256, k = 21 and 11); on a small block holding every byte value
+    at k = 3, 13, 14, 16, 31, 32; sriracha_reads on rows of 0, 1, k - 1 and
+    k bases at every k = 1-32, and at widths 150, 200 and 543 and in views
+    one byte off a 16-byte boundary at k = 1, 11, 21, 32; on batches of
     the path's long-read shape (4 x 2^15 and 512 x 2^15: reads of 2^15
     bases and 20 kbp, the rest empty; the tiled sort), timed; on batches
     that mix rows of 0, 1, 2^14 - 1, 2^14, 2^14 + 1 and more valid words
     (2^15 and 2^16 buckets). Then both probes timed at 8 k, 64 k, 256 k and
-    1 M k-mers per group at k = 11."""
+    1 M k-mers per group at k = 11, by both routes."""
     rng = np.random.default_rng(seed + 5)
     stream = torch.cuda.current_stream(device).cuda_stream
     genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
-    b, lengths = sriracha_batch(rng, genomes, 512, 256, READ_LEN)
+    b, lengths = read_block(rng, genomes, 512, 256, READ_LEN, SUB_RATE)
     reads, lens = torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
+
+    def fused(tag, reads, lens, tables, timed):
+        """One comparison of the fused sriracha_reads entry with
+        read_batch_counts_ref; ``timed``: ``sriracha_routes``, which runs
+        it and the two launches it replaces (canonical_kmers' ASCII entry
+        and sriracha_counts) once each on the same inputs, holds each
+        route's output to the plain version's, and times them in CUDA
+        graphs in the order fused, words, words, fused."""
+        name = f"sriracha_reads_{tables.route}"
+        check(tsr.fused_route(reads.shape[1], tables.k),
+              f"{name} {tag}: not the fused route's shape")
+        got = tsr.read_batch_counts(reads, lens, tables)
+        want = tsr.read_batch_counts_ref(reads, lens, tables)
+        err = max_abs_err(got, want)
+        if not timed:
+            record(name, tag, err, log=False)
+            return
+        same, t = sriracha_routes(reads, lens, tables, want)
+        check(all(same.values()), f"{name} {tag}: a route differs from the plain version {same}")
+        plain = cuda_ms(lambda: tsr.read_batch_counts_ref(reads, lens, tables), 3)
+        nbytes, nops = reads_work(reads, lens, tables)
+        b = bound(nbytes, nops)
+        ms, words_ms = sum(t["fused"]) / 2, sum(t["words"]) / 2
+        first = name not in results
+        record(name, tag, err, ms, plain, "", nbytes, nops, log=False)
+        if first:
+            results[name]["words_route_ms"] = words_ms
+        lines.append(f"{name} {tag}: fused {t['fused'][0]:.4f} / {t['fused'][1]:.4f} ms graph "
+                     f"(bound {b['bound_ms']:.5f} ms by {b['bound_by']}: {nbytes} bytes, {nops} "
+                     f"operations; share {b['bound_ms'] / ms:.3f}); words route (canonical_kmers "
+                     f"+ sriracha_counts_{tables.route}) {t['words'][0]:.4f} / "
+                     f"{t['words'][1]:.4f} ms graph; {int(want[:, tables.ns + 1].sum())} distinct "
+                     f"words; plain {plain:.3f} ms")
 
     def counts(tag, words, valid, lens, tables, timed):
         """One comparison of sriracha_counts with its plain version."""
@@ -3413,17 +3452,10 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
             plain = cuda_ms(lambda: tsr.sriracha_counts_ref(words, valid, lens, tables), 3)
             # Bytes: the word and flag of every window that fits its read
             # (the rest are never read), the lengths in, the counts out, and
-            # one table entry (LUT: 4 bytes; hash: a 96-byte bucket row) a
-            # distinct word and group. Operations: a merge sort's n log2 n
-            # compare-exchanges of 3 operations, 3 a word to dedup and probe.
-            nk = want[:, tables.ns].double().cpu()
-            distinct = int(want[:, tables.ns + 1].sum())
-            groups = -(-tables.ns // 32)
+            # probe_work's table bytes; operations: probe_work's.
             fit = int((lens.long() - tables.k + 1).clamp(0, words.shape[1]).sum())
-            nbytes = (fit * (words.element_size() + valid.element_size())
-                      + nbytes_of(lens, got)
-                      + distinct * groups * (4 if tables.route == "lut" else 96))
-            nops = int((3 * nk * torch.log2(nk.clamp(min=2)).ceil() + 3 * nk).sum())
+            nbytes, nops = probe_work(words, valid, lens, tables)
+            nbytes += fit * (words.element_size() + valid.element_size()) + nbytes_of(lens, got)
         hits = int(want[:, : tables.ns].sum())
         check(hits > 0, f"sriracha_counts {tag}: no subject hit")
         n_long = int((want[:, tables.ns] > tsr.MAX_SHARED_WORDS).sum())
@@ -3461,16 +3493,27 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
             # Operations: 3 a word (range check, address, bit).
             record("subject_table", f"{sm.shape[0]} x {sm.shape[1]} words k={k}", err, ms, plain,
                    "", nbytes_of(sm, table), 3 * sm.numel())
-            counts(f"[512, 256] k={k}", words, valid, lens, tsr.LutTables(table, k, len(subj)),
-                   True)
+            luts = tsr.LutTables(table, k, len(subj))
+            fused(f"[512, 256] k={k}", reads, lens, luts, True)
+            counts(f"[512, 256] k={k}", words, valid, lens, luts, True)
             del sm, table
-        counts(f"[512, 256] k={k}", words, valid, lens, tsr.build_hash_tables(subj, k, device),
-               True)
+        hashes = tsr.build_hash_tables(subj, k, device)
+        fused(f"[512, 256] k={k}", reads, lens, hashes, True)
+        counts(f"[512, 256] k={k}", words, valid, lens, hashes, True)
+        # bench.sriracha's step (128 bp reads in the 128 bucket) at k = 21;
+        # a whole span at both k.
+        shapes = [(8192, 256, READ_LEN)] + ([(512, 128, 128)] if k == 21 else [])
+        for B, L, read_len in shapes:
+            b5, lengths5 = read_block(rng, genomes, B, L, read_len, SUB_RATE)
+            r5, l5 = torch.from_numpy(b5).to(device), torch.from_numpy(lengths5).to(device)
+            for tables in ([luts] if k <= 14 else []) + [hashes]:
+                fused(f"[{B}, {L}] k={k}", r5, l5, tables, True)
+        del hashes
     torch.cuda.empty_cache()
 
     # Every byte value, every k branch: 3 (a 64-entry table), 13, 14 (the
     # largest LUT, 1 GiB a group), 16, 31 and 32 (the sign bit).
-    b2, lengths2 = sriracha_batch(rng, genomes, 64, 256, READ_LEN)
+    b2, lengths2 = read_block(rng, genomes, 64, 256, READ_LEN, SUB_RATE)
     b2[1:3, :128] = np.arange(256, dtype=np.uint8).reshape(2, 128)
     b2[3, :READ_LEN] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=READ_LEN)]
     small, small_lens = torch.from_numpy(b2).to(device), torch.from_numpy(lengths2).to(device)
@@ -3485,8 +3528,53 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
             routes.append(tsr.build_lut_tables(subj, k, device))
         for tables in routes:
             counts(f"small [64, 256] k={k}", words, valid, small_lens, tables, False)
+            fused(f"small [64, 256] k={k}", small, small_lens, tables, False)
         del routes
         torch.cuda.empty_cache()
+
+    # sriracha_reads at every k on rows of 0, 1, k - 1, k, k + 1 and 64
+    # bases (two groups of subjects drawn from the rows' own words).
+    for k in range(1, 33):
+        starts = rng.integers(0, SR_SUBJECT_BP - 64, size=8)
+        b6 = ACGT[np.stack([genomes[i % 5][a : a + 64] for i, a in enumerate(starts)])]
+        lengths6 = np.array([0, 1, k - 1, k, k + 1, 64, 33, 64], np.int32)
+        for r, n in enumerate(lengths6):
+            b6[r, n:] = 0
+        b6[6, 10] = ord("N")
+        subj = [(f"s{i}", np.unique(canonical_kmers_native(
+            b6[i % 8, : lengths6[i % 8]].tobytes(), k))[i % 3 :: 1 + i % 2]) for i in range(40)]
+        r6, l6 = torch.from_numpy(b6).to(device), torch.from_numpy(lengths6).to(device)
+        for tables in ([tsr.build_lut_tables(subj, k, device)] if k <= 13 else []) + [
+                tsr.build_hash_tables(subj, k, device)]:
+            fused(f"rows of 0, 1, k-1, k bases k={k}", r6, l6, tables, False)
+    # The fused kernel's byte-load staging (rows not a multiple of 16 bytes
+    # wide, or reads off a 16-byte boundary): widths 150, 200 and, at
+    # k = 32, 543 (512 windows); widths 256 and 512 in a view one byte off a
+    # 16-byte boundary. Rows of 0, 1, k - 1, k, k + 1, the width less one
+    # and the width bases.
+    staged = []
+    for k in (1, 11, 21, 32):
+        subj = subject_sets(genomes, k)
+        routes = [tsr.build_hash_tables(subj, k, device)]
+        if k <= 13:
+            routes.append(tsr.build_lut_tables(subj, k, device))
+        for W, off in [(150, 0), (200, 0), (256, 1), (512, 1)] + ([(543, 0)] if k == 32 else []):
+            b7, lengths7 = read_block(rng, genomes, 40, W, W, SUB_RATE)
+            lengths7[:7] = [0, 1, k - 1, k, k + 1, W - 1, W]
+            for r, n in enumerate(lengths7):
+                b7[r, n:] = 0
+            r7 = torch.zeros(40 * W + off, dtype=torch.uint8, device=device)[off:].view(40, W)
+            r7.copy_(torch.from_numpy(b7))
+            check(r7.data_ptr() % 16 == off, f"[40, {W}]: reads at {r7.data_ptr() % 16} mod 16")
+            for tables in routes:
+                tag = f"[40, {W}]{' one byte off' if off else ''} k={k}"
+                fused(tag, r7, torch.from_numpy(lengths7).to(device), tables, False)
+                staged.append(f"{tag} {tables.route}")
+        del routes
+    lines.append("sriracha_reads (both probes) == plain on the every-byte block at k = 3, 13, "
+                 "14, 16, 31, 32, on rows of 0, 1, k - 1, k, k + 1 and 64 bases at k = 1-32, "
+                 f"and through the byte-load staging on {len(staged)} batches: "
+                 + ", ".join(staged))
 
     # Reads of 2^15 bases and of 20 kbp in the 32768 bucket: in a batch of 4
     # rows as the path now pads it, and of 512 rows as it did; the long rows
@@ -3553,9 +3641,16 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list)
                   f"sriracha_counts_{tables.route} differs at n={n}")
             launch = tsr.counts_launch(words, valid, lens, tables, out, None)
             times.append(cuda_ms(lambda: kernels.launch(*launch), 20))
+            got = tsr.read_batch_counts(reads, lens, tables, out)
+            check(torch.equal(got, tsr.read_batch_counts_ref(reads, lens, tables)),
+                  f"sriracha_reads_{tables.route} differs at n={n}")
+            launch = tsr.reads_launch(reads, lens, tables, out)
+            times.append(cuda_ms(lambda: kernels.launch(*launch), 20))
             del tables
-        cross.append(f"n={n}: lut {times[0]:.4f} ms, hash {times[1]:.4f} ms")
-    lines.append("sriracha crossover [512, 256] k=11, 32 subjects: " + "; ".join(cross))
+        cross.append(f"n={n}: lut {times[0]:.4f} ms, hash {times[2]:.4f} ms (sriracha_counts); "
+                     f"lut {times[1]:.4f} ms, hash {times[3]:.4f} ms (sriracha_reads)")
+    lines.append("sriracha crossover [512, 256] k=11, 32 subjects, launches in a row: "
+                 + "; ".join(cross))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3674,7 +3769,7 @@ def main(argv: list[str] | None = None) -> int:
             "library_ms": r.get("library_ms"),
             **{key: r[key] for key in ("library_all_pairs_ms", "lsd_pass_traffic_ms",
                                        "lsd_pass_operations_ms", "peak_bytes", "sync_ms",
-                                       "launch_ms", "own_traffic_ms")
+                                       "launch_ms", "own_traffic_ms", "words_route_ms")
                if key in r},
             "launches": {path: counts[k] for path, counts in paths.items() if counts.get(k)}}))
     # The byte entry of bit_transpose: its launches count under that kernel.

@@ -10,8 +10,8 @@ Per span of reads (steady state, the span pipeline one deep):
 
 Measured here: t_pack_dispatch, t_sync and t_gate from
 ``search_reads_device(profile=...)`` (``sriracha/device.py``), each a span's
-mean; t_kernel from ``canonical_kmers`` + ``sriracha_counts_hash`` on one
-[512, 128] batch of the same reads, CUDA events over a CUDA graph
+mean; t_kernel from the path's launches (one ``sriracha_reads_hash``) on
+one [512, 128] batch of the same reads, CUDA events over a CUDA graph
 (``bench.sriracha.kernel_ms``), scaled to a span; and the end to end, whose
 wall the model must explain (``model_vs_measured_ratio``). The model is
 then projected at RTT 0, 1, 10 and 60 ms. The RTT now is inferred as a

@@ -30,7 +30,8 @@
 // reverse order: reverse all 64 bits, swap the two bits of each pair, shift
 // right by 64 - 2k. Validity is "k ones at bit j of the validity stream".
 // So a window costs three shared-memory words, two funnel shifts and about
-// twenty integer operations at every k. One warp takes a chunk of 256
+// twenty integer operations at every k. The decode, the packing and the
+// window word are kmers.cuh's, shared with sriracha.cu's fused kernel. One warp takes a chunk of 256
 // windows of one read: it stages the chunk's 18 packed and 9 validity words
 // in shared memory (the ASCII entry first 2-bit packs its bytes there, with
 // the same codes and validity rule: a byte per base as code | ok << 2, then
@@ -45,6 +46,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "kmers.cuh"
 
 namespace {
 
@@ -85,42 +88,18 @@ struct AsciiBases {
                         int lane) const {
     const uint8_t* row = ascii + r * stride;
     for (int m = lane; m < kStageBases; m += 32) {
-      uint32_t b = 0;
-      if (base0 + m < length) {
-        // Setting bit 5 lower-cases a letter; the only bytes it maps to 'a'
-        // are 'A' and 'a' (and likewise for c, g and t).
-        const uint32_t c = row[base0 + m] | 0x20u;
-        const uint32_t code = c == 'c' ? 1u : c == 'g' ? 2u : c == 't' ? 3u : 0u;
-        const bool ok = c == 'a' || c == 'c' || c == 'g' || c == 't';
-        b = code | (ok ? 4u : 0u);
-      }
-      st.bases[m] = (uint8_t)b;
+      st.bases[m] = (uint8_t)(base0 + m < length ? kw::base_code(row[base0 + m]) : 0u);
     }
     __syncwarp();
-    // Lane l < 18 packs bases [16 l, 16 l + 16), four bytes a step: the code
-    // bits of a word's four bytes gather into 8 bits, their ok bits into 4.
+    // Lane l < 18 packs bases [16 l, 16 l + 16).
     uint32_t w = 0, v16 = 0;
-    if (lane < kStageBases / 16) {
-      const uint32_t* q = reinterpret_cast<const uint32_t*>(st.bases) + 4 * lane;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const uint32_t x = q[t];
-        const uint32_t c = x & 0x03030303u;
-        w |= ((c | (c >> 6) | (c >> 12) | (c >> 18)) & 0xFFu) << (8 * t);
-        const uint32_t o = (x >> 2) & 0x01010101u;
-        v16 |= ((o | (o >> 7) | (o >> 14) | (o >> 21)) & 0xFu) << (4 * t);
-      }
-    }
+    if (lane < kStageBases / 16)
+      kw::pack16(reinterpret_cast<const uint32_t*>(st.bases) + 4 * lane, w, v16);
     const uint32_t up = __shfl_down_sync(0xFFFFFFFFu, v16, 1);
     if (lane < kPackedWords) st.packed[lane] = w;
     if (lane < 2 * kValidWords && (lane & 1) == 0) st.validw[lane >> 1] = v16 | (up << 16);
   }
 };
-
-// Swap the two bits of every pair.
-__device__ __forceinline__ uint32_t swap_pairs(uint32_t x) {
-  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
-}
 
 template <typename Bases>
 __global__ void canonical_kmers_kernel(Bases bases, int64_t* __restrict__ words,
@@ -132,10 +111,7 @@ __global__ void canonical_kmers_kernel(Bases bases, int64_t* __restrict__ words,
   WarpStage& st = stage[warp];
   const int64_t chunks = (nwin + kChunk - 1) / kChunk;
   const int64_t items = R * chunks;
-  const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-  const uint32_t mask_lo = (uint32_t)mask, mask_hi = (uint32_t)(mask >> 32);
-  const uint32_t kmask = k == 32 ? ~0u : (1u << k) - 1;
-  const int down = 64 - 2 * k;          // sense: shift after the reversal
+  const kw::KmerShape ks(k);
   const int sh = 2 * (lane & 15);       // bit offset of this lane's windows
   for (int64_t item = (int64_t)blockIdx.x * warps + warp; item < items;
        item += (int64_t)gridDim.x * warps) {
@@ -154,17 +130,10 @@ __global__ void canonical_kmers_kernel(Bases bases, int64_t* __restrict__ words,
       const int jl = lane + 32 * i;
       if (jl < n) {
         const int p = jl >> 4;
-        const uint32_t w0 = st.packed[p], w1 = st.packed[p + 1], w2 = st.packed[p + 2];
-        const uint32_t s_lo = __funnelshift_r(w0, w1, sh) & mask_lo;
-        const uint32_t s_hi = __funnelshift_r(w1, w2, sh) & mask_hi;
-        const uint64_t anti = ((uint64_t)(s_hi ^ mask_hi) << 32) | (s_lo ^ mask_lo);
-        const uint64_t rev = ((uint64_t)swap_pairs(__brev(s_lo)) << 32) |
-                             swap_pairs(__brev(s_hi));
-        const uint64_t sense = rev >> down;
-        wout[jl] = (int64_t)(sense <= anti ? sense : anti);
+        wout[jl] = (int64_t)kw::canonical_word(st.packed[p], st.packed[p + 1],
+                                               st.packed[p + 2], sh, ks);
         const int q = jl >> 5;
-        const uint32_t v = __funnelshift_r(st.validw[q], st.validw[q + 1], jl & 31);
-        st.vout[a + jl] = (v & kmask) == kmask;
+        st.vout[a + jl] = kw::window_ok(st.validw[q], st.validw[q + 1], jl & 31, ks);
       }
     }
     __syncwarp();

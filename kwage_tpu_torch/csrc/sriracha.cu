@@ -16,6 +16,10 @@
 // subject_table: subjects int64 [ns, smax] (words >= 4^k, e.g. the -1
 // padding, drop) -> out uint32 [ceil(ns / 32), 4^k], zeroed by the caller,
 // bit s % 32 of out[s / 32, w] set iff w is a word of subject s.
+// sriracha_reads: the same out as sriracha_counts, from the ASCII reads
+// uint8 [B, L] (canonical_kmers' ASCII entry's input) and lengths int32 [B]
+// in ONE launch, for rows of at most 512 windows (L - k + 1 <= 512; the
+// read buckets of 64-512 bp); the words never reach device memory.
 //
 // Bound: 9 bytes read per window, then one random 4-byte LUT gather or one
 // 96-byte bucket row (64 B keys, 32 B masks) per distinct word and group:
@@ -35,6 +39,29 @@
 // run to run). All groups' tables are one allocation (LUT [G, 4^k]; hash
 // rows concatenated with a first row and a bucket mask per group), so the
 // sort runs once and one launch probes every group.
+//
+// sriracha_reads. Bound: the reads' bytes, the lengths and the counts,
+// then the same table entry a distinct word and group; the 9 bytes a window
+// of canonical_kmers' words and flags are not moved. Design: a warp a read,
+// several reads a block, and no block-wide barrier (a half-warp a read was
+// slower at every shape timed). The warp stages its read in shared memory
+// as 2-bit codes and ok bits (kmers.cuh's decode, so the words are
+// canonical_kmers' bit for bit); lane l builds the canonical words of
+// windows l E .. l E + E - 1 in registers (E = P / 32, P the batch's
+// windows a row rounded up to a power of two; at most 16), invalid ones
+// and those past the read as all-ones. The bitonic sort runs on that
+// blocked layout in registers: strides below E inside a lane, the others
+// as __shfl_xor_sync exchanges with lane l ^ (stride / E); 32-bit keys
+// where k <= 16. The valid count decides what is kept, as above. A slot is
+// distinct when it differs from its left neighbour (in the lane, or lane
+// l - 1's last slot by __shfl_up_sync); the distinct words are compacted
+// in shared memory, and lane l probes words l, l + 32, ..., a batch of
+// loads issued before any mask is used (LUT: one 4-byte load, all at once;
+// hash: the bucket row's 96 bytes in six 16-byte loads, four rows at
+// once). The counts are taken per warp: the union of the warp's masks
+// (mostly 0: a warp with none skips the counting) names the subjects hit,
+// and one warp reduction a hit subject counts its set bits; lane s keeps
+// subject s's count and writes it. Nothing is atomic: bit-exact run to run.
 //
 // Long rows (more than 2^14 windows that fit the read: reads over 16 kbp)
 // do not fit a block's shared memory. The first version sorted such a row
@@ -61,6 +88,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "kmers.cuh"
 
 namespace {
 
@@ -166,6 +195,12 @@ struct LutProbe {
   __device__ uint32_t operator()(int g, uint64_t w) const {
     return w < (uint64_t)size ? __ldg(table + g * size + (int64_t)w) : 0u;
   }
+  // The fused kernel's probe in two steps: the loads, then the mask; a
+  // lane's probes of a group all go out at once (a word each).
+  static constexpr int kInFlight = 16;
+  using Row = uint32_t;
+  __device__ Row load(int g, uint64_t w) const { return (*this)(g, w); }
+  __device__ uint32_t mask(const Row& row, uint64_t) const { return row; }
 };
 
 struct HashProbe {
@@ -181,6 +216,36 @@ struct HashProbe {
 #pragma unroll
     for (int c = 0; c < kBucketCap; ++c)
       if (keys[slot + c] == w) m |= __ldg(masks + slot + c);
+    return m;
+  }
+  // The fused kernel's probe in two steps: the whole bucket row in six
+  // 16-byte loads (its 64 bytes of keys, its 32 of masks), none waiting on
+  // a compare; then the mask. Four a lane at once (96 registers).
+  static constexpr int kInFlight = 4;
+  struct Row {
+    ulonglong2 k[kBucketCap / 2];
+    uint4 m[2];
+  };
+  __device__ Row load(int g, uint64_t w) const {
+    const uint32_t b =
+        mix32((uint32_t)(w >> 32), (uint32_t)w) & (uint32_t)__ldg(bmask + g);
+    const int64_t slot = (__ldg(row0 + g) + b) * kBucketCap;
+    const ulonglong2* kp = reinterpret_cast<const ulonglong2*>(keys + slot);
+    const uint4* mp = reinterpret_cast<const uint4*>(masks + slot);
+    Row row;
+#pragma unroll
+    for (int c = 0; c < kBucketCap / 2; ++c) row.k[c] = __ldg(kp + c);
+    row.m[0] = __ldg(mp);
+    row.m[1] = __ldg(mp + 1);
+    return row;
+  }
+  __device__ uint32_t mask(const Row& row, uint64_t w) const {
+    const uint32_t ms[kBucketCap] = {row.m[0].x, row.m[0].y, row.m[0].z, row.m[0].w,
+                                     row.m[1].x, row.m[1].y, row.m[1].z, row.m[1].w};
+    uint32_t m = 0;
+#pragma unroll
+    for (int c = 0; c < kBucketCap / 2; ++c)
+      m |= (row.k[c].x == w ? ms[2 * c] : 0u) | (row.k[c].y == w ? ms[2 * c + 1] : 0u);
     return m;
   }
 };
@@ -446,6 +511,251 @@ int launch_counts(const void* words, const void* valid, const void* lengths,
   return (int)cudaGetLastError();
 }
 
+// --- short reads: ASCII reads to counts in one launch ---------------------
+
+constexpr int kMaxReadWindows = 512;   // windows a row: reads of 64-512 bp
+constexpr int kReadPacked = kMaxReadWindows / 16 + 2;  // packed words a read
+constexpr int kReadThreads = 128;      // at most: see launch_reads()
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// A read's bases in shared memory: 2-bit codes, 16 a word, and their ok
+// bits, 16 a half-word, so that the uint32 word q of ``ok16`` is validity
+// word q (bases 32 q .. 32 q + 31).
+struct ReadStage {
+  uint32_t packed[kReadPacked];
+  uint16_t ok16[kReadPacked];
+};
+
+// One read a warp, several warps a block; no block-wide barrier. Key:
+// uint32 where k <= 16, else uint64. E: sort slots a lane, P = 32 E >= the
+// batch's windows a row.
+template <typename Probe, typename Key, int E>
+__global__ void __launch_bounds__(kReadThreads)
+    sriracha_reads_kernel(const uint8_t* __restrict__ reads,
+                          const int32_t* __restrict__ lengths, int64_t B, int64_t L,
+                          int k, bool aligned, Probe probe, int ns,
+                          int32_t* __restrict__ out, int64_t out_stride) {
+  constexpr int P = 32 * E;
+  constexpr int kPacked = P / 16 + 2;  // packed words windows j < P read
+  constexpr int kLogE = E == 1 ? 0 : E == 2 ? 1 : E == 4 ? 2 : E == 8 ? 3 : 4;
+  constexpr int kLogP = kLogE + 5;
+  __shared__ ReadStage stage[kReadThreads / 32];
+  __shared__ Key dist[kReadThreads / 32][P];  // a read's distinct words
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (r >= B) return;
+  int64_t len = lengths[r];
+  if (len > L) len = L;
+  const int n_fit = len - k + 1 > 0 ? (int)(len - k + 1) : 0;  // windows in the read
+  int32_t* o = out + r * out_stride;
+  if (n_fit == 0) {
+    for (int i = lane; i < ns + 2; i += 32) o[i] = 0;
+    return;
+  }
+
+  // Stage the read: lane q packs bases [16 q, 16 q + 16); bases past the
+  // read are code 0 and not ok.
+  ReadStage& st = stage[threadIdx.x / 32];
+  const uint8_t* row = reads + r * L;
+  for (int q = lane; q < kPacked; q += 32) {
+    uint32_t coded[4] = {0u, 0u, 0u, 0u};
+    const int b0 = 16 * q;
+    if (b0 < len) {
+      uint32_t x[4] = {0u, 0u, 0u, 0u};
+      if (aligned && b0 + 16 <= L) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + b0));
+        x[0] = v.x;
+        x[1] = v.y;
+        x[2] = v.z;
+        x[3] = v.w;
+      } else {
+        for (int i = 0; i < 16 && b0 + i < L; ++i)
+          x[i >> 2] |= (uint32_t)row[b0 + i] << (8 * (i & 3));
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (b0 + i < len)
+          coded[i >> 2] |= kw::base_code((x[i >> 2] >> (8 * (i & 3))) & 0xFFu) << (8 * (i & 3));
+    }
+    uint32_t codes, ok;
+    kw::pack16(coded, codes, ok);
+    st.packed[q] = codes;
+    st.ok16[q] = (uint16_t)ok;
+  }
+  __syncwarp();
+
+  // Lane l's windows are l E .. l E + E - 1 (the blocked layout); an
+  // invalid window, or one past the read, holds all-ones.
+  const kw::KmerShape ks(k);
+  const uint32_t* validw = reinterpret_cast<const uint32_t*>(st.ok16);
+  Key v[E];
+  int nvalid = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int j = lane * E + e, p = j >> 4;
+    const bool ok = j < n_fit && kw::window_ok(validw[j >> 5], validw[(j >> 5) + 1], j & 31, ks);
+    const uint64_t w = kw::canonical_word(st.packed[p], st.packed[p + 1], st.packed[p + 2],
+                                          2 * (j & 15), ks);
+    v[e] = ok ? (Key)w : ~Key(0);
+    nvalid += ok;
+  }
+
+  // Bitonic sort of the P slots, unsigned, ascending: slot j = l E + e.
+  // Strides below E are compare-exchanges inside a lane; a stride of E or
+  // more pairs lane l with lane l ^ (stride / E), the same e.
+#pragma unroll
+  for (int ls = 1; ls <= kLogP; ++ls) {
+#pragma unroll
+    for (int lt = ls - 1; lt >= 0; --lt) {
+      if (lt >= kLogE) {
+        const int lx = 1 << (lt - kLogE);
+        // Direction: bit ls of the slot, a lane bit here (0 at ls == kLogP).
+        const bool asc = ls == kLogP || ((lane >> (ls - kLogE)) & 1) == 0;
+        const bool keep_min = ((lane & lx) == 0) == asc;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const Key o2 = __shfl_xor_sync(kFull, v[e], lx);
+          v[e] = keep_min ? (o2 < v[e] ? o2 : v[e]) : (o2 > v[e] ? o2 : v[e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if ((e & (1 << lt)) == 0) {
+            const int f = e | (1 << lt);
+            const bool asc = ls >= kLogP || (ls >= kLogE ? ((lane >> (ls - kLogE)) & 1) == 0
+                                                          : (e & (1 << ls)) == 0);
+            const Key a = v[e], b = v[f];
+            const Key lo = a < b ? a : b, hi = a < b ? b : a;
+            v[e] = asc ? lo : hi;
+            v[f] = asc ? hi : lo;
+          }
+        }
+      }
+    }
+  }
+
+  // The first n slots hold the n valid words, whatever their values (the
+  // k = 32 word -1 included). A slot is distinct when it differs from its
+  // left neighbour: in the lane, or lane - 1's last slot. The distinct
+  // words move to the front of the read's slots in shared memory (their
+  // order kept), so that lane l probes words l, l + 32, ...: about half the
+  // probes a lane of the blocked layout, where the padding takes the rest.
+  const int n = (int)__reduce_add_sync(kFull, (unsigned)nvalid);
+  const Key left = __shfl_up_sync(kFull, v[E - 1], 1);
+  bool distinct[E];
+  int nd = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int j = lane * E + e;
+    const Key prev = e > 0 ? v[e - 1] : left;
+    distinct[e] = j < n && (j == 0 || v[e] != prev);
+    nd += distinct[e];
+  }
+  int first = nd;  // inclusive scan of nd over the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kFull, first, d);
+    if (lane >= d) first += t;
+  }
+  const int nu = __shfl_sync(kFull, first, 31);
+  first -= nd;
+  Key* words = dist[threadIdx.x / 32];
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (distinct[e]) words[first++] = v[e];
+  __syncwarp();
+
+  // A group's probes go out C at a time (the LUT's all at once), every
+  // load of the C before any result is used; the set bits are then counted
+  // by subject over the warp, one reduction a subject that some lane hit
+  // (the union of the warp's masks: mostly none), two subjects at a time,
+  // and lane s keeps subject s's count.
+  constexpr int C = E < Probe::kInFlight ? E : Probe::kInFlight;
+  for (int s0 = 0, g = 0; s0 < ns; s0 += 32, ++g) {
+    uint32_t m[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) m[e] = 0u;
+#pragma unroll
+    for (int c0 = 0; c0 < E; c0 += C) {
+      if (c0 * 32 >= nu) break;
+      typename Probe::Row rows[C];
+      Key w[C];
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        const int idx = (c0 + i) * 32 + lane;
+        w[i] = idx < nu ? words[idx] : ~Key(0);
+        if (idx < nu) rows[i] = probe.load(g, (uint64_t)w[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        if ((c0 + i) * 32 + lane < nu) m[c0 + i] = probe.mask(rows[i], (uint64_t)w[i]);
+    }
+    uint32_t any = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) any |= m[e];
+    int cnt = 0;
+    for (uint32_t bits = __reduce_or_sync(kFull, any); bits;) {
+      const int b0 = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const int b1 = __ffs(bits) - 1;  // -1: none left
+      bits &= bits - 1;
+      int c0 = 0, c1 = 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        c0 += (m[e] >> b0) & 1u;
+        c1 += b1 >= 0 ? (m[e] >> b1) & 1u : 0u;
+      }
+      c0 = (int)__reduce_add_sync(kFull, (unsigned)c0);
+      c1 = (int)__reduce_add_sync(kFull, (unsigned)c1);
+      cnt = lane == b0 ? c0 : lane == b1 ? c1 : cnt;
+    }
+    if (lane < ns - s0) o[s0 + lane] = cnt;
+  }
+  if (lane == 0) {
+    o[ns] = n;
+    o[ns + 1] = nu;
+  }
+}
+
+template <typename Probe>
+using ReadKernel = void (*)(const uint8_t*, const int32_t*, int64_t, int64_t, int, bool,
+                            Probe, int, int32_t*, int64_t);
+
+template <typename Probe, typename Key>
+ReadKernel<Probe> read_kernel(int E) {
+  switch (E) {
+    case 1: return sriracha_reads_kernel<Probe, Key, 1>;
+    case 2: return sriracha_reads_kernel<Probe, Key, 2>;
+    case 4: return sriracha_reads_kernel<Probe, Key, 4>;
+    case 8: return sriracha_reads_kernel<Probe, Key, 8>;
+    default: return sriracha_reads_kernel<Probe, Key, 16>;
+  }
+}
+
+// One launch over all B rows of at most kMaxReadWindows windows.
+template <typename Probe>
+int launch_reads(const void* reads, const void* lengths, Probe probe, void* out, int64_t B,
+                 int64_t L, int64_t k, int64_t ns, int64_t out_stride, void* stream) {
+  const int64_t nwin = L - k + 1;
+  if (B < 0 || k < 1 || k > 32 || nwin < 1 || nwin > kMaxReadWindows || ns < 1 ||
+      out_stride < ns + 2)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  int E = 1;
+  while (32 * E < nwin) E <<= 1;
+  int warps = kReadThreads / 32;  // fewer while the blocks would not cover the SMs twice
+  while (warps > 1 && B / warps < 2 * 132) warps >>= 1;
+  const int64_t blocks = (B + warps - 1) / warps;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)reads & 15u) == 0 && (L & 15) == 0;
+  const ReadKernel<Probe> kernel = k <= 16 ? read_kernel<Probe, uint32_t>(E)
+                                           : read_kernel<Probe, unsigned long long>(E);
+  kernel<<<(unsigned)blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)reads, (const int32_t*)lengths, B, L, (int)k, aligned, probe, (int)ns,
+      (int32_t*)out, out_stride);
+  return (int)cudaGetLastError();
+}
+
 __global__ void subject_table_kernel(const int64_t* __restrict__ subjects,
                                      int64_t total, int64_t smax, int64_t size,
                                      uint32_t* __restrict__ out) {
@@ -489,6 +799,30 @@ extern "C" int kw_sriracha_counts_hash(const void* words, const void* valid,
                                  (const long long*)row0,
                                  (const long long*)bmask},
                        out, scratch, B, nwin, k, ns, out_stride, stream);
+}
+
+// (reads, lengths, table, out, B, L, k, size, ns, out_stride, stream):
+// ASCII reads uint8 [B, L], L - k + 1 <= 512.
+extern "C" int kw_sriracha_reads_lut(const void* reads, const void* lengths,
+                                     const void* table, void* out, int64_t B, int64_t L,
+                                     int64_t k, int64_t size, int64_t ns,
+                                     int64_t out_stride, void* stream) {
+  if (size < 1) return (int)cudaErrorInvalidValue;
+  return launch_reads(reads, lengths, LutProbe{(const uint32_t*)table, size}, out, B, L, k,
+                      ns, out_stride, stream);
+}
+
+// (reads, lengths, keys, masks, row0, bmask, out, B, L, k, ns, out_stride,
+//  stream)
+extern "C" int kw_sriracha_reads_hash(const void* reads, const void* lengths,
+                                      const void* keys, const void* masks,
+                                      const void* row0, const void* bmask, void* out,
+                                      int64_t B, int64_t L, int64_t k, int64_t ns,
+                                      int64_t out_stride, void* stream) {
+  return launch_reads(reads, lengths,
+                      HashProbe{(const unsigned long long*)keys, (const uint32_t*)masks,
+                                (const long long*)row0, (const long long*)bmask},
+                      out, B, L, k, ns, out_stride, stream);
 }
 
 // (subjects, out, ns, smax, size, stream)

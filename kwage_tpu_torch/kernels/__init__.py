@@ -76,6 +76,11 @@ _ENTRIES = {
     #  k, ns, out_stride, stream)
     "sriracha_counts_hash": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
                              _I64, _I64, _I64, _I64, _VP],
+    # (reads, lengths, table, out, B, L, k, size, ns, out_stride, stream)
+    "sriracha_reads_lut": [_VP] * 4 + [_I64] * 6 + [_VP],
+    # (reads, lengths, keys, masks, row0, bmask, out, B, L, k, ns, out_stride,
+    #  stream)
+    "sriracha_reads_hash": [_VP] * 7 + [_I64] * 5 + [_VP],
     # (subjects, out, ns, smax, size, stream)
     "subject_table": [_VP, _VP, _I64, _I64, _I64, _VP],
     # (words, weights, words_out, counts_out, selected, stats, scratch, n, cap,

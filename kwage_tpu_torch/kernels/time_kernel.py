@@ -8,7 +8,7 @@ KERNEL is ``kmers`` (``csrc/kmers.cu``), ``select_runs``
 (``csrc/search.cu``), ``murmur`` (``csrc/murmur.cu``) or ``roof``
 (``csrc/variants/int_roof.cu``, the card's integer rate). Each source (this
 tree's first, then the files named) is compiled alone with ``nvcc`` for
-``sm_90a`` (``-I csrc/``, for ``murmur.cuh``; a header beside the source
+``sm_90a`` (``-I csrc/``, for ``murmur.cuh`` and ``kmers.cuh``; a header beside the source
 wins) into ``build/kwage_tpu_torch/`` and bound with ``ctypes``; these
 files have a plain C interface and no other source of the package in them.
 Every version runs the kernel's cases below, must give the first version's
@@ -63,6 +63,24 @@ the byte bound, and run_counts' with torch.unique_consecutive's time.
 ``roof``: chains of int32
 IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
 the SM clock it ran at and the operations a clock and SM.
+
+``sriracha`` compares two routes of the package's own library
+(``kernels.build``), and the fused entries of any other ``sriracha.cu``
+named, each compiled alone (with ``kmers.cuh`` beside it or in csrc/):
+SriRachA's fused
+short-read entries (``sriracha_reads_lut`` / ``_hash``) beside the two
+launches they replace
+(``canonical_kmers_ascii`` + ``sriracha_counts_lut`` / ``_hash``) at
+phase 8's batch ([512, 256] of 150 bp reads, 40 subjects of 30 kbp, k = 11
+on the LUT and k = 21 on the hash), ``bench.sriracha``'s step ([512, 128],
+k = 21, its 4 subjects) and a whole span ([8192, 256], both). Each route
+must give ``read_batch_counts_ref``'s bytes; each is timed in a CUDA graph
+(``sriracha_routes``, which chip_smoke.py's phase 4 also runs), and each
+line ends with the share of the fused kernel's bound
+(``bench.sriracha.reads_work``: the reads, the lengths, the counts and the
+table bytes of every read's distinct valid words, or its operations).
+nvcc's registers and spills of the fused kernel's instances are printed
+first.
 """
 
 from __future__ import annotations
@@ -77,6 +95,7 @@ import subprocess
 import sys
 from typing import Callable
 
+import numpy as np
 import torch
 
 from . import _ENTRIES, _I64, _VP, BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
@@ -122,7 +141,7 @@ def build_alone(source: str) -> tuple[str, str | None]:
     appears whole or not at all, so processes may build it at once."""
     tag = hashlib.sha256()
     for path in (source, *(os.path.join(d, name) for d in (os.path.dirname(source), CSRC_DIR)
-                           for name in ("murmur.cuh", "search.cu"))):
+                           for name in ("murmur.cuh", "kmers.cuh", "search.cu"))):
         if os.path.exists(path):
             with open(path, "rb") as f:
                 tag.update(f.read())
@@ -735,10 +754,144 @@ KERNELS = {
 SASS = {"murmur": ("murmur32_kernel", f"ILi{MURMUR_K}E(Li4E)?E")}
 
 
+def sriracha_cases(device, rng):
+    """(label, k, reads uint8 [B, L] and lengths int32 [B] on ``device``,
+    the subjects) of ``time_kernel sriracha``: 150 bp reads
+    (``bench.sriracha.read_block``) of 40 random 30 kbp genomes; and
+    bench.sriracha's own inputs."""
+    from ..bench.sriracha import make_inputs, read_block
+    from ..core.words import canonical_kmers
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genomes = rng.integers(0, 4, size=(40, 30_000), dtype=np.uint8)
+
+    def batch(B, L):
+        b, lengths = read_block(rng, genomes, B, L, 150)
+        return torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
+
+    for k in (11, 21):
+        subj = [(f"s{i}", np.unique(canonical_kmers(acgt[g].tobytes(), k)))
+                for i, g in enumerate(genomes)]
+        yield f"[512, 256] k={k}", k, *batch(512, 256), subj
+        yield f"[8192, 256] k={k}", k, *batch(8192, 256), subj
+    subj, reads = make_inputs(21, 128, 512, 2048)
+    block = np.stack([np.frombuffer(r.encode("ascii"), np.uint8) for r in reads])
+    yield ("[512, 128] k=21 (bench.sriracha)", 21, torch.from_numpy(block).to(device),
+           torch.full((512,), 128, dtype=torch.int32, device=device), subj)
+
+
+def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict]:
+    """Each route of one batch of the fused short-read route's shape, run
+    once into an output filled with -7 and held to ``want``
+    (``read_batch_counts_ref``'s), then timed in a CUDA graph in the order
+    fused, others, words, words, others, fused: the package library's
+    fused entry, the fused entry of each (tag, library) of ``others``, and
+    the two launches it replaces (canonical_kmers' ASCII entry and
+    sriracha_counts). Raw launches: none is counted. Returns ({route:
+    output equal}, {route: [ms, ms]})."""
+    from . import get_lib
+    from ..sriracha import device as tsr
+
+    lib = get_lib()
+    B, L = reads.shape
+    k = tables.k
+    out = torch.empty_like(want)
+    words = torch.empty((B, L - k + 1), dtype=torch.int64, device=reads.device)
+    valid = torch.empty((B, L - k + 1), dtype=torch.bool, device=reads.device)
+
+    def raw(launch, library=lib):
+        return lambda st: getattr(library, "kw_" + launch[0])(*launch[1:-1], st)
+
+    versions = {"fused": raw(tsr.reads_launch(reads, lengths, tables, out))}
+    for tag, other in others:
+        versions[f"fused {tag}"] = raw(tsr.reads_launch(reads, lengths, tables, out), other)
+    counts = raw(tsr.counts_launch(words, valid, lengths, tables, out, None))
+    versions["words"] = lambda st: (
+        lib.kw_canonical_kmers_ascii(reads.data_ptr(), words.data_ptr(), valid.data_ptr(),
+                                     B, L, L, k, st) or counts(st))
+    same = {}
+    for name, call in versions.items():
+        out.fill_(-7)
+        if call(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"sriracha route {name}: launch failed")
+        torch.cuda.synchronize()
+        same[name] = torch.equal(out, want)
+    names = list(versions)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(cuda_ms(versions[name], 20))
+    return same, times
+
+
+def fused_report(log: str) -> str:
+    """nvcc's registers and spills of the sriracha_reads_kernel instances
+    in a build's report, one line an instance."""
+    out = []
+    for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
+        head = re.match(r"ptxas info\s*: Compiling entry function '(\S+)'", part)
+        if head and "sriracha_reads_kernel" in head.group(1):
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            inst = re.search(r"(Lut|Hash)ProbeE([jy])Li(\d+)E", head.group(1))
+            out.append((f"{inst[1].lower()} {'u32' if inst[2] == 'j' else 'u64'} E={inst[3]}"
+                        if inst else head.group(1)) + " "
+                       f"{regs.group(1) if regs else '?'} regs "
+                       f"{spill.group(1) if spill else '?'} B spilled")
+    return "; ".join(out)
+
+
+def sriracha_main(others: list[str]) -> int:
+    """``time_kernel sriracha [other_sriracha.cu ...]``: ``sriracha_routes``
+    over ``sriracha_cases``, each other source compiled alone (module
+    docstring)."""
+    from . import build
+    from ..bench.sriracha import reads_work
+    from ..sriracha import device as tsr
+
+    so = build()
+    with open(so[:-3] + ".log") as f:
+        print("sriracha_reads_kernel instances: " + fused_report(f.read()), flush=True)
+    alone = []
+    for source in others:
+        path, report = build_alone(source)
+        if report is not None:
+            print(f"{source}: " + fused_report(report), flush=True)
+        other = ctypes.CDLL(path)
+        for name in ("sriracha_reads_lut", "sriracha_reads_hash"):
+            getattr(other, "kw_" + name).argtypes = _ENTRIES[name]
+            getattr(other, "kw_" + name).restype = ctypes.c_int
+        alone.append((os.path.basename(source), other))
+    device = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    for label, k, reads, lengths, subj in sriracha_cases(device, np.random.default_rng(0)):
+        routes = [tsr.build_hash_tables(subj, k, device)]
+        if k <= tsr.MAX_TABLE_K:
+            routes.insert(0, tsr.build_lut_tables(subj, k, device))
+        for tables in routes:
+            want = tsr.read_batch_counts_ref(reads, lengths, tables)
+            same, times = sriracha_routes(reads, lengths, tables, want, alone)
+            nbytes, nops = reads_work(reads, lengths, tables)
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(by_bytes, nops / INT32_OPS_PER_S * 1e3)
+            distinct = int(want[:, tables.ns + 1].sum())
+            print(f"sriracha {label} {tables.route} ({tables.ns} subjects, {distinct} distinct "
+                  f"words, {nbytes} bytes, {nops} operations, bound {bound_ms:.5f} ms by "
+                  f"{'bytes' if bound_ms == by_bytes else 'operations'}): " + "; ".join(
+                      f"{name} {t[0]:.4f} / {t[1]:.4f} ms (share {bound_ms / min(t):.3f})"
+                      for name, t in times.items()) + f"; outputs equal: {same}", flush=True)
+            if not all(same.values()):
+                return 1
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv: list[str]) -> int:
+    if argv and argv[0] == "sriracha":
+        return sriracha_main(argv[1:])
     if not argv or argv[0] not in KERNELS:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
-        print(f"KERNEL is one of {', '.join(KERNELS)}", file=sys.stderr)
+        print(f"KERNEL is one of {', '.join(KERNELS)} or sriracha", file=sys.stderr)
         return 2
     source, entries, cases = KERNELS[argv[0]]
     sources = [os.path.join(CSRC_DIR, source), *argv[1:]]

@@ -2,10 +2,15 @@
 kwage_tpu/sriracha/device.py).
 
 Reads are padded into [batch, L] uint8 blocks (L a power-of-two bucket of
-at least 64 bases); the ``canonical_kmers`` kernel gives each window's
-canonical word and validity, and the ``sriracha_counts`` kernel sorts and
-dedups each read's valid words in shared memory and counts, for every
-subject, the distinct words the subject holds. The scalar gates,
+at least 64 bases). A batch of rows of at most MAX_READ_WINDOWS windows
+(the buckets of 64-512 bases) goes through ONE kernel, ``sriracha_reads``:
+a warp a read decodes its bases, sorts and dedups its valid canonical
+words in registers and counts, for every subject, the distinct words the
+subject holds. A wider batch takes two: the ``canonical_kmers`` kernel
+gives each window's canonical word and validity, and the
+``sriracha_counts`` kernel sorts and dedups each read's valid words (in
+shared memory, or in tiles for rows of more than MAX_SHARED_WORDS) and
+counts (``fused_route``). The scalar gates,
 thresholding, perfect-match culling and ordering run on the host from
 those integer counts, so the matches are the host engine's, bit for bit.
 
@@ -45,6 +50,7 @@ from .engine import SearchMatch, SrirachaOptions, StreamStats
 MAX_DEVICE_K = 32
 BUCKET_CAP = 8              # candidate slots per hash row (the JAX _BUCKET_CAP)
 MAX_SHARED_WORDS = 1 << 14  # csrc/sriracha.cu kMaxSharedWords: a row above it sorts in tiles
+MAX_READ_WINDOWS = 512      # csrc/sriracha.cu kMaxReadWindows: the fused kernel's widest row
 MAX_TABLE_K = 13            # 4^13 * 4 B = 256 MiB per group (CPU)
 MAX_TABLE_K_CUDA = 14       # 1 GiB per group, as the JAX package allows on a TPU
 GROUP = 32                  # subjects per table group (one uint32 mask)
@@ -302,7 +308,7 @@ def kmerize_batch_ref(reads: torch.Tensor, lengths: torch.Tensor,
     return dedup_ref(words, valid, lengths, k)
 
 
-def _probe_ref(tables, g: int, w: torch.Tensor) -> torch.Tensor:
+def probe_ref(tables, g: int, w: torch.Tensor) -> torch.Tensor:
     """Group g's int32 membership mask of every word of ``w``."""
     if tables.route == "lut":
         size = tables.table.shape[1]
@@ -328,7 +334,7 @@ def sriracha_counts_ref(words: torch.Tensor, valid: torch.Tensor, lengths: torch
     s, uniq, nk, nu = dedup_ref(words, valid, lengths, tables.k)
     parts = []
     for g, nsg in enumerate(group_sizes(tables.ns)):
-        m = torch.where(uniq, _probe_ref(tables, g, s), 0)
+        m = torch.where(uniq, probe_ref(tables, g, s), 0)
         shifts = torch.arange(nsg, dtype=torch.int32, device=s.device)
         parts.append(((m[..., None] >> shifts) & 1).sum(dim=1, dtype=torch.int32))
     return torch.cat(parts + [nk[:, None], nu[:, None]], dim=1)
@@ -374,21 +380,9 @@ def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Ten
         raise ValueError(f"expected int64 words and validity [B, nwin], got {words.dtype} "
                          f"{tuple(words.shape)} / {tuple(valid.shape)}")
     B, nwin = words.shape
-    if lengths.shape != (B,) or lengths.dtype != torch.int32:
-        raise ValueError(f"expected int32 lengths [{B}], got {lengths.dtype} "
-                         f"{tuple(lengths.shape)}")
-    if tables.ns < 1 or not 1 <= tables.k <= MAX_DEVICE_K:
-        raise ValueError(f"need ns >= 1 and 1 <= k <= 32 (ns={tables.ns}, k={tables.k})")
-    shape = (B, tables.ns + 2)
-    if out is not None and (out.shape != shape or out.dtype != torch.int32
-                            or not out.is_contiguous() or out.device != words.device):
-        raise ValueError(f"out must be a contiguous int32 {shape} tensor on {words.device}")
+    shape = _check_counts_args(lengths, tables, out, B, words.device)
     if words.device.type == "cpu":
-        got = sriracha_counts_ref(words, valid, lengths, tables)
-        if out is None:
-            return got
-        out.copy_(got)
-        return out
+        return _into(out, sriracha_counts_ref(words, valid, lengths, tables))
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     table = tables.table if tables.route == "lut" else tables.keys
@@ -404,6 +398,30 @@ def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Ten
     scratch = counts_scratch(B, nwin, words.device)
     with torch.cuda.device(words.device):
         kernels.launch(*counts_launch(words, valid, lengths, tables, out, scratch))
+    return out
+
+
+def _check_counts_args(lengths, tables, out, B: int, device: torch.device) -> tuple:
+    """Raise unless ``lengths`` is int32 [B], the tables hold ns >= 1
+    subjects at 1 <= k <= 32 and ``out`` is None or a contiguous int32
+    [B, ns + 2] tensor on ``device``; return that shape."""
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"expected int32 lengths [{B}], got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    if tables.ns < 1 or not 1 <= tables.k <= MAX_DEVICE_K:
+        raise ValueError(f"need ns >= 1 and 1 <= k <= 32 (ns={tables.ns}, k={tables.k})")
+    shape = (B, tables.ns + 2)
+    if out is not None and (out.shape != shape or out.dtype != torch.int32
+                            or not out.is_contiguous() or out.device != device):
+        raise ValueError(f"out must be a contiguous int32 {shape} tensor on {device}")
+    return shape
+
+
+def _into(out: torch.Tensor | None, got: torch.Tensor) -> torch.Tensor:
+    """``got``, copied into ``out`` when one is given."""
+    if out is None:
+        return got
+    out.copy_(got)
     return out
 
 
@@ -423,12 +441,60 @@ def counts_launch(words, valid, lengths, tables, out, scratch) -> tuple:
             stream)
 
 
+def fused_route(width: int, k: int) -> bool:
+    """Whether a batch of reads ``width`` bases wide takes the fused
+    sriracha_reads kernel (rows of at most MAX_READ_WINDOWS windows: every
+    bucket of 64-512 bases at every k), rather than canonical_kmers and
+    sriracha_counts."""
+    return width - k + 1 <= MAX_READ_WINDOWS
+
+
 def read_batch_counts(reads: torch.Tensor, lengths: torch.Tensor, tables,
                       out: torch.Tensor | None = None) -> torch.Tensor:
-    """ASCII reads uint8 [B, L] and lengths int32 [B] -> int32 [B, ns + 2]
-    through the canonical_kmers and sriracha_counts wrappers."""
-    words, valid = canonical_kmers(reads, tables.k)
-    return sriracha_counts(words, valid, lengths, tables, out)
+    """ASCII reads uint8 [B, L] and lengths int32 [B] -> int32 [B, ns + 2]:
+    per subject the distinct valid canonical words of the read it holds,
+    then num_kmer and num_unique. ``out`` (optional) is a contiguous int32
+    [B, ns + 2] tensor to write into. CUDA tensors: the sriracha_reads_lut /
+    sriracha_reads_hash kernel where ``fused_route``, else the
+    canonical_kmers and sriracha_counts wrappers; CPU tensors:
+    read_batch_counts_ref."""
+    if reads.dim() != 2 or reads.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 reads [B, L], got {reads.dtype} {tuple(reads.shape)}")
+    B, L = reads.shape
+    shape = _check_counts_args(lengths, tables, out, B, reads.device)
+    if L < tables.k:
+        raise ValueError("sequence shorter than k")
+    if reads.device.type == "cpu":
+        return _into(out, read_batch_counts_ref(reads, lengths, tables))
+    if reads.device.type != "cuda":
+        raise ValueError(f"unsupported device {reads.device}")
+    if not fused_route(L, tables.k):
+        words, valid = canonical_kmers(reads, tables.k)
+        return sriracha_counts(words, valid, lengths, tables, out)
+    table = tables.table if tables.route == "lut" else tables.keys
+    if table.device != reads.device or lengths.device != reads.device:
+        raise ValueError(f"tables and lengths must be on {reads.device}")
+    reads, lengths = reads.contiguous(), lengths.contiguous()
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=reads.device)
+    if B:
+        with torch.cuda.device(reads.device):
+            kernels.launch(*reads_launch(reads, lengths, tables, out))
+    return out
+
+
+def reads_launch(reads, lengths, tables, out) -> tuple:
+    """The C entry and arguments of one sriracha_reads launch over checked,
+    contiguous CUDA tensors, for ``kernels.launch``."""
+    B, L = reads.shape
+    stream = torch.cuda.current_stream(reads.device).cuda_stream
+    head = (reads.data_ptr(), lengths.data_ptr())
+    if tables.route == "lut":
+        return ("sriracha_reads_lut", *head, tables.table.data_ptr(), out.data_ptr(), B, L,
+                tables.k, tables.table.shape[1], tables.ns, out.shape[1], stream)
+    return ("sriracha_reads_hash", *head, tables.keys.data_ptr(), tables.masks.data_ptr(),
+            tables.row0.data_ptr(), tables.bmask.data_ptr(), out.data_ptr(), B, L, tables.k,
+            tables.ns, out.shape[1], stream)
 
 
 # --- routing ------------------------------------------------------------------------------
@@ -592,8 +658,10 @@ def search_reads_device(
     dispatched before span i's one readback, so host packing and gating
     overlap device work. Each slot packs its part of every batch of a span
     into one host staging buffer (pinned on a card), uploads it once,
-    launches canonical_kmers and sriracha_counts per batch on its own
-    stream into one device buffer int32 [its rows, ns + 2] and queues one
+    launches ``read_batch_counts`` per batch on its own stream (one
+    sriracha_reads launch, or canonical_kmers and sriracha_counts for a
+    bucket above 512 bases) into one device buffer int32 [its rows, ns + 2]
+    and queues one
     asynchronous copy back, then records an event; the span's readback
     waits for every slot's event and puts the rows back in read order. No
     host sync happens while a span is dispatched. Gate state

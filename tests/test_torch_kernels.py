@@ -64,8 +64,8 @@ def test_reset_launch_counts():
         "bit_transpose": 0, "search_complete": 0, "search_counts": 0, "search_total_hits": 0,
         "canonical_kmers": 0, "murmur32": 0, "radix_sort_pairs": 0, "select_runs": 0,
         "bloom_set_bits": 0,
-        "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "subject_table": 0,
-        "run_counts": 0, "merge_counts": 0}
+        "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "sriracha_reads_lut": 0,
+        "sriracha_reads_hash": 0, "subject_table": 0, "run_counts": 0, "merge_counts": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -142,3 +142,18 @@ def test_sriracha_entries_count_apart(monkeypatch):
     assert after == {**before, "sriracha_counts_lut": before["sriracha_counts_lut"] + 1,
                      "sriracha_counts_hash": before["sriracha_counts_hash"] + 2,
                      "subject_table": before["subject_table"] + 1}
+
+
+def test_sriracha_reads_entries_count_apart(monkeypatch):
+    """The fused short-read entries (one templated kernel, two probes)
+    count apart from each other and from the two-launch route's kernels."""
+    monkeypatch.setattr(kernels, "_LIB", _OkLib())
+    before = kernels.launch_counts()
+    kernels.launch("sriracha_reads_lut", *[0] * 4, 512, 256, 11, 1 << 22, 40, 42, 0)
+    kernels.launch("sriracha_reads_hash", *[0] * 7, 512, 256, 21, 40, 42, 0)
+    kernels.launch("sriracha_reads_hash", *[0] * 7, 512, 128, 21, 40, 42, 0)
+    after = kernels.launch_counts()
+    assert after == {**before, "sriracha_reads_lut": before["sriracha_reads_lut"] + 1,
+                     "sriracha_reads_hash": before["sriracha_reads_hash"] + 2}
+    assert len(kernels._ENTRIES["sriracha_reads_lut"]) == 11
+    assert len(kernels._ENTRIES["sriracha_reads_hash"]) == 13

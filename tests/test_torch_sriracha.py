@@ -350,6 +350,258 @@ def test_read_batch_counts_ref_matches_jax(k):
     np.testing.assert_array_equal(out.numpy(), want)
 
 
+# --- the fused short-read kernel (sriracha_reads) -------------------------------------------
+
+def _jax_read_counts(b, lengths, sets, k, lut):
+    """The JAX package's _read_batch_kernel_tables (``lut``) or
+    _read_batch_kernel_hash on a batch: int [B, ns + 2]."""
+    ns = len(sets)
+    ns_groups = tuple(tdev.group_sizes(ns))
+    if lut:
+        smax = max(s.size for s in sets)
+        padded = np.full((ns, smax), 0xFFFFFFFF, np.uint32)
+        for i, s in enumerate(sets):
+            padded[i, : s.size] = s
+        tables = tuple(jdev.build_subject_table(jnp.asarray(padded[g : g + 32]), k)
+                       for g in range(0, ns, 32))
+        res = jdev._read_batch_kernel_tables(jnp.asarray(b), jnp.asarray(lengths), tables, k,
+                                             ns_groups)
+    else:
+        groups = [jdev._build_hash_group(sets[g : g + 32]) for g in range(0, ns, 32)]
+        res = jdev._read_batch_kernel_hash(
+            jnp.asarray(b), jnp.asarray(lengths),
+            tuple(tuple(jnp.asarray(a) for a in grp) for grp in groups), k, ns_groups)
+    return np.concatenate([np.asarray(res[0]), np.asarray(res[1])[:, None],
+                           np.asarray(res[2])[:, None]], axis=1)
+
+
+def _hit_sets(b, lengths, k, seed, ns=40):
+    """ns subject sets (two groups) holding words of the batch's reads, so
+    the counts are not all zero: half of the longest read's in subject 0,
+    all of them in subject 33, a third read's in subject 31."""
+    sets = _subject_sets(seed, ns, k)
+    order = np.argsort(-lengths, kind="stable")
+    for s, r, step in ((0, order[0], 2), (33, order[0], 1), (31, order[2], 1)):
+        seq = b[r, : lengths[r]].tobytes()
+        if lengths[r] >= k:
+            words = np.unique(host_canonical_kmers(seq, k))[::step]
+            sets[s] = np.unique(np.concatenate([sets[s], words]))
+    return sets
+
+
+@pytest.mark.parametrize("k", [1, 11, 21, 32])
+def test_fused_route_rule(k):
+    """Read buckets of 64-512 bases take the fused sriracha_reads kernel at
+    every k; 1024 and above (and the long rows) take canonical_kmers and
+    sriracha_counts."""
+    for width in (64, 128, 256, 512):
+        assert tdev.fused_route(width, k)
+    for width in (1024, 2048, 32768, 65536):
+        assert not tdev.fused_route(width, k)
+    buckets = [tdev.pad_len(max(n, k)) for n in (0, 1, 64, 65, 150, 512, 513, 20_000)]
+    assert [tdev.fused_route(w, k) for w in buckets] == [True] * 6 + [False] * 2
+    assert tdev.fused_route(tdev.MAX_READ_WINDOWS + k - 1, k)
+    assert not tdev.fused_route(tdev.MAX_READ_WINDOWS + k, k)
+
+
+def _edge_block(k, width, seed):
+    """ASCII rows of 0, k - 1, k, 64, 65, 512 and 513 bases (those that fit
+    ``width``), 150 bp rows (``width`` where narrower) with an N at the
+    first, the last, the 16th and the 32nd base, a lowercase row and a row
+    of every byte value."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    m = min(150, width)
+    lens = [n for n in (0, k - 1, k, 64, 65, 512, 513) if n <= width] + [m] * 6 + [width]
+    b = np.zeros((len(lens), width), np.uint8)
+    for r, n in enumerate(lens):
+        b[r, :n] = acgt[rng.integers(0, 4, size=n)]
+    nrow = len(lens) - 7
+    for r, pos in zip(range(nrow, nrow + 4), (0, m - 1, 15, 31)):
+        b[r, pos] = ord("N")
+    b[nrow + 4, :m] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=m)]
+    b[nrow + 5, :m] = (np.arange(m) * 7) % 256
+    b[-1] = np.arange(width) % 256
+    return b, np.array(lens, np.int32)
+
+
+@pytest.mark.parametrize("k", [1, 11, 16, 17, 32])
+@pytest.mark.parametrize("width", [512, 1024])
+def test_read_batch_counts_edge_rows_match_jax(k, width):
+    """read_batch_counts on CPU tensors (the plain version every CUDA batch
+    is held to) against the JAX kernels over rows of 0, k - 1, k, 64, 65,
+    512 and 513 bases, N at the first, last, 16th and 32nd base, lower
+    case and every byte value; both probes (the LUT where k <= 13), 40
+    subjects in two groups. Width 512 is the fused route's widest bucket,
+    1024 the words route's narrowest."""
+    b, lengths = _edge_block(k, width, 13 + k)
+    sets = _hit_sets(b, lengths, k, 14 + k)
+    subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+    reads_t, lens_t = torch.from_numpy(b), torch.from_numpy(lengths)
+    for lut in ([False, True] if k <= 13 else [False]):
+        want = _jax_read_counts(b, lengths, sets, k, lut)
+        tables = (tdev.build_lut_tables if lut else tdev.build_hash_tables)(subj, k, CPU)
+        got = tdev.read_batch_counts(reads_t, lens_t, tables)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want[:, :40].sum() > 0
+        assert (want[lengths < k] == 0).all()
+
+
+_CODE = np.zeros(256, np.uint64)
+_OK = np.zeros(256, bool)
+for _value, _chars in enumerate((b"Aa", b"Cc", b"Gg", b"Tt")):
+    for _c in _chars:
+        _CODE[_c], _OK[_c] = _value, True
+_BREV8 = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint64)
+_U = np.uint64
+
+
+def _brev32(x):
+    return ((_BREV8[x & _U(0xFF)] << _U(24)) | (_BREV8[(x >> _U(8)) & _U(0xFF)] << _U(16))
+            | (_BREV8[(x >> _U(16)) & _U(0xFF)] << _U(8)) | _BREV8[x >> _U(24)])
+
+
+def _swap_pairs(x):
+    return ((x >> _U(1)) & _U(0x55555555)) | ((x & _U(0x55555555)) << _U(1))
+
+
+def _funnel(lo, hi, sh):
+    return (((hi << _U(32)) | lo) >> sh) & _U(0xFFFFFFFF)
+
+
+def _warp_read(row, length, k, P, probe, ns):
+    """One read through csrc/sriracha.cu's sriracha_reads_kernel as a
+    warp runs it, in numpy: the staged 2-bit codes and ok bits,
+    the canonical words of the blocked layout (lane l: windows l E ..
+    l E + E - 1), the bitonic network with the cross-lane strides as xor
+    exchanges, the dedup against lane - 1's last slot, the distinct words
+    compacted to the front and probed by lane l at l, l + W, ..., the
+    counts by ballots of the union's bits. -> int [ns + 2]."""
+    W = 32
+    E = P // W
+    log_e, log_p = E.bit_length() - 1, P.bit_length() - 1
+    L = row.size
+    n_len = min(int(length), L)
+    n_fit = max(n_len - k + 1, 0)
+    bases = np.zeros(P + 32, np.uint8)
+    bases[:n_len] = row[:n_len]
+    inside = np.arange(P + 32) < n_len
+    codes = np.where(inside, _CODE[bases], _U(0))
+    oks = (inside & _OK[bases]).astype(np.uint64)
+    shifts = _U(2) * np.arange(16, dtype=np.uint64)
+    packed = (codes.reshape(-1, 16) << shifts).sum(axis=1).astype(np.uint64)
+    ok16 = (oks.reshape(-1, 16) << np.arange(16, dtype=np.uint64)).sum(axis=1)
+    validw = ok16[0::2] | (ok16[1::2] << _U(16))
+    mask = _U((1 << (2 * k)) - 1)
+    mask_lo, mask_hi = mask & _U(0xFFFFFFFF), mask >> _U(32)
+    kmask = _U((1 << k) - 1)
+    j = np.arange(P).reshape(W, E)
+    p, sh = j >> 4, _U(2) * (j & 15).astype(np.uint64)
+    s_lo = _funnel(packed[p], packed[p + 1], sh) & mask_lo
+    s_hi = _funnel(packed[p + 1], packed[p + 2], sh) & mask_hi
+    anti = ((s_hi ^ mask_hi) << _U(32)) | (s_lo ^ mask_lo)
+    rev = (_swap_pairs(_brev32(s_lo)) << _U(32)) | _swap_pairs(_brev32(s_hi))
+    word = np.minimum(rev >> _U(64 - 2 * k), anti)
+    ok = (j < n_fit) & (_funnel(validw[j >> 5], validw[(j >> 5) + 1],
+                                (j & 31).astype(np.uint64)) & kmask == kmask)
+    v = np.where(ok, word, _U((1 << (32 if k <= 16 else 64)) - 1))
+    lane = np.arange(W)[:, None]
+    for ls in range(1, log_p + 1):
+        for lt in range(ls - 1, -1, -1):
+            if lt >= log_e:
+                lx = 1 << (lt - log_e)
+                other = v[np.arange(W) ^ lx]
+                asc = (ls == log_p) | (((lane >> (ls - log_e)) & 1) == 0)
+                keep_min = ((lane & lx) == 0) == asc
+                v = np.where(keep_min, np.minimum(v, other), np.maximum(v, other))
+            else:
+                for e in range(E):
+                    if e & (1 << lt):
+                        continue
+                    f = e | (1 << lt)
+                    if ls >= log_p:
+                        asc = np.ones((W, 1), bool)
+                    elif ls >= log_e:
+                        asc = ((lane >> (ls - log_e)) & 1) == 0
+                    else:
+                        asc = np.full((W, 1), (e & (1 << ls)) == 0)
+                    lo = np.minimum(v[:, [e]], v[:, [f]])
+                    hi = np.maximum(v[:, [e]], v[:, [f]])
+                    v[:, [e]], v[:, [f]] = np.where(asc, lo, hi), np.where(asc, hi, lo)
+    assert (np.diff(v.reshape(-1).astype(object)) >= 0).all(), "the network did not sort"
+    n = int(ok.sum())
+    left = v[np.maximum(np.arange(W) - 1, 0), E - 1][:, None]
+    prev = np.concatenate([left, v[:, :-1]], axis=1)
+    distinct = (j < n) & ((j == 0) | (v != prev))
+    # The distinct words to the front, in slot order; lane l probes words
+    # l, l + W, ...
+    nu = int(distinct.sum())
+    front = np.zeros(P, np.uint64)
+    front[:nu] = v[distinct]
+    word_of = np.arange(E)[None, :] * W + lane
+    probed = word_of < nu
+    out = np.zeros(ns + 2, np.int64)
+    for g, s0 in enumerate(range(0, ns, 32)):
+        m = np.where(probed, probe(g, front[word_of]), 0).astype(np.uint64)
+        union = int(np.bitwise_or.reduce(m.reshape(-1)))
+        for bit in range(32):
+            if not union >> bit & 1:
+                continue
+            hit = (m >> _U(bit)) & _U(1)
+            ballots = (hit << np.arange(W, dtype=np.uint64)[:, None]).sum(axis=0)
+            if bit < min(32, ns - s0):
+                out[s0 + bit] = sum(bin(int(x)).count("1") for x in ballots)
+    out[ns], out[ns + 1] = n, nu
+    return out
+
+
+def _np_probe(tables):
+    """Group g's masks of words ``w`` (uint64 array) from the port's
+    tables, in numpy: a LUT entry, or the OR of a bucket row's matching
+    slots."""
+    if tables.route == "lut":
+        table = tables.table.numpy().view(np.uint32)
+        size = table.shape[1]
+        return lambda g, w: np.where(w < size, table[g][np.minimum(w, size - 1).astype(np.int64)],
+                                     0)
+    keys = tables.keys.numpy().view(np.uint64)
+    masks = tables.masks.numpy().view(np.uint32)
+    row0, bmask = tables.row0.numpy(), tables.bmask.numpy()
+
+    def probe(g, w):
+        hi = (w >> _U(32)).astype(np.uint32)
+        lo = (w & _U(0xFFFFFFFF)).astype(np.uint32)
+        rows = row0[g] + (tdev.mix32(hi, lo).astype(np.int64) & bmask[g])
+        return np.where(keys[rows] == w[..., None], masks[rows], 0).astype(np.uint32) \
+            .max(axis=-1)
+
+    return probe
+
+
+@pytest.mark.parametrize("P", [64, 128, 256, 512])
+@pytest.mark.parametrize("k", [1, 11, 16, 17, 21, 32])
+def test_warp_layout_emulation_matches_ref(k, P):
+    """csrc/sriracha.cu's fused kernel emulated in numpy, lane by lane
+    (``_warp_read``): it gives read_batch_counts_ref's counts on seeded
+    batches whose rows sort at P = 64, 128, 256 and 512 slots, with 32-bit
+    (k <= 16) and 64-bit keys."""
+    b, lengths = _read_block(20 + P + k, 14, P, k)
+    assert tdev.next_pow2(P - k + 1) == P and tdev.fused_route(P, k)
+    sets = _hit_sets(b, lengths, k, 21 + k)
+    subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+    routes = [tdev.build_hash_tables(subj, k, CPU)]
+    if k <= 13:
+        routes.append(tdev.build_lut_tables(subj, k, CPU))
+    for tables in routes:
+        want = tdev.read_batch_counts_ref(torch.from_numpy(b), torch.from_numpy(lengths),
+                                          tables).numpy()
+        probe = _np_probe(tables)
+        got = np.stack([_warp_read(b[r], lengths[r], k, P, probe, tables.ns)
+                        for r in range(b.shape[0])])
+        np.testing.assert_array_equal(got, want)
+        assert want[:, :40].sum() > 0
+
+
 def test_k32_sign_bit_words_and_invalid_windows():
     """At k = 32 words with the top bit set sort as unsigned; invalid (N)
     windows stay out by their flag whatever word they carry."""
@@ -759,6 +1011,57 @@ def test_other_devices_and_bad_input_raise():
         tdev.subject_table(torch.zeros((1, 3), dtype=torch.int64), 15)
 
 
+def test_read_batch_counts_bad_input_raises():
+    """read_batch_counts checks what it is given before any route: a
+    device other than the CPU or a card, reads that are not uint8 [B, L],
+    lengths that are not int32 [B], a batch narrower than k, a wrong out."""
+    tables = tdev.LutTables(torch.zeros((1, 64), dtype=torch.int32), 3, 1)
+    reads, lens = torch.zeros((2, 64), dtype=torch.uint8), torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdev.read_batch_counts(reads.to("meta"), lens.to("meta"), tables)
+    with pytest.raises(ValueError, match="uint8 reads"):
+        tdev.read_batch_counts(reads.long(), lens, tables)
+    with pytest.raises(ValueError, match="lengths"):
+        tdev.read_batch_counts(reads, lens[:1], tables)
+    with pytest.raises(ValueError, match="shorter than k"):
+        tdev.read_batch_counts(reads[:, :2], lens, tables)
+    with pytest.raises(ValueError, match="out must be"):
+        tdev.read_batch_counts(reads, lens, tables, out=torch.zeros((2, 2), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_sriracha_reads_match_ref(cuda_device):
+    """The fused entries against read_batch_counts_ref at every bucket of
+    64-512 bases, at widths that are not a multiple of 16 (150, 200, and
+    543 at k = 32: 512 windows) and on reads one byte off a 16-byte boundary
+    (the kernel's byte-load staging); one launch a batch, counted under its
+    probe."""
+    for k, L, off in ((1, 64, 0), (3, 64, 0), (11, 256, 0), (13, 512, 0), (16, 64, 0),
+                      (17, 128, 0), (21, 256, 0), (31, 512, 0), (32, 64, 0), (32, 512, 0),
+                      (11, 150, 0), (21, 200, 0), (32, 150, 0), (32, 543, 0), (1, 256, 1),
+                      (21, 512, 1), (32, 128, 1)):
+        b, lengths = _edge_block(k, L, 30 + k)
+        sets = _hit_sets(b, lengths, k, 31 + k)
+        subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+        flat = torch.zeros(b.size + off, dtype=torch.uint8, device=cuda_device)
+        reads = flat[off:].view(b.shape)
+        reads.copy_(torch.from_numpy(b))
+        assert reads.data_ptr() % 16 == off
+        lens = torch.from_numpy(lengths).to(cuda_device)
+        routes = [tdev.build_hash_tables(subj, k, cuda_device)]
+        if k <= 13:
+            routes.append(tdev.build_lut_tables(subj, k, cuda_device))
+        for tables in routes:
+            want = tdev.read_batch_counts_ref(reads, lens, tables)
+            before = kernels.launch_counts()
+            got = tdev.read_batch_counts(reads, lens, tables)
+            after = kernels.launch_counts()
+            name = f"sriracha_reads_{tables.route}"
+            assert after == {**before, name: before[name] + 1}
+            assert torch.equal(got, want), (k, L, off, tables.route)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_sriracha_kernels_match_ref(cuda_device):
     for k, L in ((3, 64), (11, 256), (13, 64), (16, 64), (21, 256), (32, 128), (21, 32768)):
@@ -778,3 +1081,44 @@ def test_sriracha_kernels_match_ref(cuda_device):
             got = tdev.sriracha_counts(words, valid, lens, tables)
             assert torch.equal(got, tdev.sriracha_counts_ref(words, valid, lens, tables)), (k, L)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [11, 21, 32])
+def test_reads_work_counts_table_sectors(k):
+    """bench.sriracha's bound model of the fused kernel: a LUT 4 bytes a
+    distinct word and group; a hash table a 32-byte key sector a distinct
+    word and group and a 32-byte mask sector a hit, counted here from
+    python sets of the reads' and the groups' words; the reads, lengths and
+    counts once; each group capped at its table's bytes."""
+    from kwage_tpu_torch.bench.sriracha import read_block, reads_work, table_bytes
+
+    rng = np.random.default_rng(40 + k)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genomes = rng.integers(0, 4, size=(40, 2000), dtype=np.uint8)
+    b, lengths = read_block(rng, genomes, 48, 256, 150)
+    assert (lengths[-3:] == 0).all() and not b[-3:].any() and (b[:-3, 150:] == 0).all()
+    subj = [(f"s{i}", np.unique(host_canonical_kmers(acgt[g].tobytes(), k)))
+            for i, g in enumerate(genomes)]
+    reads, lens = torch.from_numpy(b), torch.from_numpy(lengths)
+    per_read = [set(host_canonical_kmers(b[r, :n].tobytes(), k).tolist()) if n >= k else set()
+                for r, n in enumerate(lengths)]
+    groups = [set().union(*(set(s.tolist()) for _, s in subj[g : g + 32])) for g in (0, 32)]
+    distinct = sum(len(w) for w in per_read)
+    hits = sum(len(w & grp) for w in per_read for grp in groups)
+    fixed = b.size + 4 * 48 + 4 * 48 * 42
+    routes = [tdev.build_hash_tables(subj, k, torch.device("cpu"))]
+    if k <= tdev.MAX_TABLE_K:
+        routes.append(tdev.build_lut_tables(subj, k, torch.device("cpu")))
+    for tables in routes:
+        nbytes, nops = reads_work(reads, lens, tables)
+        want = tdev.read_batch_counts_ref(reads, lens, tables)
+        assert int(want[:, 41].sum()) == distinct
+        per_probe = (8 * distinct if tables.route == "lut" else 32 * (2 * distinct + hits))
+        assert nbytes == fixed + per_probe, tables.route
+        assert nops > 8 * int(lens.sum())
+    # A table smaller than the probes' sectors is read once.
+    small = tdev.build_hash_tables(subj[:1], k, torch.device("cpu"))
+    words = torch.from_numpy(np.array([x for w in per_read for x in w], np.uint64).view(np.int64))
+    whole = (int(small.bmask[0]) + 1) * tdev.BUCKET_CAP * 12
+    assert 32 * words.numel() > whole
+    assert table_bytes(words, small) == whole
