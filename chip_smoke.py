@@ -23,7 +23,11 @@ one line each; any failure raises and exits non-zero:
               must be exactly the planted ones. Each device call's route,
               rows, gathered bytes and steps (read, gather, upload, search,
               hit lists) are printed, beside the pinned and the pageable
-              host-to-device rate of a 1 GiB copy (CUDA events).
+              host-to-device rate of a 1 GiB copy (CUDA events). Then
+              ``search_chunk``'s rule at GATHER_SHARE: 400 bp queries on
+              70% of two files' rows, under a budget of an eighth of a file,
+              take the full route (the gathered rows' own slabs count),
+              with the gather route's hit lists.
 3. serve   -- the port's SearchServer(engine="device") answers the same
               requests over loopback; the bytes must equal phase 2's. Then
               a ResidentSearcher under half the corpus's bytes (some files
@@ -56,11 +60,16 @@ one line each; any failure raises and exits non-zero:
               forced into chunks of 8 Mbp (the JAX package's chunk_bp; each
               chunk's (word, count) runs merge into an accumulator on the
               card with merge_counts), then in chunks sized from the card,
-              then 6 at once in threads on a card with 3 GiB free: each
-              record == the exact ground truth, under phase 6's refusals;
-              walls beside the native host builder's, and the device
-              memory a window of a chunk's count takes (all valid too) and
-              a word of a merge, each held to its make_bloom constant.
+              then 6 at once in threads on a card with 3 GiB free, then
+              both from their paths in each of two processes at once
+              (and the same 4 builds in threads of this process), with 3
+              GiB free, narrowed round by round until a halving retry
+              fires in a child: each record == the exact ground truth,
+              under phase 6's refusals; each child's halvings and peak
+              device memory; walls beside the native host builder's, and
+              the device memory a window of a chunk's count takes (all
+              valid too) and a word of a merge, each held to its
+              make_bloom constant.
 7. entry   -- the port's ``entry()`` forward on the card equals the plain
               versions' result on the CPU.
 9. mesh    -- the sharded search (``parallel.sharded_search``) over phase
@@ -241,6 +250,7 @@ import argparse
 import collections
 import contextlib
 import csv
+import dataclasses
 import functools
 import hashlib
 import io
@@ -254,6 +264,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -270,7 +281,13 @@ from kwage_tpu_torch.core.params import BloomParam
 from kwage_tpu_torch.bench import search_phases
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
 from kwage_tpu_torch.bench.sriracha import probe_work, read_block, reads_work
-from kwage_tpu_torch.bench.search_routes import H2D_BYTES, gather_share, h2d_rates
+from kwage_tpu_torch.bench.search_routes import (
+    H2D_BYTES,
+    batch_for_share,
+    canon,
+    gather_share,
+    h2d_rates,
+)
 from kwage_tpu_torch.core.words import canonical_kmers
 from kwage_tpu_torch.entry import dryrun_multichip, entry
 from kwage_tpu_torch.io.binary import BinaryReader, BinaryWriter
@@ -352,6 +369,14 @@ READ_MESH_SLOTS = 4        # phase 10: logical slots of the card for SriRachA's 
 REMOTE_BATCH = 4           # phase 11: accessions a device worker pulls at once
 CHUNK_BP = 8_000_000       # phase 12: the JAX package's chunk_bp (a 16 GB TPU's)
 CROWDED_FREE = 3 << 30     # phase 12: device bytes left free for the builds in threads
+# Phase 12's two-process step: the device bytes left free for each round,
+# narrowed round by round until a child's halving retry fires. On an NVIDIA
+# H100 80GB HBM3 at 700 W it never fired at 3, 2 or 1 GiB free and fired
+# in 4 of 5 rounds at 768 MiB (run_two_process_builds and two smokes); at
+# 512 MiB the 4 builds in threads of one process ran out of memory at one
+# row (their accumulators take the rest), so 768 MiB is the last level,
+# tried up to five times.
+TWO_PROCESS_FREE = (CROWDED_FREE, 2 << 30, 1 << 30) + (768 << 20,) * 5
 # Phase 14, the production-L path: the prodL corpus's first 64 accessions
 # (30 kbp genomes at 4x, 160 bp reads, min count 2) built at L pinned to 26
 # (8 MiB filters), each .bloom listed 32 times to pack one full quota file
@@ -616,6 +641,65 @@ def fmt_steps(steps: dict) -> str:
     return ", ".join(parts)
 
 
+RULE_SHARE = 0.7           # phase 2's rule step: rows touched, past GATHER_SHARE
+RULE_SLABS = 8             # ... under a budget of an eighth of a file
+
+
+def run_rule_step(files: list[str], planted: list[str], device: torch.device, n_filter: int,
+                  log2_len: int) -> str:
+    """Phase 2's check of ``search_chunk``'s rule on the card: random 400 bp
+    queries touching RULE_SHARE of the rows of two of phase 2's files, and
+    the ``planted`` ones (so that hit lists are not empty), under a budget
+    of 1/RULE_SLABS of a file, so that each file is its own chunk and
+    streams in slabs by either route. On the card the rows are
+    under GATHER_SHARE for each of the full route's slabs, but past it once
+    the gathered rows' own slabs are counted: the call must take the full
+    route (``profile["route"]``), its hit lists == the gather route's
+    (GATHER_SHARE set to 1). Returns the step's report."""
+    files = files[:2]
+    budget = os.path.getsize(files[0]) // RULE_SLABS
+    queries, _ = batch_for_share(RULE_SHARE, log2_len, 0)
+    queries += [(len(queries) + i, q) for i, q in enumerate(planted)]
+    idx, _, _ = ts.make_query_batch([q for _, q in queries], KMER_LEN, NUM_HASH, log2_len)
+    rows = len(np.unique(idx))
+    L = 1 << log2_len
+    W = -(-n_filter // 32)
+    result_word_bytes = 4 * len(queries)          # threshold 1.0: a mask word a query
+    passes = -(-W // ts._slab_words(L, W, budget, result_word_bytes))
+    gathered = -(-W // ts._slab_words(rows, W, budget, result_word_bytes))
+    if device.type == "cuda":
+        check(rows <= ts.GATHER_SHARE * L * passes < rows * gathered,
+              f"the rule step's batch ({rows} rows, {passes} / {gathered} slabs) does not "
+              f"separate the rule from one that counts only the full route's slabs")
+    got, walls = {}, {}
+    old = os.environ.get("KWAGE_FUSION_BUDGET_BYTES")
+    os.environ["KWAGE_FUSION_BUDGET_BYTES"] = str(budget)
+    try:
+        for name, share in (("rule", None), ("gather", 1.0)):
+            steps: dict = {}
+            t0 = time.perf_counter()
+            with gather_share(share):
+                got[name] = canon(ts.search_files_device(files, queries, 1.0, device,
+                                                         profile=steps))
+            walls[name] = (time.perf_counter() - t0, steps)
+    finally:
+        if old is None:
+            del os.environ["KWAGE_FUSION_BUDGET_BYTES"]
+        else:
+            os.environ["KWAGE_FUSION_BUDGET_BYTES"] = old
+    check(walls["rule"][1]["route"] == {"gather": 0, "full": len(files)},
+          f"the rule step took another route than the full one: {walls['rule'][1]}")
+    check(walls["gather"][1]["route"] == {"gather": len(files), "full": 0},
+          f"the rule step's forced gather took another route: {walls['gather'][1]}")
+    check(got["rule"] == got["gather"] and bool(got["rule"]),
+          "the rule step's hit lists differ between routes, or are empty")
+    return (f"the rule at {budget} B a chunk, {len(queries)} queries touching {rows} rows "
+            f"({rows / L:.3f} of L), {passes} slabs a file by the full route, {gathered} "
+            f"by the gather: " + "; ".join(f"{n} {w:.4f} s ({fmt_steps(st)})"
+                                           for n, (w, st) in walls.items())
+            + f", {sum(map(len, got['rule'].values()))} hits by both")
+
+
 def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
                   copies: int, seed: int) -> dict:
     """Phases 1-3 through the port's entry points; returns phase 2's
@@ -690,12 +774,13 @@ def run_main_path(work: str, device: torch.device, n_filter: int, log2_len: int,
         with gather_share(share):
             ts.search_files_device(files, list(enumerate(seqs)), 0.5, device, profile=steps)
         one_call.append(f"{name} {time.perf_counter() - t0:.4f} s ({fmt_steps(steps)})")
+    rule = run_rule_step(files, seqs, device, n_filter, log2_len)
     rates = h2d_rates(device)
     print(f"phase 2 search: {len(queries)} queries x {copies} fused files "
           f"(W={copies * ((n_filter + 31) // 32)}), bytes == host engine by both routes, "
           f"{n_hits} planted hits at -t 0.5; {'; '.join(times)}; the device calls: "
           f"{'; '.join(calls)}; one device search call at -t 0.5 by each route: "
-          f"{'; '.join(one_call)}; host-to-device "
+          f"{'; '.join(one_call)}; {rule}; host-to-device "
           + (", ".join(f"{k} {v:.3f}" for k, v in rates.items()) if rates else "not measured")
           + f" ({H2D_BYTES} B copies)", flush=True)
 
@@ -1293,8 +1378,11 @@ def run_chunked(work: str, device: torch.device, phase6: dict) -> dict:
     from its path and once from an iterator, in 6 threads at once, chunks
     sized from what is left (several a file, each at its turn; without the
     turns, the path builds would all size theirs from the same reading):
-    every record == the ground truth. Walls beside the native host builder's on the same two
-    files (a thread each). Then the device memory a window of one chunk's
+    every record == the ground truth. Then the same two files from two
+    processes at once (``run_two_process_builds``): each record == the
+    ground truth, and the halving retry must fire in a child by the last
+    round. Walls beside the native host builder's on the same two files (a
+    thread each). Then the device memory a window of one chunk's
     count takes, the peak of count_chunk over its windows, on one whole
     accession and on a block of as many windows, all valid and distinct
     (the most a window takes), which make_bloom.BYTES_PER_WINDOW must
@@ -1334,6 +1422,31 @@ def run_chunked(work: str, device: torch.device, phase6: dict) -> dict:
         for (acc, route), rec in zip(turns, recs):
             built(acc, rec, f"{route} on a crowded card")
     check(guard["builds"] == 4 * len(big) + len(turns), f"builds under the guard: {guard}")
+    two = run_two_process_builds(work, device, paths)
+    print("phase 12 two processes: " + "; ".join(
+        f"{r['free']} B of the card free: 2 processes {r['wall_s']:.2f} s ("
+        + ", ".join(f"child {i} {c['wall_s']:.2f} s, halved {c['halved']} time(s), waited "
+                    f"{c['waited']} time(s) at one row, peak device memory "
+                    f"{c['peak_bytes']} B, {c['builds']} builds"
+                    + (f", {c['error']}" if c["error"] else "")
+                    for i, c in enumerate(r["children"]))
+        + f") beside the same {len(r['threads'])} builds in threads of one process "
+          f"{r['threads_s']:.2f} s (halved {r['threads_halved']} time(s))" for r in two),
+        flush=True)
+    for r in two:
+        for i, c in enumerate(r["children"]):
+            check(c["error"] is None and c["builds"] == len(big) == len(c["records"]),
+                  f"child {i} at {r['free']} B free: {c['error']} ({c['builds']} builds)")
+            for acc, got in zip(big, c["records"]):
+                param, bits, _ = phase6["truth"][acc]
+                check(BloomParam(**got["param"]) == param
+                      and np.fromfile(got["bits"], np.uint8).tobytes() == bits.tobytes(),
+                      f"{acc}, child {i} at {r['free']} B free: the record differs from the "
+                      f"ground truth")
+        for acc, rec in zip(big * 2, r["threads"]):
+            built(acc, rec, f"in threads at {r['free']} B free")
+    check(any(c["halved"] for c in two[-1]["children"]),
+          f"the halving retry never fired in two processes down to {two[-1]['free']} B free")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(paths)) as pool:
         list(pool.map(lambda p: build_bloom_from_file(p, opts, FilterInfo()), paths))
@@ -1382,6 +1495,131 @@ def run_chunked(work: str, device: torch.device, phase6: dict) -> dict:
           f"a merge took {per_word:.2f} B a word, over make_bloom.MERGE_BYTES_PER_WORD")
     return {"windows": packed.shape[0] * (READ_LEN - INGEST_K + 1), "distinct": nums[0],
             "chunks": -(-bp // CHUNK_BP)}
+
+
+def build_child(argv: list[str]) -> int:
+    """A process of phase 12's two-process step (``run_two_process_builds``):
+    ``argv`` is a file prefix and the FASTQ paths. It reaches the card and
+    loads both libraries, prints READY, then for each line on stdin (a
+    round's name) builds every path with ``build_bloom_device`` (chunks from
+    the card) under phase 6's refusals, writes each record's bits to
+    PREFIX.ROUND.I and prints one DONE line: the records' params and files,
+    the round's wall, how many times each retry of the chunk loop fired
+    (``make_bloom.retry_counts()``), the peak device memory, and the error
+    that ended a build and where, if one did."""
+    prefix, paths = argv[0], argv[1:]
+    device = resolve_device()
+    torch.zeros(1, device=device)
+    if device.type == "cuda":
+        kernels.get_lib()
+    native_available()
+    opts = BuildOptions(kmer_len=INGEST_K, min_kmer_count=MIN_COUNT)
+    print("READY", flush=True)
+    for line in sys.stdin:
+        name = line.strip()
+        torch_make_bloom.reset_retry_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        report = {"round": name, "records": [], "error": None}
+        t0 = time.perf_counter()
+        with no_library_sort() as guard:
+            try:
+                for i, path in enumerate(paths):
+                    rec = torch_make_bloom.build_bloom_device(path, opts, FilterInfo())
+                    rec.bits.tofile(f"{prefix}.{name}.{i}")
+                    report["records"].append({"bits": f"{prefix}.{name}.{i}",
+                                              "param": dataclasses.asdict(rec.param)})
+            except RuntimeError as e:      # torch.cuda.OutOfMemoryError among them
+                report["error"] = (f"{type(e).__name__}: {e} at "
+                                   + " < ".join(f"{f.name}:{f.lineno}" for f in reversed(
+                                       traceback.extract_tb(e.__traceback__))))
+        report.update(wall_s=time.perf_counter() - t0, builds=guard["builds"],
+                      **torch_make_bloom.retry_counts(),
+                      peak_bytes=(torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else 0))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print("DONE " + json.dumps(report), flush=True)
+    return 0
+
+
+def run_two_process_builds(work: str, device: torch.device, paths: list[str],
+                           frees=TWO_PROCESS_FREE) -> list[dict]:
+    """Phase 12's device builds from two processes on one crowded card: two
+    ``build_child`` processes, up and holding the libraries first; then a
+    round for each entry of ``frees``: this process holds all but that many
+    bytes of the card, releases both children at once (each builds every
+    path of ``paths``, chunks from the card) and times them to the last
+    DONE, then the same builds in threads of this process (each path
+    twice, one thread a build) under the same ballast, all under phase 6's
+    refusals. Nothing is shared between the processes but the card. The
+    rounds stop at the first where a child's halving retry fired. Returns
+    a round a dict: the free bytes, the two walls, the children's DONE
+    reports and the records built in threads."""
+    opts = BuildOptions(kmer_len=INGEST_K, min_kmer_count=MIN_COUNT)
+    out = os.path.join(work, "two_process")
+    os.makedirs(out, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(out, f"child{i}.log"), "w") for i in range(2)]
+    children = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.build_child("
+         "sys.argv[1:]))", os.path.join(out, f"child{i}"), *paths],
+        cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True)
+        for i, log in enumerate(logs)]
+
+    def tail(i: int) -> str:
+        logs[i].flush()
+        with open(logs[i].name) as f:
+            return f.read()[-3000:]
+
+    rounds = []
+    try:
+        for i, child in enumerate(children):
+            check(child.stdout.readline().strip() == "READY",
+                  f"the build child {i} did not come up: {tail(i)}")
+        for free in frees:
+            ballast = None
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+                ballast = torch.empty(torch_make_bloom._card_free_bytes(device) - free,
+                                      dtype=torch.uint8, device=device)
+            t0 = time.perf_counter()
+            for child in children:
+                child.stdin.write(f"r{len(rounds)}\n")
+                child.stdin.flush()
+            reports = []
+            for i, child in enumerate(children):
+                line = child.stdout.readline()
+                check(line.startswith("DONE "), f"the build child {i} failed: {tail(i)}")
+                reports.append(json.loads(line[len("DONE "):]))
+            wall = time.perf_counter() - t0
+            torch_make_bloom.reset_retry_counts()
+            t0 = time.perf_counter()
+            with no_library_sort(), ThreadPoolExecutor(2 * len(paths)) as pool:
+                recs = list(pool.map(lambda p: torch_make_bloom.build_bloom_device(
+                    p, opts, FilterInfo()), paths * 2))
+            rounds.append({"free": free, "wall_s": wall,
+                           "threads_s": time.perf_counter() - t0, "children": reports,
+                           "threads_halved": torch_make_bloom.retry_counts()["halved"],
+                           "threads": recs})
+            del ballast
+            if any(r["halved"] for r in reports):
+                break
+    finally:
+        for child in children:
+            if child.stdin and not child.stdin.closed:
+                child.stdin.close()
+        for child in children:
+            try:
+                child.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+        for log in logs:
+            log.close()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rounds
 
 
 # --- phase 7: entry() -----------------------------------------------------------------

@@ -17,8 +17,10 @@ For each share in ``--shares``: a batch of random 400 bp queries
 batch's distinct slice rows at about that share of L, searched at
 THRESHOLD by ``ops.search.search_files_device``, ``--calls`` calls in
 turn by each route the tree has: "gather" (``GATHER_SHARE`` set to 1, so
-only the touched rows go to the card) and "full" (``GATHER_SHARE`` 0: the
-whole chunk). A tree without routes runs its one route, named "full". The
+only the touched rows go to the card), "full" (``GATHER_SHARE`` 0: the
+whole chunk) and "rule" (``GATHER_SHARE`` as the tree has it: the route
+``search_chunk``'s rule chooses, printed as ``taken``). A tree without
+routes runs its one route, named "full". The
 first call of the process follows only a warm-up of the kernels on a
 tiny matrix, so it carries the first page-locked allocation, as a
 ``kwage --device`` call would. Every route's hit lists equal the first
@@ -131,7 +133,14 @@ def routes_of_tree() -> list[tuple[str, float | None]]:
     """(route, GATHER_SHARE to set) for each route this tree's search has."""
     if not hasattr(ts, "GATHER_SHARE"):
         return [("full", None)]
-    return [("gather", 1.0), ("full", 0.0)]
+    return [("gather", 1.0), ("full", 0.0), ("rule", None)]
+
+
+def taken(prof: dict) -> str | None:
+    """The route a call's chunks took ("gather", "full", or both joined by
+    "+"), from its profile; None for a tree without routes."""
+    routes = prof.get("route")
+    return None if routes is None else "+".join(r for r, n in routes.items() if n)
 
 
 @contextlib.contextmanager
@@ -224,8 +233,9 @@ def main(argv: list[str] | None = None) -> int:
                         want = got
                     check(got == want, f"share {share}: the {route} route's hit lists differ")
                     log.log("call", share_target=share, queries=len(queries), rows=rows,
-                            share=rows / (1 << args.log2_len), route=route, call=call,
-                            wall_s=wall, hits=sum(map(len, got.values())), steps=prof)
+                            share=rows / (1 << args.log2_len), route=route, taken=taken(prof),
+                            call=call, wall_s=wall, hits=sum(map(len, got.values())),
+                            steps=prof)
                     if mesh is None:
                         continue
                     res, wall, prof = timed_call(paths, queries, device, setting, mesh)
@@ -234,8 +244,8 @@ def main(argv: list[str] | None = None) -> int:
                                        f"differ")
                     log.log("mesh_call", share_target=share, queries=len(queries), rows=rows,
                             share=rows / (1 << args.log2_len), route=route, call=call,
-                            mesh=args.mesh, wall_s=wall, hits=sum(map(len, got.values())),
-                            steps=prof)
+                            taken=taken(prof), mesh=args.mesh, wall_s=wall,
+                            hits=sum(map(len, got.values())), steps=prof)
     finally:
         if not args.work:
             shutil.rmtree(work, ignore_errors=True)

@@ -6,7 +6,8 @@
 a card they raise, as ``resolve_device`` does, before a ``--worker`` pulls
 its first task. ``--coordinator`` serves the work queue of
 ``parallel.remote`` (with ``--workers`` local pull workers) and
-``--worker`` pulls from it, as in the JAX package.
+``--worker`` pulls from it, as in the JAX package; the coordinator prints
+the address it bound (``LISTENING``), so that port 0 may be asked for.
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ LONG_OPTS = [
     "device-batch=", "coordinator=", "worker=", "task-timeout=",
     "slice=", "of=",
 ]
+# ``--coordinator``'s line on stderr, before the address it bound
+# (``--coordinator 127.0.0.1:0`` binds a free port).
+LISTENING = "coordinator listening on "
 
 
 def usage() -> None:
@@ -230,6 +234,10 @@ def main(argv: list[str] | None = None) -> int:
             num_local_workers=opt.num_workers,
             host=host or "127.0.0.1", port=int(port),
             task_timeout=task_timeout,
+            # The address bound, on a line of its own: with port 0, where
+            # the workers started beside this process find it.
+            on_listening=lambda a: print(f"{LISTENING}{a[0]}:{a[1]}", file=sys.stderr,
+                                         flush=True),
         )
     else:
         maestro = Maestro(opt, resolver)

@@ -260,14 +260,15 @@ def search_total_hits(db: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
 
 # --- chunked / multi-file search ----------------------------------------------
 
-# A query batch whose distinct slice rows are at most this share of the
-# filter length, for each column slab the whole chunk would stream in,
-# uploads only those rows ("gather"); above it the chunk goes to the
-# device whole or in column slabs ("full"), and each slab reads every row
-# of the files again. On an H100's host (bench.search_routes, PERF.md):
-# 8 fused 1 GiB files at L=22, one slab: the gather of 30% of the rows
-# costs about what the whole upload does; one 16 GiB file at L=26, three
-# slabs: the gather of 50% still takes about half of the full route.
+# A query batch whose distinct slice rows, times the column slabs they
+# stream in themselves, are at most this share of the filter length times
+# the slabs the whole chunk would stream in, uploads only those rows
+# ("gather"); above it the chunk goes to the device whole or in column
+# slabs ("full"), and each slab reads every row of the files again. On an
+# H100's host (bench.search_routes, PERF.md): 8 fused 1 GiB files at
+# L=22, one slab: the gather of 30% of the rows costs about what the whole
+# upload does; one 16 GiB file at L=26, three slabs: the gather of 50%
+# still takes about half of the full route.
 GATHER_SHARE = 0.25
 # Threads that fill a staging block: a file piece each, split by rows so
 # that a block is READER_THREADS jobs however many files it spans.
@@ -576,7 +577,9 @@ class QueryBatch:
         """Whether a chunk of this filter length, which the full route would
         read in ``passes`` column slabs and the gather route in
         ``gathered_passes``, takes the gather route: the rows read, passes
-        counted, at most GATHER_SHARE of what the full route reads."""
+        counted, at most GATHER_SHARE of what the full route reads. The
+        gathered rows count once for each of their own slabs, since each
+        slab gathers them from the files again."""
         return len(self.rows()[0]) * gathered_passes <= GATHER_SHARE * filter_len * passes
 
 
@@ -584,10 +587,11 @@ def search_chunk(words, batch: QueryBatch, threshold: float, budget_bytes: int,
                  profile: dict | None = None) -> np.ndarray:
     """One chunk's result (``eval_chunk_cols``' contract) for ``batch``. A
     device tensor is searched as it is. A ``HostChunk`` takes the gather
-    route when the batch touches at most GATHER_SHARE of its rows for
-    each column slab the full route would read it in: only those rows go
-    to the device, gathered by the stager's reader threads (in column slabs
-    when they pass ``budget_bytes``), searched with ``idx`` remapped to
+    route when the batch's rows, times the column slabs they themselves
+    take under ``budget_bytes``, are at most GATHER_SHARE of the chunk's
+    rows times the slabs the full route would read it in
+    (``QueryBatch.gathers``): only those rows go to the device, gathered
+    by the stager's reader threads, searched with ``idx`` remapped to
     them. Otherwise it goes whole, in one slab or several (the "full"
     route). ``profile`` also counts ``route``
     ({"gather": chunks, "full": chunks}), ``rows`` (the distinct slice rows
@@ -596,9 +600,11 @@ def search_chunk(words, batch: QueryBatch, threshold: float, budget_bytes: int,
     gather = False
     if isinstance(words, HostChunk):
         L, W = words.shape
-        per_word = 1 if threshold == 1.0 else 32
-        passes = -(-W // _slab_words(L, W, budget_bytes, 4 * len(batch.nk) * per_word))
-        gather = batch.gathers(L, passes)
+        result_word_bytes = 4 * len(batch.nk) * (1 if threshold == 1.0 else 32)
+        passes = -(-W // _slab_words(L, W, budget_bytes, result_word_bytes))
+        U = len(batch.rows()[0])
+        gathered_passes = -(-W // _slab_words(U, W, budget_bytes, result_word_bytes))
+        gather = batch.gathers(L, passes, gathered_passes)
     if profile is not None:
         routes = profile.setdefault("route", {"gather": 0, "full": 0})
         routes["gather" if gather else "full"] += 1

@@ -584,14 +584,19 @@ def run_distributed_maestro(
     host: str = "127.0.0.1",
     port: int = 0,
     task_timeout: float | None = None,
+    on_listening=None,
 ) -> Maestro:
     """Convenience wrapper: start a coordinator (restoring state first)
     plus optional in-process workers, serve until completion, return the
-    finished Maestro for inspection."""
+    finished Maestro for inspection. ``on_listening`` is called with the
+    bound (host, port) once workers can reach it (port 0 binds a free
+    port)."""
     m = Maestro(opt, resolver)
     m.restore()
     coord = CoordinatorServer(m, host=host, port=port, task_timeout=task_timeout)
     coord.start()
+    if on_listening is not None:
+        on_listening(coord.address)
     threads = []
     for w in range(num_local_workers):
         worker = RemoteWorker(opt, resolver, coord.address, name=f"local{w}")

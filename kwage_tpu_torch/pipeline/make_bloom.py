@@ -37,6 +37,7 @@ import contextlib
 import math
 import mmap
 import threading
+import time
 import zlib
 from dataclasses import dataclass
 from typing import Iterable
@@ -238,6 +239,30 @@ STRING_CHUNK_BASES = 1 << 26
 # reading and the allocation. Between turns a build holds only its
 # accumulator, which the next reading sees as taken.
 _CARD_TURN = threading.Lock()
+# A chunk of one row whose count or merge still runs out of device memory
+# waits for memory another process holds (its own chunk, freed when that
+# chunk is merged): at most CARD_WAITS more tries, the first after
+# CARD_WAIT_S, each wait twice the last (12.75 s in all), then it raises.
+# Halving cannot help there: a merge's output is the accumulator's size.
+# A child of chip_smoke.py's phase 12 waited 4 times (0.75 s) on an NVIDIA
+# H100 80GB HBM3 at 700 W.
+CARD_WAITS = 8
+CARD_WAIT_S = 0.05
+# This process's out-of-memory retries in the chunk loop since the last
+# reset: chunks counted again at half their rows, waits at one row; counted
+# under _CARD_TURN.
+_RETRIES = {"halved": 0, "waited": 0}
+
+
+def retry_counts() -> dict[str, int]:
+    """This process's out-of-memory retries by kind, as
+    ``kernels.launch_counts()`` gives its launches."""
+    return dict(_RETRIES)
+
+
+def reset_retry_counts() -> None:
+    for kind in _RETRIES:
+        _RETRIES[kind] = 0
 
 
 def _card_free_bytes(device: torch.device) -> int:
@@ -405,9 +430,11 @@ def build_bloom_device(
     BloomInvalid past max_kmers distinct k-mers (checked after every chunk,
     as the JAX version does). A chunk whose count or merge runs out of
     device memory (memory another process took after the chunk was sized)
-    is retried at half its rows, the accumulator as it was; one that does
-    not fit at one row raises torch.cuda.OutOfMemoryError (a
-    RuntimeError). Chunk sizes never change the record's bytes."""
+    is retried at half its rows, the accumulator as it was
+    (``retry_counts()["halved"]`` counts each); at one row it waits for
+    that memory, at most CARD_WAITS times (``"waited"``), then raises
+    torch.cuda.OutOfMemoryError (a RuntimeError). Chunk sizes never change
+    the record's bytes."""
     device = resolve_device()
     k = opts.kmer_len
     max_kmers = _max_kmers(opts)
@@ -433,6 +460,7 @@ def build_bloom_device(
             while r < p.shape[0]:
                 with _CARD_TURN:
                     n = step or _chunk_rows(device, length - k + 1)
+                    waits = 0
                     while True:
                         last = last_block and r + n >= p.shape[0]
                         try:
@@ -445,10 +473,16 @@ def build_bloom_device(
                             # chunk was sized (a --worker beside its
                             # coordinator, which _CARD_TURN does not reach):
                             # the same rows in halves, the accumulator as it
-                            # was.
-                            if n == 1:
+                            # was; at one row, a bounded wait for it.
+                            if n > 1:
+                                n = (min(n, p.shape[0] - r) + 1) // 2
+                                _RETRIES["halved"] += 1
+                            elif waits < CARD_WAITS:
+                                time.sleep(CARD_WAIT_S * 2 ** waits)
+                                waits += 1
+                                _RETRIES["waited"] += 1
+                            else:
                                 raise
-                            n = (min(n, p.shape[0] - r) + 1) // 2
                             if device.type == "cuda":
                                 torch.cuda.empty_cache()
                 r += n

@@ -6,8 +6,9 @@ port's counterpart of ``tools/run_at_scale_distributed.py``.
 The JAX tool's corpus (``_corpus.generate_dscale``: SCALE_N_ACC 1000
 accessions SRR9000000 + i, random genomes of SCALE_GENOME 20000 bases,
 SCALE_COV 3 records of up to 3000 bases each) served by ``python -m
-kwage_tpu_torch.cli.maestro --coordinator`` to SCALE_WORKERS (2) ``--worker``
-processes over TCP, at min count 1 and L 16-20. The coordinator, the
+kwage_tpu_torch.cli.maestro --coordinator 127.0.0.1:0`` (a free port, which
+it binds and reports) to SCALE_WORKERS (2) ``--worker`` processes over
+TCP, at min count 1 and L 16-20. The coordinator, the
 workers and the single run build on the card (``--device-build
 --device-transpose``; the JAX tool's build on the host): the coordinator
 process holds its own 2 local device workers (``--device-build`` caps
@@ -60,7 +61,6 @@ import collections
 import json
 import os
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -71,6 +71,7 @@ import time
 from .. import kernels
 from ..bench._common import bench_device, card_identity
 from ..cli.kwage import find_db_files
+from ..cli.maestro import LISTENING
 from ..core.params import BloomParam
 from ..io.bloom_file import read_bloom_file
 from ..io.inventory import write_inventory
@@ -105,8 +106,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 
 # A held child: imports, then (with the device flags) its CUDA context,
 # kernel library and host library, then READY; released by a line on
-# stdin; at exit a device child reports its peak device memory and its
-# launches on stderr.
+# stdin, whose words it adds to its arguments (a worker's --worker and the
+# address its coordinator bound); at exit a device child reports its peak
+# device memory and its launches on stderr.
 WRAPPER = """\
 import json, sys
 import kwage_tpu_torch.cli.maestro as mm
@@ -121,9 +123,10 @@ if device:
         kernels.get_lib()
     native.available()
 print('READY', flush=True)
-if sys.stdin.readline() != '\\n':
+release = sys.stdin.readline()
+if not release.endswith('\\n'):
     sys.exit(3)     # the parent went away before the release
-rc = mm.main(sys.argv[1:])
+rc = mm.main(sys.argv[1:] + release.split())
 if device:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == 'cuda' else None
     print('KWAGE_CHILD ' + json.dumps({'peak_device_bytes': peak,
@@ -137,7 +140,8 @@ class Child:
     """A held maestro process; its output drained by threads (the tail of
     stderr kept), so that a child that logs much never blocks on a pipe.
     ``ready`` waits for its READY line: start every child of a run, then
-    wait for each, so that their start-ups overlap."""
+    wait for each, so that their start-ups overlap. A coordinator's bound
+    address (its ``LISTENING`` line) is kept for ``bound``."""
 
     def __init__(self, args: list[str], env: dict):
         self.proc = subprocess.Popen([sys.executable, "-c", WRAPPER, *args],
@@ -145,6 +149,8 @@ class Child:
                                      stderr=subprocess.PIPE, env=env, text=True)
         self.err = collections.deque(maxlen=200)
         self._drains = []
+        self._address = None
+        self._listening = threading.Event()
 
     def ready(self) -> "Child":
         line = self.proc.stdout.readline().strip()
@@ -155,11 +161,26 @@ class Child:
                                f"{line!r}): {err[-4000:]}")
         self._drains = [threading.Thread(target=lambda: [None for _ in self.proc.stdout],
                                          daemon=True),
-                        threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
-                                         daemon=True)]
+                        threading.Thread(target=self._drain_err, daemon=True)]
         for t in self._drains:
             t.start()
         return self
+
+    def _drain_err(self) -> None:
+        for line in self.proc.stderr:
+            if line.startswith(LISTENING) and self._address is None:
+                self._address = line[len(LISTENING):].strip()
+                self._listening.set()
+            self.err.append(line)
+
+    def bound(self, deadline: float = 120.0) -> str:
+        """The host:port a released coordinator bound (it asks for port 0)."""
+        t0 = time.time()
+        while not self._listening.wait(0.1):
+            if self.proc.poll() is not None or time.time() - t0 > deadline:
+                raise RuntimeError(f"the coordinator reported no address (rc="
+                                   f"{self.proc.poll()}): {self.tail()}")
+        return self._address
 
     def stop(self) -> None:
         """Kill the process if it still runs (a run that failed part way)."""
@@ -167,8 +188,8 @@ class Child:
             self.proc.kill()
             self.proc.wait()
 
-    def release(self) -> None:
-        self.proc.stdin.write("\n")
+    def release(self, args: tuple[str, ...] = ()) -> None:
+        self.proc.stdin.write(" ".join(args) + "\n")
         self.proc.stdin.flush()
         self.proc.stdin.close()
 
@@ -189,23 +210,6 @@ class Child:
         return "".join(self.err)[-3000:]
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def wait_port(port: int, deadline: float = 120.0) -> None:
-    t0 = time.time()
-    while time.time() - t0 < deadline:
-        try:
-            socket.create_connection(("127.0.0.1", port), 0.5).close()
-            return
-        except OSError:
-            time.sleep(0.1)
-    raise TimeoutError(f"coordinator port {port} never opened")
-
-
 def child_env(extra: dict | None = None) -> dict:
     """This environment, the repository first on PYTHONPATH (so that the
     children import this checkout), and ``extra``."""
@@ -217,20 +221,23 @@ def child_env(extra: dict | None = None) -> dict:
 
 def run_queue(coord_args: list[str], worker_args: list[list[str]], env: dict,
               kill_after: float | None = None) -> dict:
-    """A coordinator and its workers, all held, released coordinator first;
-    optionally SIGKILL worker 0 ``kill_after`` s after the release. Returns
-    the walls, exit codes, the children's reports and their stderr tails."""
-    port = int(coord_args[coord_args.index("--coordinator") + 1].rpartition(":")[2])
-    children = [Child(a, env) for a in (coord_args, *worker_args)]
+    """A coordinator (``coord_args``, without --coordinator: it binds port
+    0 of 127.0.0.1) and its workers (without --worker), all held, released
+    coordinator first, each worker then with the address the coordinator
+    reported; optionally SIGKILL worker 0 ``kill_after`` s after the
+    release. Returns the walls, exit codes, the children's reports and
+    their stderr tails."""
+    children = [Child(a, env) for a in ([*coord_args, "--coordinator", "127.0.0.1:0"],
+                                        *worker_args)]
     coord, *workers = children
     try:
         for c in children:
             c.ready()
         t0 = time.time()
         coord.release()
-        wait_port(port)
+        address = coord.bound()
         for w in workers:
-            w.release()
+            w.release(("--worker", address))
         if kill_after is not None:
             time.sleep(kill_after)
             workers[0].proc.kill()
@@ -426,11 +433,9 @@ def run(log: PhaseLog, device, work: str) -> int:
                 "--len.max", str(LEN_MAX), *extra]
 
     dscratch = os.path.join(work, "dist")
-    port = free_port()
     keep = [*DEVICE_FLAGS, "--save.bloom"]   # whoever packs a .db keeps its .bloom files
-    dist = run_queue(maestro_args(dscratch, [*keep, "--coordinator", f"127.0.0.1:{port}"]),
-                     [maestro_args(dscratch, [*keep, "--worker", f"127.0.0.1:{port}"])
-                      for _ in range(N_WORKERS)], env)
+    dist = run_queue(maestro_args(dscratch, keep),
+                     [maestro_args(dscratch, keep) for _ in range(N_WORKERS)], env)
     ok = dist["coordinator_rc"] == 0 and not any(dist["worker_rcs"])
     terminal = ok and all_terminal(dscratch, N_ACC)
     log.log("distributed_run", workers=N_WORKERS, coordinator_rc=dist["coordinator_rc"],
@@ -465,12 +470,10 @@ def run(log: PhaseLog, device, work: str) -> int:
     cscratch = None
     if not SKIP_CRASH:
         cscratch = os.path.join(work, "crash")
-        cport = free_port()
         crash = run_queue(
-            maestro_args(cscratch, [*DEVICE_FLAGS, "--coordinator", f"127.0.0.1:{cport}",
-                                    "--task-timeout", "5"]),
-            [maestro_args(cscratch, [*DEVICE_FLAGS, "--worker", f"127.0.0.1:{cport}"])
-             for _ in range(2)], env, kill_after=max(0.5, dist["dt"] / 4))
+            maestro_args(cscratch, [*DEVICE_FLAGS, "--task-timeout", "5"]),
+            [maestro_args(cscratch, DEVICE_FLAGS) for _ in range(2)], env,
+            kill_after=max(0.5, dist["dt"] / 4))
         terminal = crash["coordinator_rc"] == 0 and all_terminal(cscratch, N_ACC)
         equal = terminal and result_set(search(cscratch, qf, work)) == result_set(want)
         log.log("crash_recovery", coordinator_rc=crash["coordinator_rc"],
@@ -531,12 +534,9 @@ def latency_regime(log: PhaseLog, work: str, corpus, maestro_args) -> float | No
         fail_children(log, "latency_single_run", [single["tail"]])
         return None
     lscratch = os.path.join(work, "lat_dist")
-    port = free_port()
     dist = run_queue(
-        maestro_args(lscratch, ["--coordinator", f"127.0.0.1:{port}", "--workers", "1"],
-                     lat_inv, stream),
-        [maestro_args(lscratch, ["--worker", f"127.0.0.1:{port}"], lat_inv, stream)
-         for _ in range(LAT_WORKERS)], env)
+        maestro_args(lscratch, ["--workers", "1"], lat_inv, stream),
+        [maestro_args(lscratch, [], lat_inv, stream) for _ in range(LAT_WORKERS)], env)
     ratio = single["dt"] / dist["dt"]
     log.log("latency_distributed_run", workers=LAT_WORKERS,
             coordinator_rc=dist["coordinator_rc"], worker_rcs=dist["worker_rcs"],

@@ -163,24 +163,23 @@ def test_cli_device_build_produces_reference_databases(manifest, digests, data_d
 
 @pytest.mark.parametrize("flag", ["--coordinator", "--worker"])
 def test_cli_remote_roles_are_not_ported(manifest, digests, data_dir, tmp_path, flag, capsys):
-    """The cross-host roles are wired, not refused: ``--coordinator`` with
-    its local device workers builds the golden databases, and a
-    ``--worker`` with no coordinator to reach exits 0 having built
-    nothing."""
-    import socket
+    """The cross-host roles are wired, not refused: ``--coordinator`` on
+    port 0 binds a free port, prints it on a line of its own, and with its
+    local device workers builds the golden databases; a ``--worker`` with
+    no coordinator to reach exits 0 having built nothing."""
+    from kwage_tpu_torch.cli.maestro import LISTENING
 
     _write_inventory(manifest, tmp_path)
-    if flag == "--coordinator":
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            address = f"127.0.0.1:{sock.getsockname()[1]}"
-    else:
-        address = "127.0.0.1:1"
+    address = "127.0.0.1:0" if flag == "--coordinator" else "127.0.0.1:1"
     rc = maestro_main(_cli_args(manifest, data_dir, tmp_path) + ["--device-batch", "4",
                                                                  flag, address])
     err = capsys.readouterr().err
     assert rc == 0 and "not ported" not in err
     if flag == "--coordinator":
+        bound = [line[len(LISTENING):] for line in err.splitlines()
+                 if line.startswith(LISTENING)]
+        assert len(bound) == 1 and bound[0].startswith("127.0.0.1:")
+        assert 0 < int(bound[0].rpartition(":")[2]) < 65536
         assert "database committed: 10" in err
         _check_databases(manifest, digests, tmp_path / "database")
     else:

@@ -805,9 +805,11 @@ def test_builds_in_threads_share_a_full_card(cuda_device, monkeypatch, tmp_path)
 def test_chunk_out_of_memory_retries_smaller(monkeypatch, source, tmp_path):
     """A chunk whose count runs out of device memory once (another process
     took it after the chunk was sized) is counted again at half its rows,
-    the accumulator intact: the record is byte-equal to the JAX build's.
-    One row that does not fit raises."""
+    the accumulator intact: the record is byte-equal to the JAX build's,
+    and the process's halving counter reads 1. One row that does not fit
+    raises."""
     real, calls = tmb.count_chunk, []
+    tmb.reset_retry_counts()
 
     def short_of_memory(packed, *args, **kwargs):
         calls.append(packed.shape[0])
@@ -821,13 +823,45 @@ def test_chunk_out_of_memory_retries_smaller(monkeypatch, source, tmp_path):
     want = _jax_build(31, 3)
     assert _same(rec.param, want.param) and rec.bits.tobytes() == want.bits.tobytes()
     assert calls[2] == (calls[1] + 1) // 2 and len(calls) > 3
+    assert tmb.retry_counts() == {"halved": 1, "waited": 0}
+    _, gt = _ground_truth(READS, 31, 3, rec.param.num_hash, rec.param.log_2_filter_len)
+    assert rec.bits.tobytes() == gt.tobytes()
 
     def never(*args, **kwargs):
         raise torch.cuda.OutOfMemoryError("CUDA out of memory (a test)")
 
+    monkeypatch.setattr(tmb, "CARD_WAIT_S", 0.0)
     monkeypatch.setattr(tmb, "count_chunk", never)
+    tmb.reset_retry_counts()
     with pytest.raises(torch.cuda.OutOfMemoryError):
         tmb.build_bloom_device(iter(READS), _opts(31, 3), FilterInfo(), chunk_bp=3000)
+    assert tmb.retry_counts()["waited"] == tmb.CARD_WAITS
+
+
+@pytest.mark.parametrize("source", ["strings", "fastq"])
+def test_one_row_out_of_memory_waits(monkeypatch, source, tmp_path):
+    """A chunk that runs out of device memory down to one row (a merge the
+    size of the accumulator, while another process holds the rest) waits
+    and tries again, twice here, then goes on: the record equals the exact
+    ground truth."""
+    real, state = tmb.count_chunk, {"calls": 0, "at_one": 0}
+
+    def short_at_one_row(packed, *args, **kwargs):
+        state["calls"] += 1
+        if state["calls"] >= 2 and state["at_one"] < 2:
+            if packed.shape[0] == 1:
+                state["at_one"] += 1
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (a test)")
+        return real(packed, *args, **kwargs)
+
+    monkeypatch.setattr(tmb, "count_chunk", short_at_one_row)
+    tmb.reset_retry_counts()
+    src = iter(READS) if source == "strings" else _write_fastq(tmp_path / "a.fastq", READS)
+    rec = tmb.build_bloom_device(src, _opts(31, 3), FilterInfo(), chunk_bp=3000)
+    _, gt = _ground_truth(READS, 31, 3, rec.param.num_hash, rec.param.log_2_filter_len)
+    assert rec.bits.tobytes() == gt.tobytes()
+    counts = tmb.retry_counts()
+    assert counts["waited"] == 2 and counts["halved"] >= 1
 
 
 def test_merge_roles_patches_the_kernels():

@@ -14,20 +14,13 @@ port alone.
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
+from _torch_ports import run_together, with_fresh_port
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -76,28 +69,18 @@ def corpus(tmp_path_factory):
 
 def test_two_process_mesh_search_matches_host(corpus):
     work, queries = corpus
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="2")
     worker = os.path.join(HERE, "_torch_multihost_worker.py")
-    procs = [
-        subprocess.Popen(
-            [sys.executable, worker, str(pid), "2", str(port), str(work)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-        for pid in range(2)
-    ]
+    # The rendezvous port is taken anew when another process took it first.
+    runs = with_fresh_port(lambda port: run_together(
+        [[sys.executable, worker, str(pid), "2", str(port), str(work)] for pid in range(2)],
+        [env, env], timeout=240))
     outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=240)
-            assert p.returncode == 0, err[-2000:]
-            lines = [l for l in out.splitlines() if l.startswith("RESULT ")]
-            assert lines, out
-            outs.append(json.loads(lines[-1][len("RESULT "):]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    for r in runs:
+        assert r.returncode == 0, r.stderr[-2000:]
+        lines = [l for l in r.stdout.splitlines() if l.startswith("RESULT ")]
+        assert lines, r.stdout
+        outs.append(json.loads(lines[-1][len("RESULT "):]))
 
     # Identical global result on every process.
     assert outs[0] == outs[1]

@@ -264,14 +264,10 @@ def test_remote_worker_and_a_small_cli_load_no_jax(tmp_path, golden_dir, data_di
     """``kwage-maestro-torch --coordinator`` (in a thread) and
     ``kwage-maestro-torch --worker`` with the device flags, both in one
     process, build the golden corpus's .db files; ``kwage-dump-db-torch``
-    then reads one. Neither jax nor kwage_tpu is loaded."""
-    import socket
-
+    then reads one. Neither jax nor kwage_tpu is loaded. The coordinator
+    binds port 0 and the worker reaches the address it bound."""
     with open(golden_dir / "e2e" / "manifest.json") as f:
         manifest = json.load(f)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     common = [
         "--meta", str(tmp_path / "inventory.bin"), "--scratch", str(tmp_path),
         "--status", str(tmp_path / "status.bin"), "--source-dir", str(data_dir),
@@ -281,24 +277,22 @@ def test_remote_worker_and_a_small_cli_load_no_jax(tmp_path, golden_dir, data_di
         "--count-len.min", str(manifest["minLc"]), "--count-len.max", str(manifest["maxLc"]),
         "--device-build", "--device-transpose", "--device-batch", "4"]
     code = (
-        "import socket, threading, time\n"
+        "import queue, threading\n"
         "from kwage_tpu_torch.cli.dump_db import main as dump_db\n"
         "from kwage_tpu_torch.cli.maestro import main as maestro\n"
         "from kwage_tpu_torch.core import FilterInfo, str_to_accession\n"
         "from kwage_tpu_torch.io.inventory import write_inventory\n"
+        "from kwage_tpu_torch.parallel import remote\n"
         f"write_inventory({str(tmp_path / 'inventory.bin')!r},\n"
         f"    [FilterInfo(run_accession=str_to_accession(a)) for a in {manifest['accessions']!r}])\n"
+        "bound, start = queue.Queue(), remote.CoordinatorServer.start\n"
+        "remote.CoordinatorServer.start = lambda self: (start(self), bound.put(self.address))[0]\n"
         "rcs = []\n"
         f"coord = threading.Thread(target=lambda: rcs.append(maestro({common!r} + [\n"
-        f"    '--workers', '1', '--coordinator', '127.0.0.1:{port}'])))\n"
+        "    '--workers', '1', '--coordinator', '127.0.0.1:0'])))\n"
         "coord.start()\n"
-        "for _ in range(600):\n"
-        "    try:\n"
-        f"        socket.create_connection(('127.0.0.1', {port}), timeout=1).close()\n"
-        "        break\n"
-        "    except OSError:\n"
-        "        time.sleep(0.05)\n"
-        f"assert maestro({common!r} + ['--worker', '127.0.0.1:{port}']) == 0\n"
+        "host, port = bound.get(timeout=600)\n"
+        f"assert maestro({common!r} + ['--worker', f'{{host}}:{{port}}']) == 0\n"
         "coord.join(120)\n"
         "assert rcs == [0], rcs\n"
         f"assert dump_db(['-i', {str(tmp_path / 'database' / 'sra.1.db')!r}]) == 0\n"

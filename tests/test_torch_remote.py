@@ -177,24 +177,28 @@ def test_distributed_device_build_batch_pull(manifest, data_dir, golden_dir, tmp
 
 @pytest.mark.parametrize("device", [[], ["--device-build", "--device-transpose"]],
                          ids=["host", "device"])
-def test_cli_coordinator_and_subprocess_worker(manifest, data_dir, tmp_path, device):
+def test_cli_coordinator_and_subprocess_worker(manifest, data_dir, tmp_path, device,
+                                              monkeypatch):
     """The maestro CLI really wires --coordinator/--worker: a coordinator
     (with one local worker) plus a separate WORKER PROCESS driven through
     the CLI converge to all-terminal, on the host builder and with the
-    device flags."""
+    device flags. The coordinator binds port 0; the worker process, up
+    before it, is handed the address it bound."""
     import os
-    import socket
+    import queue
     import subprocess
     import sys
+    import threading
+
+    from kwage_tpu_torch.parallel import remote
 
     accs = manifest["accessions"][:6]
     infos = [FilterInfo(run_accession=str_to_accession(a)) for a in accs]
     write_inventory(str(tmp_path / "inventory.bin"), infos)
 
-    # Pre-pick a free port for the coordinator.
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    bound, start = queue.Queue(), remote.CoordinatorServer.start
+    monkeypatch.setattr(remote.CoordinatorServer, "start",
+                        lambda self: (start(self), bound.put(self.address))[0])
 
     common = [
         "--meta", str(tmp_path / "inventory.bin"),
@@ -212,17 +216,24 @@ def test_cli_coordinator_and_subprocess_worker(manifest, data_dir, tmp_path, dev
         "--save.bloom", *device,
     ]
     env = dict(os.environ, KWAGE_TORCH_DEVICE="cpu", OMP_NUM_THREADS="2")
-    worker = subprocess.Popen(
-        [sys.executable, "-m", "kwage_tpu_torch.cli.maestro", *common,
-         "--worker", f"127.0.0.1:{port}"],
-        env=env, stderr=subprocess.PIPE, text=True,
-    )
+    # The worker CLI, its imports done, waits for the coordinator's address.
+    held = ("import sys\n"
+            "from kwage_tpu_torch.cli.maestro import main\n"
+            "sys.exit(main(sys.argv[1:] + ['--worker', sys.stdin.readline().strip()]))\n")
+    worker = subprocess.Popen([sys.executable, "-c", held, *common], env=env,
+                              stdin=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         from kwage_tpu_torch.cli.maestro import main as maestro_main
 
-        rc = maestro_main([*common, "--workers", "1",
-                           "--coordinator", f"127.0.0.1:{port}"])
-        assert rc == 0
+        rcs = []
+        coord = threading.Thread(target=lambda: rcs.append(maestro_main(
+            [*common, "--workers", "1", "--coordinator", "127.0.0.1:0"])))
+        coord.start()
+        host, port = bound.get(timeout=120)
+        worker.stdin.write(f"{host}:{port}\n")
+        worker.stdin.close()
+        coord.join(timeout=600)
+        assert not coord.is_alive() and rcs == [0]
         assert worker.wait(timeout=60) == 0, worker.stderr.read()
     finally:
         if worker.poll() is None:

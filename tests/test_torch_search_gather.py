@@ -86,11 +86,16 @@ CASES = [
     ("full", False, None, (31, 430), {"gather": 0, "full": 2}, False),
     ("full_streamed", True, 1 << 13, (31, 2000), None, True),
     # 400 bp: past GATHER_SHARE of each group's rows, so whole chunks take
-    # the full route; under 1 KiB the full route would stream each file in
-    # 2-3 column slabs, and the L=11 files' rows stay under the share for
-    # each of them: those three gather.
+    # the full route. Under 1 KiB the full route streams each file in 2-3
+    # column slabs of one word, and so do the gathered rows (42% of the L=11
+    # files' rows, 52% of the L=10 file's), each slab gathering them again:
+    # every file takes the full route.
     ("past_share", False, None, (31, 400), {"gather": 0, "full": 2}, False),
-    ("past_share_slabs", False, 1 << 10, (31, 400), {"gather": 3, "full": 1}, True),
+    ("past_share_slabs", False, 1 << 10, (31, 400), {"gather": 0, "full": 4}, True),
+    # 250 bp: 27% of the L=11 files' rows, 34% of the L=10 file's, under
+    # the share for each of the full route's 2-3 slabs but past it once the
+    # gathered rows' own 2-3 slabs are counted: the full route, file by file.
+    ("gathered_slabs_past_share", False, 1 << 10, (31, 250), {"gather": 0, "full": 4}, True),
 ]
 
 
@@ -136,6 +141,24 @@ def test_gather_rows_cover_the_batch_and_its_padding():
     # ... for each column slab the full route would read the chunk in.
     least = int(np.ceil(len(rows) / (3 * ts.GATHER_SHARE)))
     assert batch.gathers(least, 3) and not batch.gathers(least - 1, 3)
+
+
+@pytest.mark.parametrize("gathered_passes", [2, 3, 5])
+def test_gathers_counts_the_gathered_rows_slabs(gathered_passes):
+    """QueryBatch.gathers counts the gathered rows once for each slab they
+    take themselves: the rows times their slabs at most GATHER_SHARE of
+    the filter length times the full route's slabs."""
+    from kwage_tpu_torch.core.params import BloomParam
+
+    param = BloomParam(kmer_len=31, log_2_filter_len=12, num_hash=4, hash_func=0)
+    batch = ts.QueryBatch([q for _, q in _queries(3, (40, 300))], param, CPU)
+    U = len(batch.rows()[0])
+    for passes in (gathered_passes, 4 * gathered_passes):
+        least = int(np.ceil(U * gathered_passes / (passes * ts.GATHER_SHARE)))
+        assert batch.gathers(least, passes, gathered_passes)
+        assert not batch.gathers(least - 1, passes, gathered_passes)
+        # One slab of gathered rows is the rule without them.
+        assert batch.gathers(least - 1, passes)
 
 
 @pytest.mark.parametrize("stage_bytes", [7, 100, 1 << 20])
@@ -217,7 +240,8 @@ def test_resident_searcher_streamed_group_gathers(tmp_path, monkeypatch, thresho
 def test_search_routes_program_on_the_cpu(tmp_path, monkeypatch):
     """bench.search_routes whole on the CPU at L=14 over 2 linked files:
     a line a call for each route at each share, the batch's rows near the
-    share asked for, the same hits by both routes and the host engine."""
+    share asked for, the same hits by every route and the host engine; the
+    "rule" route gathers 2% of the rows and sends 60% by the full route."""
     from kwage_tpu_torch.bench import search_routes
 
     monkeypatch.setenv("KWAGE_TORCH_DEVICE", "cpu")
@@ -227,10 +251,11 @@ def test_search_routes_program_on_the_cpu(tmp_path, monkeypatch):
                                "--out", str(out)]) == 0
     lines = json.loads(out.read_text())
     calls = [r for r in lines if r["phase"] == "call"]
-    assert [(r["share_target"], r["route"]) for r in calls] == [
-        (0.02, "gather"), (0.02, "full"), (0.6, "gather"), (0.6, "full")]
+    assert [(r["share_target"], r["route"], r["taken"]) for r in calls] == [
+        (0.02, "gather", "gather"), (0.02, "full", "full"), (0.02, "rule", "gather"),
+        (0.6, "gather", "gather"), (0.6, "full", "full"), (0.6, "rule", "full")]
     for r in calls:
         assert abs(r["share"] - r["share_target"]) < 0.1 and r["hits"] > 0
-        assert r["steps"]["route"][r["route"]] == 1
-    assert calls[0]["hits"] == calls[1]["hits"] and calls[2]["hits"] == calls[3]["hits"]
+        assert r["steps"]["route"][r["taken"]] == 1
+    assert len({r["hits"] for r in calls[:3]}) == len({r["hits"] for r in calls[3:]}) == 1
     assert [r["phase"] for r in lines][:3] == ["h2d", "corpus", "host"]

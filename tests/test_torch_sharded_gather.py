@@ -397,7 +397,8 @@ def test_kwage_cli_on_several_slots_by_both_routes(tmp_path, monkeypatch, capsys
 def test_search_routes_program_times_the_mesh_on_the_cpu(tmp_path, monkeypatch):
     """bench.search_routes --mesh 2: beside each search_files_device call,
     the one-shot mesh search on 2 logical slots by the same route, with
-    the same hits and its own profile."""
+    the same hits and its own profile; by the "rule" route, the one the
+    single card's rule took."""
     from kwage_tpu_torch.bench import search_routes
 
     monkeypatch.setenv("KWAGE_TORCH_DEVICE", "cpu")
@@ -408,9 +409,10 @@ def test_search_routes_program_times_the_mesh_on_the_cpu(tmp_path, monkeypatch):
     lines = json.loads(out.read_text())
     calls = [r for r in lines if r["phase"] == "call"]
     mesh_calls = [r for r in lines if r["phase"] == "mesh_call"]
-    assert [(r["share_target"], r["route"]) for r in mesh_calls] == [
-        (r["share_target"], r["route"]) for r in calls]
+    assert [(r["share_target"], r["route"], r["taken"]) for r in mesh_calls] == [
+        (r["share_target"], r["route"], r["taken"]) for r in calls]
     for single, mesh in zip(calls, mesh_calls):
         assert mesh["hits"] == single["hits"] > 0 and mesh["mesh"] == 2
-        assert mesh["steps"]["route"][mesh["route"]] == 1
+        assert mesh["taken"] == (single["taken"] if mesh["route"] == "rule" else mesh["route"])
+        assert mesh["steps"]["route"][mesh["taken"]] == 1
         assert PROFILE_KEYS <= mesh["steps"].keys()

@@ -367,26 +367,23 @@ def test_scaling_across_two_processes(tmp_path):
     """The several-process route (parallel/distributed.py): two gloo
     processes of one CPU slot each form the global 1 x 2 mesh; each holds
     its own shard's columns of the gathered counts to search_counts, and
-    process 0 alone prints the point."""
-    import socket
-    import subprocess
+    process 0 alone prints the point. The rendezvous port is taken anew
+    when another process took it first (tests/_torch_ports.py)."""
     import sys
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    from _torch_ports import run_together, with_fresh_port
+
     env = {k: v for k, v in os.environ.items() if not k.startswith("KWAGE_")}
-    env.update(KWAGE_TORCH_DEVICE="cpu", KWAGE_COORDINATOR_ADDRESS=f"localhost:{port}",
-               KWAGE_NUM_PROCESSES="2", SCALING_LOG2_L="9", SCALING_W_PER_DEV="8",
-               SCALING_NQ="2", SCALING_NK="48", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-m", "kwage_tpu_torch.bench.scaling", "--out",
-                               str(tmp_path / f"p{i}.json")],
-                              env={**env, "KWAGE_PROCESS_ID": str(i)}, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-             for i in range(2)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+    env.update(KWAGE_TORCH_DEVICE="cpu", KWAGE_NUM_PROCESSES="2", SCALING_LOG2_L="9",
+               SCALING_W_PER_DEV="8", SCALING_NQ="2", SCALING_NK="48", OMP_NUM_THREADS="1")
+    argvs = [[sys.executable, "-m", "kwage_tpu_torch.bench.scaling", "--out",
+              str(tmp_path / f"p{i}.json")] for i in range(2)]
+    runs = with_fresh_port(lambda port: run_together(
+        argvs, [{**env, "KWAGE_COORDINATOR_ADDRESS": f"localhost:{port}",
+                 "KWAGE_PROCESS_ID": str(i)} for i in range(2)], timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    outs = [(r.stdout, r.stderr) for r in runs]
+    assert [r.returncode for r in runs] == [0, 0], [o[1][-2000:] for o in outs]
     points = [json.loads(x) for x in outs[0][0].splitlines() if '"point"' in x]
     assert [(p["devices"], p["logical"], p["counts_equal_one_device"]) for p in points] == [
         (2, False, True)]
