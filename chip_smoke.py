@@ -274,6 +274,7 @@ import torch
 from kwage_tpu_torch import kernels
 from kwage_tpu_torch.cli import sriracha as torch_sriracha_cli
 from kwage_tpu_torch.cli.kwage import main as torch_kwage_main
+from kwage_tpu_torch.cli.maestro import LISTENING
 from kwage_tpu_torch.cli.maestro import main as torch_maestro_main
 from kwage_tpu_torch.cli.sriracha import main as torch_sriracha_main
 from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
@@ -1426,7 +1427,7 @@ def run_chunked(work: str, device: torch.device, phase6: dict) -> dict:
     print("phase 12 two processes: " + "; ".join(
         f"{r['free']} B of the card free: 2 processes {r['wall_s']:.2f} s ("
         + ", ".join(f"child {i} {c['wall_s']:.2f} s, halved {c['halved']} time(s), waited "
-                    f"{c['waited']} time(s) at one row, peak device memory "
+                    f"{c['waited']} time(s) for memory, peak device memory "
                     f"{c['peak_bytes']} B, {c['builds']} builds"
                     + (f", {c['error']}" if c["error"] else "")
                     for i, c in enumerate(r["children"]))
@@ -1891,31 +1892,26 @@ def run_sriracha_mesh(work: str, device: torch.device, phase8: dict,
 # --- phase 11: the ingest through the cross-host work queue ------------------------------
 
 # The --worker process: it reaches the card (and loads the kernels) first,
-# says so in the file argv[1], waits for the coordinator's port argv[2],
-# then runs kwage-maestro-torch with the rest of argv. It prints its peak
-# device memory and its kernel launches to stderr.
+# says so in the file argv[1], then waits on stdin for the address its
+# coordinator bound and runs kwage-maestro-torch with the rest of argv and
+# --worker at that address. It prints its peak device memory and its kernel
+# launches to stderr.
 REMOTE_WORKER = """
-import json, socket, sys, time
+import json, sys
 import torch
 from kwage_tpu_torch import kernels
 from kwage_tpu_torch.cli.maestro import main
 from kwage_tpu_torch.utils.runtime import resolve_device
-ready, port, argv = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+ready, argv = sys.argv[1], sys.argv[2:]
 dev = resolve_device()
 if dev.type == "cuda":
     torch.zeros(1, device=dev)
     kernels.get_lib()
 open(ready, "w").close()
-deadline = time.time() + 300
-while True:
-    try:
-        socket.create_connection(("127.0.0.1", port), timeout=1).close()
-        break
-    except OSError:
-        if time.time() > deadline:
-            raise
-        time.sleep(0.05)
-rc = main(argv)
+address = sys.stdin.readline()
+if not address.endswith("\\n"):
+    sys.exit(3)     # the parent went away before the release
+rc = main(argv + ["--worker", address.strip()])
 peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 print(f"worker peak device memory {peak} B", file=sys.stderr)
 print("worker launches " + json.dumps(kernels.launch_counts()), file=sys.stderr)
@@ -1923,22 +1919,47 @@ sys.exit(rc)
 """
 
 
+class ListeningTee(io.TextIOBase):
+    """sys.stderr while a coordinator runs in this process: every write goes
+    on to ``out``; the coordinator's ``LISTENING`` line (the address it
+    bound, port 0 asked for) is handed once to ``release``."""
+
+    def __init__(self, out, release):
+        self.out, self.release, self.address = out, release, None
+        self._line, self._lock = "", threading.Lock()
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        with self._lock:
+            if self.address is None:
+                self._line += text
+                *lines, self._line = self._line.split("\n")
+                for line in lines:
+                    if line.startswith(LISTENING):
+                        self.address = line[len(LISTENING):].strip()
+                        self.release(self.address)
+                        break
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
 def run_remote_ingest(work: str, device: torch.device, phase6: dict,
                       profile: bool = False) -> dict:
     """Phase 11 over phase 6's accessions (``phase6``: run_ingest's
-    ``run``): ``kwage-maestro-torch --coordinator`` with its 2 local
-    workers and one ``kwage-maestro-torch --worker`` process, all with
-    --device-build --device-transpose on the same card (the worker process
-    is up before the coordinator starts). Every .bloom and .db must equal
-    phase 6's bytes (the .bloom files its exact ground truth too) and the
-    status file must show every accession done. Returns the worker
-    process's kernel launches (this process counts its own). ``profile``:
-    break this process's share of the call down (``step_profile``)."""
+    ``run``): ``kwage-maestro-torch --coordinator 127.0.0.1:0`` with its 2
+    local workers and one ``kwage-maestro-torch --worker`` process, all
+    with --device-build --device-transpose on the same card. The worker
+    process is up before the coordinator starts, and is released with the
+    address the coordinator bound and printed (no port is freed and handed
+    on). Every .bloom and .db must equal phase 6's bytes (the .bloom files
+    its exact ground truth too) and the status file must show every
+    accession done. Returns the worker process's kernel launches (this
+    process counts its own). ``profile``: break this process's share of the
+    call down (``step_profile``)."""
     remote = os.path.join(work, "remote")
     os.makedirs(remote)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     common = ["--meta", os.path.join(work, "inv.bin"), "--scratch", remote,
               "--status", os.path.join(remote, "status.bin"), "--source-dir", phase6["src"],
               "-k", str(INGEST_K), "--min-kmer-count", str(MIN_COUNT), "--device-build",
@@ -1946,9 +1967,14 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict,
     ready, log = os.path.join(remote, "worker.ready"), os.path.join(remote, "worker.log")
     with open(log, "w") as err:
         worker = subprocess.Popen(
-            [sys.executable, "-c", REMOTE_WORKER, ready, str(port), *common,
-             "--worker", f"127.0.0.1:{port}"],
-            cwd=os.path.dirname(os.path.abspath(__file__)), stderr=err)
+            [sys.executable, "-c", REMOTE_WORKER, ready, *common],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdin=subprocess.PIPE,
+            stderr=err, text=True)
+
+    def release(address: str) -> None:
+        worker.stdin.write(address + "\n")
+        worker.stdin.close()
+
     try:
         t0 = time.perf_counter()
         while not os.path.exists(ready):
@@ -1957,14 +1983,18 @@ def run_remote_ingest(work: str, device: torch.device, phase6: dict,
             time.sleep(0.1)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
+        tee = ListeningTee(sys.stderr, release)
         with (step_profile(device, INGEST_STEPS) if profile else contextlib.nullcontext()) \
-                as report, no_library_sort() as guard:
+                as report, no_library_sort() as guard, contextlib.redirect_stderr(tee):
             t0 = time.perf_counter()
             rc = torch_maestro_main(common + ["--workers", "2", "--task-timeout", "600",
-                                              "--coordinator", f"127.0.0.1:{port}"])
+                                              "--coordinator", "127.0.0.1:0"])
             wall = time.perf_counter() - t0
+        check(tee.address is not None, "the coordinator printed no address")
         worker_rc = worker.wait(timeout=300)
     finally:
+        if not worker.stdin.closed:
+            worker.stdin.close()
         if worker.poll() is None:
             worker.kill()
             worker.wait()
@@ -3628,13 +3658,16 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
     150 bp reads, 40 subjects of 30 kbp) at k = 21 and 11, timed, the fused
     sriracha_reads beside the two launches it replaces on the same inputs,
     and so at bench.sriracha's step (512 x 128, k = 21) and a whole span
-    (8192 x 256, k = 21 and 11); on a small block holding every byte value
-    at k = 3, 13, 14, 16, 31, 32; sriracha_reads on rows of 0, 1, k - 1 and
-    k bases at every k = 1-32, and at widths 150, 200 and 543 and in views
-    one byte off a 16-byte boundary at k = 1, 11, 21, 32; on batches of
-    the path's long-read shape (4 x 2^15 and 512 x 2^15: reads of 2^15
-    bases and 20 kbp, the rest empty; the tiled sort), timed; on batches
-    that mix rows of 0, 1, 2^14 - 1, 2^14, 2^14 + 1 and more valid words
+    (8192 x 256, k = 21 and 11); sriracha_counts timed on reads of 1.5 kbp
+    and 15 kbp (512 x 2048, 64 x 16384; the hash table at k = 21, the LUT
+    at k = 11), rows above the fused kernel's and within a tile; on a
+    small block holding every byte value at k = 3, 13, 14, 16, 31, 32;
+    sriracha_reads on rows of 0, 1, k - 1 and k bases at every k = 1-32,
+    and at widths 150, 200 and 543 and in views one byte off a 16-byte
+    boundary at k = 1, 11, 21, 32; on batches of the path's long-read
+    shape (4 x 2^15 and 512 x 2^15: reads of 2^15 bases and 20 kbp, the
+    rest empty; the tiled sort), timed; on batches that mix rows of 0, 1,
+    2^14 - 1, 2^14, 2^14 + 1 and more valid words
     (2^15 and 2^16 buckets). Then both probes timed at 8 k, 64 k, 256 k and
     1 M k-mers per group at k = 11, by both routes."""
     rng = np.random.default_rng(seed + 5)
@@ -3697,8 +3730,12 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
         hits = int(want[:, : tables.ns].sum())
         check(hits > 0, f"sriracha_counts {tag}: no subject hit")
         n_long = int((want[:, tables.ns] > tsr.MAX_SHARED_WORDS).sum())
-        record(f"sriracha_counts_{tables.route}", tag, err, ms, plain,
-               f" ({hits} hits, {n_long} rows above a tile)", nbytes, nops)
+        note = f" ({hits} hits, {n_long} rows above a tile"
+        if timed:
+            b = bound(nbytes, nops)
+            note += (f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']}: {nbytes} bytes, "
+                     f"{nops} operations; share {b['bound_ms'] / ms:.3f}")
+        record(f"sriracha_counts_{tables.route}", tag, err, ms, plain, note + ")", nbytes, nops)
 
     def kmers(tag, ascii_reads, k):
         """canonical_kmers' ASCII entry on a batch of the path against its
@@ -3746,6 +3783,15 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
             r5, l5 = torch.from_numpy(b5).to(device), torch.from_numpy(lengths5).to(device)
             for tables in ([luts] if k <= 14 else []) + [hashes]:
                 fused(f"[{B}, {L}] k={k}", r5, l5, tables, True)
+        # sriracha_counts on rows above the fused kernel's 512 windows and
+        # within a tile (the short-row design): reads of 1.5 kbp and 15 kbp,
+        # by the LUT at k = 11 and the hash table at k = 21.
+        for B, L, read_len in ((512, 2048, 1500), (64, 16384, 15000)):
+            b8, lengths8 = read_block(rng, genomes, B, L, read_len, SUB_RATE)
+            r8, l8 = torch.from_numpy(b8).to(device), torch.from_numpy(lengths8).to(device)
+            w8, v8 = tk.canonical_kmers(r8, k)
+            counts(f"[{B}, {L}] k={k}", w8, v8, l8, luts if k <= 14 else hashes, True)
+            del b8, r8, w8, v8
         del hashes
     torch.cuda.empty_cache()
 

@@ -31,8 +31,9 @@ from ..kernels.time_kernel import HBM_BYTES_PER_S
 from ..native import canonical_kmers_native, murmur32_native
 from ..utils.runtime import resolve_device
 
-# A sample whose effective rate is above CEILING_SLACK x the card's memory
-# rate cannot have happened; a run keeps at least MIN_SAMPLES.
+# A sample that is not positive, or whose effective rate is above
+# CEILING_SLACK x the card's memory rate, cannot have happened; a run keeps
+# at least MIN_SAMPLES.
 CEILING_SLACK = 1.05
 MIN_SAMPLES = 3
 
@@ -107,25 +108,34 @@ def median_spread(values: list[float]) -> dict:
             "max": max(values)}
 
 
+def possible(ms: float, bytes_per_call: int) -> bool:
+    """Whether a call that moves ``bytes_per_call`` bytes could have taken
+    ``ms``: a positive time, no shorter than those bytes at CEILING_SLACK x
+    the card's memory rate."""
+    return ms > 0 and bytes_per_call <= ms * 1e-3 * CEILING_SLACK * HBM_BYTES_PER_S
+
+
+def held_sample(what: str, i: int, ms: float, bytes_per_call: int) -> bool:
+    """Print sample ``i`` of ``what`` on a JSON line of its own: its time,
+    its effective bytes/s and share of the card's memory rate, and whether
+    it is kept (``possible``). Returns that."""
+    ok = possible(ms, bytes_per_call)
+    rate = bytes_per_call / (ms * 1e-3) if ms > 0 else None
+    print(json.dumps({"sample": what, "i": i, "ms_per_call": ms, "bytes_per_s": rate,
+                      "share_of_hbm": None if rate is None else rate / HBM_BYTES_PER_S,
+                      "kept": ok}), flush=True)
+    return ok
+
+
 def hold_to_ceiling(what: str, samples_ms: list[float], bytes_per_call: int) -> list[float]:
-    """Print each sample's effective bytes/s (``bytes_per_call`` over its
-    time) and its share of the card's memory rate; drop, and print as
-    rejected, a sample above CEILING_SLACK x that rate, which no card
-    could reach. Returns the samples kept; fails the run when fewer than
-    MIN_SAMPLES are left."""
-    limit = CEILING_SLACK * HBM_BYTES_PER_S
-    kept = []
-    for i, ms in enumerate(samples_ms):
-        rate = bytes_per_call / (ms * 1e-3)
-        ok = rate <= limit
-        print(json.dumps({"sample": what, "i": i, "ms_per_call": ms, "bytes_per_s": rate,
-                          "share_of_hbm": rate / HBM_BYTES_PER_S,
-                          "kept": ok}), flush=True)
-        if ok:
-            kept.append(ms)
+    """Print each sample (``held_sample``); drop, and print as rejected, a
+    sample that could not have happened: not positive, or above
+    CEILING_SLACK x the card's memory rate. Returns the samples kept; fails
+    the run when fewer than MIN_SAMPLES are left."""
+    kept = [ms for i, ms in enumerate(samples_ms) if held_sample(what, i, ms, bytes_per_call)]
     check(len(kept) >= MIN_SAMPLES,
-          f"{what}: {len(samples_ms) - len(kept)} of {len(samples_ms)} samples above "
-          f"{CEILING_SLACK} x {HBM_BYTES_PER_S:.4g} B/s; fewer than {MIN_SAMPLES} left")
+          f"{what}: {len(samples_ms) - len(kept)} of {len(samples_ms)} samples not positive or "
+          f"above {CEILING_SLACK} x {HBM_BYTES_PER_S:.4g} B/s; fewer than {MIN_SAMPLES} left")
     return kept
 
 

@@ -25,9 +25,13 @@ image of accession 0 equal the exact count of those reads on the host
 in iteration i (the JAX tool's ``jnp.roll``), between two CUDA events;
 the sort copies its kept count to the host each time, so no CUDA graph
 can hold the chain. ms a batch is the slope between N = 1 and N = 5, the
-median of 3. One JSON line a case, with the card's name and power limit,
-then the JAX tool's result line (metric, value, unit, ms_per_batch) with
-the floor beside it.
+median of 3 possible samples: a slope that is not positive, or shorter
+than reading the batch's ASCII bytes once at 1.05 x the card's memory rate
+(``_common.possible``, the rule ``bench.search`` holds its samples to), is
+printed as not kept and taken again, at most 11 samples a case; past that
+the run fails. A JSON line a sample, one a case, with the card's name and
+power limit, then the JAX tool's result line (metric, value, unit,
+ms_per_batch) with the floor beside it and each case's dropped samples.
 
 Runs on the card (exits 1 without one, unless ``KWAGE_TORCH_DEVICE=cpu``:
 the plain versions, host clock, for the tests).
@@ -47,7 +51,7 @@ from .. import kernels
 from ..native import canonical_kmers_native, murmur32_native
 from ..ops.counting import bloom_set_bits, count_multi_core
 from ..ops.kmers import canonical_kmers
-from ._common import bench_device, check, out_arg, out_path, phase_log
+from ._common import bench_device, check, held_sample, out_arg, out_path, phase_log
 
 ACCS = int(os.environ.get("INGEST_ACCS", "8"))
 READS = int(os.environ.get("INGEST_READS", "8192"))
@@ -58,6 +62,8 @@ NH = int(os.environ.get("INGEST_HASH", "5"))
 LOG2L = int(os.environ.get("INGEST_LOG2L", "20"))
 K = 31
 N_LO, N_HI, REPEATS = 1, 5, 3
+# Slope samples a case may take in all, impossible ones included.
+TRIES = REPEATS + 8
 
 
 def make_reads(device: torch.device, accs: int = ACCS, reads: int = READS, rlen: int = RLEN,
@@ -114,33 +120,48 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def ms_per_batch(reads, acc_ids, slot, min_count: int) -> float:
-    """The slope of the chained chain's time between N_LO and N_HI
-    iterations (CUDA events on a card, the host clock on the CPU), the
-    median of REPEATS."""
+def time_chain(reads, acc_ids, slot, min_count: int, n: int) -> float:
+    """ms of the chain run ``n`` times in a row (CUDA events on a card, the
+    host clock on the CPU)."""
     device = reads.device
+    acc = torch.zeros((), dtype=torch.int64, device=device)
+    _sync(device)
+    if device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for i in range(n):
+        images, nv = chain(torch.roll(reads, i, 0), acc_ids, slot, ACCS, K, min_count, NH, LOG2L)
+        acc += images[0, 0] + nv[0]
+    if device.type == "cuda":
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    int(acc)
+    return (time.perf_counter() - t0) * 1e3
 
-    def run(n: int) -> float:
-        acc = torch.zeros((), dtype=torch.int64, device=device)
-        _sync(device)
-        if device.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        for i in range(n):
-            images, nv = chain(torch.roll(reads, i, 0), acc_ids, slot, ACCS, K, min_count, NH,
-                               LOG2L)
-            acc += images[0, 0] + nv[0]
-        if device.type == "cuda":
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end)
-        int(acc)
-        return (time.perf_counter() - t0) * 1e3
 
-    run(1)   # warm: the allocator's first blocks
-    slopes = sorted((run(N_HI) - run(N_LO)) / (N_HI - N_LO) for _ in range(REPEATS))
-    return slopes[len(slopes) // 2]
+def ms_per_batch(name: str, reads, acc_ids, slot, min_count: int) -> tuple[float, int]:
+    """The slope of the chained chain's time between N_LO and N_HI
+    iterations, the median of REPEATS possible samples, and the number of
+    samples dropped. A slope that is not positive, or shorter than reading
+    the batch's ASCII bytes once at the ceiling (``_common.possible``),
+    could not have happened: it is printed as not kept and taken again, at
+    most TRIES samples in all; the run fails when fewer than REPEATS were
+    possible."""
+    time_chain(reads, acc_ids, slot, min_count, 1)   # warm: the allocator's first blocks
+    kept: list[float] = []
+    tries = 0
+    while len(kept) < REPEATS and tries < TRIES:
+        hi = time_chain(reads, acc_ids, slot, min_count, N_HI)
+        slope = (hi - time_chain(reads, acc_ids, slot, min_count, N_LO)) / (N_HI - N_LO)
+        if held_sample(name, tries, slope, reads.numel()):
+            kept.append(slope)
+        tries += 1
+    check(len(kept) == REPEATS,
+          f"{name}: {tries - len(kept)} of {tries} slope samples impossible (not positive, or "
+          f"shorter than the batch's bytes at the ceiling); fewer than {REPEATS} possible")
+    return sorted(kept)[len(kept) // 2], tries - len(kept)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -157,9 +178,10 @@ def main(argv: list[str] | None = None) -> int:
         n0, image0 = host_truth(reads[:READS].cpu().numpy(), K, min_count, NH, LOG2L)
         check(int(nv[0]) == n0 and np.array_equal(images[0].cpu().numpy(), image0),
               f"{name}: accession 0's selected words or image differ from the host count")
-        ms = ms_per_batch(reads, acc_ids, slot, min_count)
+        ms, dropped = ms_per_batch(name, reads, acc_ids, slot, min_count)
         cases[name] = {"mbp_per_sec": total_bp / (ms * 1e-3) / 1e6, "ms_per_batch": ms,
-                       "min_count": min_count, "selected_words": nv.sum().item()}
+                       "dropped_samples": dropped, "min_count": min_count,
+                       "selected_words": nv.sum().item()}
         log.log(name, **cases[name], batch_mbp=total_bp / 1e6, equal_to_host_count=True)
         del reads, images, nv
     rep, floor = cases["representative"], cases["floor_unique_min1"]
@@ -170,8 +192,10 @@ def main(argv: list[str] | None = None) -> int:
         "unit": (f"Mbp/s {where} (count+threshold+{NH}-seed scatter, {ACCS} accs batched, "
                  f"{COV}x coverage, min_count={MINCOUNT}, L=2^{LOG2L})"),
         "ms_per_batch": rep["ms_per_batch"],
+        "dropped_samples": rep["dropped_samples"],
         "floor": {"case": "uniformly random reads, min_count=1",
-                  "mbp_per_sec": floor["mbp_per_sec"], "ms_per_batch": floor["ms_per_batch"]},
+                  "mbp_per_sec": floor["mbp_per_sec"], "ms_per_batch": floor["ms_per_batch"],
+                  "dropped_samples": floor["dropped_samples"]},
         "launches": {k: n for k, n in kernels.launch_counts().items() if n},
         "card": log.stamp["card"],
     }

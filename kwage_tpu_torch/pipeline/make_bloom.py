@@ -239,18 +239,19 @@ STRING_CHUNK_BASES = 1 << 26
 # reading and the allocation. Between turns a build holds only its
 # accumulator, which the next reading sees as taken.
 _CARD_TURN = threading.Lock()
-# A chunk of one row whose count or merge still runs out of device memory
-# waits for memory another process holds (its own chunk, freed when that
-# chunk is merged): at most CARD_WAITS more tries, the first after
-# CARD_WAIT_S, each wait twice the last (12.75 s in all), then it raises.
-# Halving cannot help there: a merge's output is the accumulator's size.
+# A chunk of one row whose count or merge still runs out of device memory,
+# and a build's bit set, wait for memory another process holds (its own
+# chunk, freed when that chunk is merged): at most CARD_WAITS more tries,
+# the first after CARD_WAIT_S, each wait twice the last (12.75 s in all),
+# then they raise (``_wait_for_card``). Halving cannot help there: a
+# merge's output is the accumulator's size, the bit set's the image's.
 # A child of chip_smoke.py's phase 12 waited 4 times (0.75 s) on an NVIDIA
 # H100 80GB HBM3 at 700 W.
 CARD_WAITS = 8
 CARD_WAIT_S = 0.05
-# This process's out-of-memory retries in the chunk loop since the last
-# reset: chunks counted again at half their rows, waits at one row; counted
-# under _CARD_TURN.
+# This process's out-of-memory retries since the last reset: chunks
+# counted again at half their rows, waits (a chunk at one row, a bit set);
+# counted under _CARD_TURN.
 _RETRIES = {"halved": 0, "waited": 0}
 
 
@@ -263,6 +264,20 @@ def retry_counts() -> dict[str, int]:
 def reset_retry_counts() -> None:
     for kind in _RETRIES:
         _RETRIES[kind] = 0
+
+
+def _wait_for_card(err: torch.cuda.OutOfMemoryError, waits: int, device: torch.device) -> int:
+    """After ``waits`` waits for device memory another process holds: raise
+    ``err`` when CARD_WAITS are spent, else free this process's cached
+    blocks, wait CARD_WAIT_S x 2^waits, count it in ``retry_counts()
+    ["waited"]`` and return waits + 1. Called under _CARD_TURN."""
+    if waits >= CARD_WAITS:
+        raise err
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    time.sleep(CARD_WAIT_S * 2 ** waits)
+    _RETRIES["waited"] += 1
+    return waits + 1
 
 
 def _card_free_bytes(device: torch.device) -> int:
@@ -433,8 +448,9 @@ def build_bloom_device(
     is retried at half its rows, the accumulator as it was
     (``retry_counts()["halved"]`` counts each); at one row it waits for
     that memory, at most CARD_WAITS times (``"waited"``), then raises
-    torch.cuda.OutOfMemoryError (a RuntimeError). Chunk sizes never change
-    the record's bytes."""
+    torch.cuda.OutOfMemoryError (a RuntimeError); the bit set after the
+    last chunk waits so too. Chunk sizes and waits never change the
+    record's bytes."""
     device = resolve_device()
     k = opts.kmer_len
     max_kmers = _max_kmers(opts)
@@ -468,7 +484,7 @@ def build_bloom_device(
                                 acc, p[r : r + n], v[r : r + n], length, k, min_count, last,
                                 max_kmers, device)
                             break
-                        except torch.cuda.OutOfMemoryError:
+                        except torch.cuda.OutOfMemoryError as err:
                             # Memory that another process took after this
                             # chunk was sized (a --worker beside its
                             # coordinator, which _CARD_TURN does not reach):
@@ -477,22 +493,27 @@ def build_bloom_device(
                             if n > 1:
                                 n = (min(n, p.shape[0] - r) + 1) // 2
                                 _RETRIES["halved"] += 1
-                            elif waits < CARD_WAITS:
-                                time.sleep(CARD_WAIT_S * 2 ** waits)
-                                waits += 1
-                                _RETRIES["waited"] += 1
+                                if device.type == "cuda":
+                                    torch.cuda.empty_cache()
                             else:
-                                raise
-                            if device.type == "cuda":
-                                torch.cuda.empty_cache()
+                                waits = _wait_for_card(err, waits, device)
                 r += n
     if acc is None:
         raise BloomInvalid("no reads of length >= k")
 
     param = _solve_param(opts, kept, max_kmers)
     with _CARD_TURN:
-        image = set_filter_bits(acc[0], selected, k, param.num_hash, param.log_2_filter_len)
-        bits = filter_words_to_bytes(image, param.log_2_filter_len)
+        waits = 0
+        while True:
+            try:
+                bits = filter_words_to_bytes(
+                    set_filter_bits(acc[0], selected, k, param.num_hash, param.log_2_filter_len),
+                    param.log_2_filter_len)
+                break
+            except torch.cuda.OutOfMemoryError as err:
+                # The image (512 MiB at L=32) while another process's chunk
+                # holds the memory: the same bounded wait.
+                waits = _wait_for_card(err, waits, device)
     info.number_of_bases = info.number_of_bases or seen["bp"]
     info.number_of_spots = info.number_of_spots or seen["spots"]
     return _record(param, bits, info)

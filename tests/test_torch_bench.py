@@ -215,6 +215,19 @@ def test_ceiling_guard_rejects_impossible_samples(capsys):
     assert lines[2]["share_of_hbm"] == pytest.approx(1.06)
 
 
+def test_ceiling_guard_drops_samples_that_are_not_positive(capsys):
+    """A time of 0 or below (two host-clock readings out of order) could
+    not have happened: dropped and printed as not kept, as a sample above
+    the ceiling is, with no rate."""
+    nbytes = 1 << 20
+    slow = nbytes / (0.5 * HBM_BYTES_PER_S) * 1e3
+    assert _common.hold_to_ceiling("x", [slow, 0.0, slow, -slow, slow], nbytes) == [slow] * 3
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [line["kept"] for line in lines] == [True, False, True, False, True]
+    assert lines[1]["bytes_per_s"] is None and lines[3]["share_of_hbm"] is None
+    assert not _common.possible(0.0, 0) and _common.possible(slow, nbytes)
+
+
 def test_ceiling_guard_fails_with_fewer_than_three_left(capsys):
     nbytes = 1 << 20
     fast = nbytes / (1.2 * HBM_BYTES_PER_S) * 1e3

@@ -864,6 +864,47 @@ def test_one_row_out_of_memory_waits(monkeypatch, source, tmp_path):
     assert counts["waited"] == 2 and counts["halved"] >= 1
 
 
+def _bit_set_short_of_memory(monkeypatch, name, failures):
+    """``tmb.<name>`` (a step of the bit set after the chunk loop) raises
+    OutOfMemoryError on its first ``failures`` calls; returns its calls."""
+    real, calls = getattr(tmb, name), []
+
+    def short(*args, **kwargs):
+        calls.append(1)
+        if len(calls) <= failures:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (a test)")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmb, name, short)
+    monkeypatch.setattr(tmb, "CARD_WAIT_S", 0.0)
+    tmb.reset_retry_counts()
+    return calls
+
+
+@pytest.mark.parametrize("name", ["set_filter_bits", "filter_words_to_bytes"])
+def test_bit_set_out_of_memory_waits(monkeypatch, name):
+    """The bit set after the chunk loop (the image, 512 MiB at L=32) out of
+    device memory twice, another process's chunk holding it: it waits twice
+    as the chunk loop does, then goes on; the record equals the exact
+    ground truth and no chunk was halved."""
+    calls = _bit_set_short_of_memory(monkeypatch, name, 2)
+    rec = tmb.build_bloom_device(iter(READS), _opts(31, 3), FilterInfo(), chunk_bp=3000)
+    _, gt = _ground_truth(READS, 31, 3, rec.param.num_hash, rec.param.log_2_filter_len)
+    assert rec.bits.tobytes() == gt.tobytes()
+    assert len(calls) == 3 and tmb.retry_counts() == {"halved": 0, "waited": 2}
+
+
+@pytest.mark.parametrize("name", ["set_filter_bits", "filter_words_to_bytes"])
+def test_bit_set_out_of_memory_raises_after_its_waits(monkeypatch, name):
+    """Out of memory CARD_WAITS + 1 times: the bit set waits CARD_WAITS
+    times, then raises the error."""
+    calls = _bit_set_short_of_memory(monkeypatch, name, tmb.CARD_WAITS + 1)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        tmb.build_bloom_device(iter(READS), _opts(31, 3), FilterInfo(), chunk_bp=3000)
+    assert len(calls) == tmb.CARD_WAITS + 1
+    assert tmb.retry_counts() == {"halved": 0, "waited": tmb.CARD_WAITS}
+
+
 def test_merge_roles_patches_the_kernels():
     """kernels/merge_roles.py's counters find every border they time in
     csrc/merge.cu (it raises when the source has moved on)."""

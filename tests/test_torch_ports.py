@@ -1,9 +1,14 @@
 """The one rule for a port handed to other processes (tests/_torch_ports.py):
 a run whose process failed because its address was taken runs again with
-a fresh port, at most three times in all; any other failure stands."""
+a fresh port, at most three times in all; any other failure stands. And
+outside that rule no program of the port frees a port and hands its number
+on: a coordinator binds port 0 itself and reports the address."""
 
+import ast
+import pathlib
 import subprocess
 import sys
+import textwrap
 import time
 
 import pytest
@@ -89,3 +94,66 @@ def test_run_together_times_out():
         run_together([[sys.executable, "-c", "import time; time.sleep(60)"]], [None],
                      timeout=1)
 
+
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+# The port's programs; tests/_torch_ports.py (free_port, under its rule)
+# is not among them.
+SCANNED = sorted((REPO / "kwage_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def freed_port_binds(source: str) -> list[int]:
+    """Lines of ``source`` where a socket is bound to port 0 in a function
+    (or at module level) that reads the number back (``getsockname``) and
+    closes the socket (a ``with`` block or ``close()``): a port freed, whose
+    number is handed on to a process that binds it later, when another may
+    have taken it."""
+    tree = ast.parse(source)
+    found = set()
+    for scope in [tree, *(n for n in ast.walk(tree)
+                          if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)))]:
+        nodes = list(ast.walk(scope))
+        called = {n.func.attr for n in nodes
+                  if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+        closed = "close" in called or any(isinstance(n, ast.With) for n in nodes)
+        if "getsockname" not in called or not closed:
+            continue
+        for n in nodes:
+            if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                    and n.func.attr == "bind" and n.args and isinstance(n.args[0], ast.Tuple)
+                    and len(n.args[0].elts) == 2 and isinstance(n.args[0].elts[1], ast.Constant)
+                    and n.args[0].elts[1].value == 0):
+                found.add(n.lineno)
+    return sorted(found)
+
+
+def test_the_scan_finds_a_freed_port():
+    """The scan sees free_port's form and a port closed by hand, and not a
+    server that keeps its socket."""
+    own = (REPO / "tests" / "_torch_ports.py").read_text()
+    assert len(freed_port_binds(own)) == 1
+    by_hand = textwrap.dedent("""
+        def start():
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            s.close()
+            return port
+        """)
+    assert freed_port_binds(by_hand) == [4]
+    kept = textwrap.dedent("""
+        def serve():
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            return s, s.getsockname()
+        """)
+    assert freed_port_binds(kept) == []
+
+
+def test_no_program_hands_on_a_freed_port():
+    """No module of kwage_tpu_torch and not chip_smoke.py binds port 0,
+    releases it and hands the number on."""
+    assert len(SCANNED) > 50
+    found = {str(p.relative_to(REPO)): lines for p in SCANNED
+             if (lines := freed_port_binds(p.read_text()))}
+    assert found == {}

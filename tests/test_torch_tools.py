@@ -25,8 +25,8 @@ from kwage_tpu.ops.counting import count_kmers_device_multi, set_filter_bits_mul
 from kwage_tpu.sriracha import device as jax_sriracha
 from kwage_tpu.sriracha.engine import SrirachaOptions as JaxSrirachaOptions
 from kwage_tpu.sriracha.engine import canonical_kmers as jax_canonical_kmers
-from kwage_tpu_torch.bench import build_phases, ingest, scaling, search_phases, sorted_gather
-from kwage_tpu_torch.bench import sriracha_model
+from kwage_tpu_torch.bench import _common, build_phases, ingest, scaling, search_phases
+from kwage_tpu_torch.bench import sorted_gather, sriracha_model
 from kwage_tpu_torch.ops import search as ts
 from kwage_tpu_torch.parallel.mesh import make_search_mesh
 from kwage_tpu_torch.parallel.sharded_search import MeshMatrix, sharded_search_counts, to_host
@@ -196,6 +196,54 @@ def test_ingest_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["metric"] == "device_ingest_mbp_per_sec" and last["value"] > 0
     assert last["floor"]["mbp_per_sec"] > 0 and "not a device figure" in last["unit"]
+
+
+def _small_ingest(monkeypatch, timings):
+    """bench.ingest at the CPU test's sizes with its chain's timer replaced
+    by ``timings(call, n)`` (call counts every timing from 1)."""
+    for name, value in (("ACCS", 2), ("READS", 32), ("RLEN", 64), ("LOG2L", 12)):
+        monkeypatch.setattr(ingest, name, value)
+    calls = []
+
+    def timed(reads, acc_ids, slot, min_count, n):
+        calls.append(n)
+        return timings(len(calls), n)
+
+    monkeypatch.setattr(ingest, "time_chain", timed)
+    return calls
+
+
+def test_ingest_fails_when_every_slope_is_impossible(monkeypatch, tmp_path, capsys):
+    """Every slope 0 (the chain's time flat in N): each sample is printed as
+    not kept, and after TRIES the run exits through BenchFailure naming the
+    impossible samples; no result line is printed."""
+    calls = _small_ingest(monkeypatch, lambda call, n: 7.0)
+    with pytest.raises(_common.BenchFailure) as e:
+        ingest.main(["--out", str(tmp_path / "i.json")])
+    assert e.value.code != 0
+    assert f"{ingest.TRIES} of {ingest.TRIES} slope samples impossible" in str(e.value)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    samples = [x for x in lines if "sample" in x]
+    assert len(samples) == ingest.TRIES and not any(x["kept"] for x in samples)
+    assert samples[0]["sample"] == "representative" and samples[0]["ms_per_call"] == 0
+    assert not any("metric" in x for x in lines)
+    assert len(calls) == 1 + 2 * ingest.TRIES
+
+
+def test_ingest_drops_a_negative_slope(monkeypatch, tmp_path, capsys):
+    """One negative slope among good ones (the first N_HI timing reads
+    below the N_LO one): it is printed as not kept and taken again; the run
+    passes with the median of REPEATS kept slopes and reports 1 dropped."""
+    _small_ingest(monkeypatch, lambda call, n: -10.0 if call == 2 else 2.0 * n)
+    assert ingest.main(["--out", str(tmp_path / "i.json")]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    samples = [x for x in lines if "sample" in x]
+    assert [x["kept"] for x in samples] == [False] + [True] * 2 * ingest.REPEATS
+    assert samples[0]["ms_per_call"] < 0
+    last = lines[-1]
+    assert last["dropped_samples"] == 1 and last["floor"]["dropped_samples"] == 0
+    assert last["ms_per_batch"] == last["floor"]["ms_per_batch"] == 2.0
+    assert last["value"] == pytest.approx(2 * 32 * 64 / 2e-3 / 1e6)
 
 
 # --- build_phases ----------------------------------------------------------------------------
