@@ -8,8 +8,9 @@ filters per .db (k=31, 5 hashes) at L=22, so one .db is 1 GiB; 8 copies of
 it fuse to W=512 words, 8 GiB on the device (the bench's fused shape).
 Ingest (phase 6): 16 FASTQ accessions, 176 Mbp of 150 bp reads. SriRachA
 (phase 8): 40 query genomes of 30 kbp against one FASTQ of 1,000,000
-150 bp reads and 64 of 20 kbp. Everything is made from ``--seed``. Phases,
-one line each; any failure raises and exits non-zero:
+150 bp reads and 64 of 20 kbp, and against one of 8,192 reads of 1-16
+kbp. Everything is made from ``--seed``. Phases, one line each, then each
+phase's wall; any failure raises and exits non-zero:
 
 1. build   -- 2048 .bloom files (random bits at ~50% fill; a few filters
               also hold every k-mer of a planted sequence) packed to .db by
@@ -94,13 +95,22 @@ one line each; any failure raises and exits non-zero:
               bucketed hash tables, and (B) k=11, the dense LUTs (two
               groups of 32 + 8 subjects, ~1.2 M subject k-mers), t=0.8,
               --max-results 100: each TSV must equal the host engine's
-              (the same CLI without ``--device``, one thread) byte for byte, and
+              (the same CLI without ``--device``, in the machine's cores,
+              HOST_THREADS) byte for byte, and
               the subjects hit only by 20 kbp reads must list exactly those;
               the 150 bp reads' batches take the fused sriracha_reads kernel
               of the run's probe and the 20 kbp reads' canonical_kmers and
               sriracha_counts, and the other probe's kernels never launch.
-              Mbp/s, the device path's profile and the host's Mbp/s.
-10. sriracha mesh -- phase 8's runs again, through search_reads_device
+              Mbp/s, the device path's profile and the host's Mbp/s. Then
+              twice more, (C) k=21 and (D) k=11, over 8,192 long reads (an
+              ONT run's ~1.2 kbp amplicons of the subjects, and genomic
+              reads log-uniform in 1-16 kbp, with substitutions, Ns and
+              reads on the buckets' edges; 27.6 Mbp): each TSV == the host
+              engine's, every subject listed,
+              and every batch one launch of the run's sriracha_block
+              kernel, with no canonical_kmers, sriracha_counts or
+              sriracha_reads launch.
+10. sriracha mesh -- phase 8's runs A and B again, through search_reads_device
               on a mesh of 4 logical slots of the card (each batch's reads
               split over the slots, each slot on its own stream; also over
               every card where there are several), then through
@@ -170,7 +180,12 @@ one line each; any failure raises and exits non-zero:
               (k = 11, 21), each timed beside the two launches they replace
               (canonical_kmers + sriracha_counts) on the same inputs, on the
               every-byte block, on rows of 0, 1, k - 1 and k bases at
-              k = 1-32, and in the crossover beside the words route. run_counts and
+              k = 1-32, and in the crossover beside the words route. The
+              block entries (sriracha_block_lut / _hash) == the plain
+              version at 512 x 2048, 64 x 16384 and 512 x 16384 (1.5 and 15
+              kbp reads; k = 11 LUT, k = 21 hash), each timed beside the
+              words route, and on edge rows of the 2048 bucket and of 2^14
+              + k - 1 bases at k = 3, 13, 14, 16, 31, 32. run_counts and
               merge_counts at a 46 Mbp accession's shape and at a real
               accession's (a chunk of 2^27 windows; 2^28 + 2^26 words
               merged), run_counts beside torch.unique_consecutive; at the
@@ -189,8 +204,9 @@ one line each; any failure raises and exits non-zero:
               8 GiB; the kernels == their plain versions, every sample under
               the memory ceiling), build at bench_build.py's defaults (the
               device filters == exact ground truth), SriRachA at its tool's
-              defaults and at k=11 on the LUT, serve at 4350 accessions (the
-              resident renders == the host searcher's); their lines printed.
+              defaults and at k=11 on the LUT, serve at 1000 of its 4350
+              accessions (the smoke's time; the resident renders == the
+              host searcher's); their lines printed.
 15. tools -- the JAX package's last programs, each in a process of its
               own on the card at its JAX tool's defaults, each exiting 0
               only when its checks pass: bench.search_phases (2^22 x 512, 8 x
@@ -199,11 +215,12 @@ one line each; any failure raises and exits non-zero:
               bench.sorted_gather, bench.ingest (== the host's exact count),
               bench.build_phases (== exact ground truth), bench.sriracha_model
               (== the host engine), bench.scaling (logical slots of the card
-              == one device), scale.distributed (1000 accessions, a
-              coordinator and 2 device worker processes, a single run, a
-              SIGKILLed worker; result sets equal, kwage --device == the
-              host engine) without its latency regime (SCALE_SKIP_LATENCY=1:
-              the smoke's time; the program runs whole apart), and
+              == one device), scale.distributed (a coordinator and 2
+              device worker processes, a single run, a SIGKILLed worker;
+              result sets equal, kwage --device == the host engine) at 250
+              of its 1000 accessions and without its latency regime
+              (SCALE_N_ACC=250, SCALE_SKIP_LATENCY=1: the smoke's time; the
+              program runs whole apart), and
               scale.dry_sched (50,000 accessions, no .bloom opened; its
               checkpoints timed), which runs before phase 1, while the disk
               holds nothing yet to write back; each cut, with its output
@@ -366,6 +383,20 @@ SR_READS, SR_LONG, SR_LONG_BP = 1_000_000, 64, 20_000
 SR_LONG_ONLY = 4           # the last 4 subjects: hit by 20 kbp reads only
 # (run, k, threshold, reads): (A) the bucketed hash tables, (B) the LUTs.
 SR_RUNS = [("A", 21, 0.8, SR_READS), ("B", 11, 0.8, SR_READS)]
+# Phase 8's long reads: an ONT run's ~1.2 kbp ARTIC amplicons of the
+# subjects (SARS-CoV-2-sized genomes) and genomic ONT or PacBio reads
+# log-uniform in 1-16 kbp, with reads on the buckets' edges: every read in
+# a bucket of 1024-16384 bases (the sriracha_block route).
+LR_READS = 8192
+LR_AMPLICON_BP, LR_AMPLICON_SPREAD = 1200, 100
+LR_GENOMIC_BP = (1000, 16000)
+LR_EDGES = [1024, 1025, 2048, 2049, 4096, 4097, 8192, 8193, 16384]
+LR_RUNS = [("C", 21, 0.8), ("D", 11, 0.8)]   # (run, k, threshold): the hash, the LUT
+# The host engine that phase 8's runs are held to runs in the machine's
+# cores (up to 8): in one thread it took 15.9-20.2 s a short-read run and
+# 19.6-20.5 s a long-read run (1.4 Mbp/s) on the card's host (NVIDIA H100
+# 80GB HBM3 at 700 W), most of phase 8's wall.
+HOST_THREADS = min(8, os.cpu_count() or 1)
 READ_MESH_SLOTS = 4        # phase 10: logical slots of the card for SriRachA's reads
 REMOTE_BATCH = 4           # phase 11: accessions a device worker pulls at once
 CHUNK_BP = 8_000_000       # phase 12: the JAX package's chunk_bp (a 16 GB TPU's)
@@ -394,18 +425,19 @@ PROD_MESH_BUDGET = 2 << 30        # a logical shard's: the full file in waves
 # Phase 13: the bench programs (module, arguments, environment, seconds
 # allowed). Search at bench.py's full width (2^22 rows x 8 files, 8 GiB),
 # build and SriRachA at their JAX programs' defaults and SriRachA at k=11
-# on the LUT, serve at tools/bench_resident.py's 4350 accessions.
+# on the LUT; serve cut from tools/bench_resident.py's 4350 accessions to
+# 1000 for the smoke's time (it runs whole apart: README).
 BENCH_RUNS = [
     ("search", [], {}, 300),
     ("build", [], {}, 300),
     ("sriracha", [], {}, 300),
     ("sriracha", ["11", "128", "65536", "lut"], {}, 300),
-    ("serve", [], {"SCALE_N_ACC": "4350"}, 400),
+    ("serve", [], {"SCALE_N_ACC": "1000"}, 400),
 ]
 # Phase 15: the JAX package's last programs (module, environment, seconds
 # allowed), each at its JAX tool's defaults; the distributed proof without
-# its latency regime (SCALE_SKIP_LATENCY=1, for the smoke's time; it runs
-# whole apart: README).
+# its latency regime (SCALE_SKIP_LATENCY=1) and at 250 of its 1000
+# accessions, for the smoke's time (it runs whole apart: README).
 TOOL_RUNS = [
     ("bench.search_phases", {}, 300),
     ("bench.sorted_gather", {}, 200),
@@ -413,7 +445,7 @@ TOOL_RUNS = [
     ("bench.build_phases", {}, 200),
     ("bench.sriracha_model", {}, 200),
     ("bench.scaling", {}, 300),
-    ("scale.distributed", {"SCALE_SKIP_LATENCY": "1"}, 600),
+    ("scale.distributed", {"SCALE_SKIP_LATENCY": "1", "SCALE_N_ACC": "250"}, 600),
 ]
 # The dry scheduler runs before phase 1, on a disk nothing has written to
 # yet: its 28 checkpoints are fsynced, and an fsync waits on what the disk
@@ -441,7 +473,8 @@ PATH_KERNELS = {
                "bit_transpose", "search_complete", "search_counts", "run_counts"),
     "entry": ("canonical_kmers", "murmur32", "search_counts"),
     "sriracha": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
-                 "sriracha_reads_lut", "sriracha_reads_hash", "subject_table"),
+                 "sriracha_reads_lut", "sriracha_reads_hash", "sriracha_block_lut",
+                 "sriracha_block_hash", "subject_table"),
     "sriracha_mesh": ("canonical_kmers", "sriracha_counts_lut", "sriracha_counts_hash",
                       "sriracha_reads_lut", "sriracha_reads_hash", "subject_table"),
     "remote": ("canonical_kmers", "radix_sort_pairs", "select_runs", "bloom_set_bits",
@@ -469,6 +502,8 @@ REPLACES = {
     "sriracha_counts_hash": "kwage_tpu/sriracha/device.py:179",
     "sriracha_reads_lut": "kwage_tpu/sriracha/device.py:239",
     "sriracha_reads_hash": "kwage_tpu/sriracha/device.py:179",
+    "sriracha_block_lut": "kwage_tpu/sriracha/device.py:239",
+    "sriracha_block_hash": "kwage_tpu/sriracha/device.py:179",
     "subject_table": "kwage_tpu/sriracha/device.py:216",
     "run_counts": "kwage_tpu/pipeline/make_bloom.py:222",
     "merge_counts": "kwage_tpu/pipeline/make_bloom.py:156",
@@ -487,6 +522,8 @@ SOURCES = {
     "sriracha_counts_hash": "kwage_tpu_torch/csrc/sriracha.cu",
     "sriracha_reads_lut": "kwage_tpu_torch/csrc/sriracha.cu",
     "sriracha_reads_hash": "kwage_tpu_torch/csrc/sriracha.cu",
+    "sriracha_block_lut": "kwage_tpu_torch/csrc/sriracha_block_lut.cu",
+    "sriracha_block_hash": "kwage_tpu_torch/csrc/sriracha_block_hash.cu",
     "subject_table": "kwage_tpu_torch/csrc/sriracha.cu",
     "run_counts": "kwage_tpu_torch/csrc/merge.cu",
     "merge_counts": "kwage_tpu_torch/csrc/merge.cu",
@@ -1745,15 +1782,54 @@ def sriracha_profile(time_reads: bool = False):
         tsr.search_reads_device = saved
 
 
+def device_and_host(work: str, device: torch.device, tag: str, args: list[str],
+                    profile: bool = False, host_threads: int = 1) -> tuple:
+    """One run of kwage-sriracha-torch with ``args``: with --device, then
+    without it (the port's host engine, in ``host_threads`` threads: the
+    reference's local-file split, the same bytes); the two TSVs must be
+    the same bytes. ``profile``: also time the read iterator and the
+    SRIRACHA_STEPS functions, trace the device (``step_profile``) and print
+    the breakdown. Returns (the --device TSV's bytes, its path, its wall
+    seconds, the host's, the launches of the --device run by kernel, its
+    profile)."""
+    before = kernels.launch_counts()
+    steps = step_profile(device, SRIRACHA_STEPS) if profile else contextlib.nullcontext()
+    with steps as report, sriracha_profile(profile) as prof:
+        t0 = time.perf_counter()
+        rc = torch_sriracha_main(args + ["--device", "-o", os.path.join(work, "dev.tsv")])
+        t_dev = time.perf_counter() - t0
+    check(rc == 0, f"kwage-sriracha-torch exited {rc}")
+    tsv = os.path.join(work, f"dev_{tag}.tsv")
+    os.replace(os.path.join(work, "dev.tsv"), tsv)
+    if profile:
+        print(f"profile: run {tag} kwage-sriracha-torch --device {t_dev:.3f} s under the "
+              f"step timers and the profiler; device busy {report['busy_s']:.4f} s, idle "
+              f"share {1 - report['busy_s'] / t_dev:.4f}")
+        for name, secs, calls in report["steps"]:
+            print(f"profile step {name:<40} {secs:8.3f} s  x{calls}")
+        print(report["table"], flush=True)
+    after = kernels.launch_counts()
+    t0 = time.perf_counter()
+    rc = torch_sriracha_main(args + ["--threads", str(host_threads), "-o",
+                                     os.path.join(work, "host.tsv")])
+    t_host = time.perf_counter() - t0
+    check(rc == 0, f"host sriracha exited {rc}")
+    with open(tsv, "rb") as f:
+        dev = f.read()
+    with open(os.path.join(work, "host.tsv"), "rb") as f:
+        check(dev == f.read(), f"run {tag} ({' '.join(args[:4])}): --device TSV differs from "
+              f"the host engine's")
+    return dev, tsv, t_dev, t_host, {n: after[n] - before[n] for n in after}, prof
+
+
 def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
                  profile: bool = False) -> dict:
-    """Phase 8 through the port's kwage-sriracha-torch --device, each run
-    against the host engine's bytes; on a card, each run must launch its
-    route's kernel and not the other's. ``profile``: also time the read
-    iterator and the SRIRACHA_STEPS functions, trace the device
-    (``step_profile``) and print the breakdown. Returns, by run tag, what
-    phase 10 runs again and holds its output to: (k, threshold, queries,
-    reads, bases, the --device TSV's path, its wall seconds, its profile)."""
+    """Phase 8's short-read runs through the port's kwage-sriracha-torch
+    --device, each against the host engine's bytes (``device_and_host``);
+    on a card, each run must launch its route's kernels and not the
+    other's. Returns, by run tag, what phase 10 runs again and holds its
+    output to: (k, threshold, queries, reads, bases, the --device TSV's
+    path, its wall seconds, its profile)."""
     data, done = {}, {}
     for tag, k, t, n_reads in runs:
         if n_reads not in data:  # a run cut to fewer reads gets data of its own
@@ -1764,39 +1840,14 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
         queries, path, bp = data[n_reads]
         args = ["-k", str(k), "-t", str(t), "-i", queries, path]
-        before = kernels.launch_counts()
-        steps = (step_profile(device, SRIRACHA_STEPS) if profile
-                 else contextlib.nullcontext())
-        with steps as report, sriracha_profile(profile) as prof:
-            t0 = time.perf_counter()
-            rc = torch_sriracha_main(args + ["--device", "-o", os.path.join(work, "dev.tsv")])
-            t_dev = time.perf_counter() - t0
-        check(rc == 0, f"kwage-sriracha-torch exited {rc}")
-        os.replace(os.path.join(work, "dev.tsv"), os.path.join(work, f"dev_{tag}.tsv"))
-        if profile:
-            print(f"profile: run {tag} kwage-sriracha-torch --device {t_dev:.3f} s under the "
-                  f"step timers and the profiler; device busy {report['busy_s']:.4f} s, idle "
-                  f"share {1 - report['busy_s'] / t_dev:.4f}")
-            for name, secs, calls in report["steps"]:
-                print(f"profile step {name:<40} {secs:8.3f} s  x{calls}")
-            print(report["table"], flush=True)
-        after = kernels.launch_counts()
-        t0 = time.perf_counter()
-        rc = torch_sriracha_main(args + ["-o", os.path.join(work, "host.tsv")])
-        t_host = time.perf_counter() - t0
-        check(rc == 0, f"host sriracha exited {rc}")
-        with open(os.path.join(work, f"dev_{tag}.tsv"), "rb") as f:
-            dev = f.read()
-        with open(os.path.join(work, "host.tsv"), "rb") as f:
-            host = f.read()
-        check(dev == host, f"run {tag} (k={k}): --device TSV differs from the host engine's")
+        dev, tsv, t_dev, t_host, launched, prof = device_and_host(work, device, tag, args,
+                                                                  profile, HOST_THREADS)
         probe, other = ("lut", "hash") if k <= 13 else ("hash", "lut")
         route = [f"sriracha_reads_{probe}", f"sriracha_counts_{probe}"]
         check(device.type != "cuda" or (
-            all(after[n] > before[n] for n in route)
-            and all(after[f"sriracha_{n}_{other}"] == before[f"sriracha_{n}_{other}"]
-                    for n in ("reads", "counts"))),
-              f"run {tag} (k={k}) did not take the {probe} route: {before} -> {after}")
+            all(launched[n] > 0 for n in route)
+            and not any(launched[f"sriracha_{n}_{other}"] for n in ("reads", "block", "counts"))),
+              f"run {tag} (k={k}) did not take the {probe} route: {launched}")
         rows = [line.split(b"\t") for line in dev.splitlines() if b"\t" in line]
         per_query = collections.Counter(r[4] for r in rows)
         perfect = sum(1 for r in rows if r[2] == b"1")
@@ -1811,13 +1862,100 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
         shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
         print(f"phase 8 sriracha run {tag}: k={k} -t {t}, {n_reads} reads + {SR_LONG} long, "
               f"{bp / 1e6:.1f} Mbp; --device {t_dev:.2f} s ({bp / 1e6 / t_dev:.2f} Mbp/s, "
-              + ", ".join(f"{after[n] - before[n]} {n}" for n in [*route, "canonical_kmers"])
+              + ", ".join(f"{launched[n]} {n}" for n in [*route, "canonical_kmers"])
               + f" launches, profile {shown}, "
-              f"{prof.get('spans')} spans); host engine {t_host:.2f} s "
-              f"({bp / 1e6 / t_host:.2f} Mbp/s); TSV == host bytes, {len(rows)} rows, "
+              f"{prof.get('spans')} spans); host engine in {HOST_THREADS} threads {t_host:.2f} "
+              f"s ({bp / 1e6 / t_host:.2f} Mbp/s); TSV == host bytes, {len(rows)} rows, "
               f"{perfect} with score 1", flush=True)
-        done[tag] = (k, t, queries, path, bp, os.path.join(work, f"dev_{tag}.tsv"), t_dev, shown)
+        done[tag] = (k, t, queries, path, bp, tsv, t_dev, shown)
     return done
+
+
+def make_long_read_data(work: str, rng) -> tuple[str, str, int]:
+    """Query FASTA of SR_SUBJECTS genomes of SR_SUBJECT_BP and one FASTQ of
+    LR_READS long reads in random order: half amplicons of LR_AMPLICON_BP
+    (+- LR_AMPLICON_SPREAD) from random places of random subjects, half
+    genomic reads log-uniform in LR_GENOMIC_BP, a third of them from the
+    subjects and the rest random, plus LR_EDGES (the buckets' edges);
+    every read drawn from a subject with SUB_RATE substitutions on a random
+    strand, N_RATE of the bases N and one read in ten with a run of 1-30 N.
+    Returns (queries, reads, bases)."""
+    genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
+    queries = os.path.join(work, "long_queries.fasta")
+    with open(queries, "wb") as f:
+        for i, g in enumerate(genomes):
+            f.write(b">query %d\n" % i + ACGT[g].tobytes() + b"\n")
+    half = LR_READS // 2
+    lo, hi = LR_GENOMIC_BP
+    lengths = np.concatenate([
+        LR_AMPLICON_BP + rng.integers(-LR_AMPLICON_SPREAD, LR_AMPLICON_SPREAD + 1, size=half),
+        np.exp(rng.uniform(np.log(lo), np.log(hi), size=LR_READS - half - len(LR_EDGES)))
+        .astype(np.int64), LR_EDGES])
+    from_subject = np.concatenate([np.ones(half, bool),
+                                   rng.random(LR_READS - half) < 1 / 3])
+    order = rng.permutation(LR_READS)
+    path = os.path.join(work, f"SRR8{LR_READS:06d}.fastq")
+    total = 0
+    with open(path, "wb") as f:
+        for i, r in enumerate(order):
+            n = int(lengths[r])
+            if from_subject[r]:
+                g = genomes[int(rng.integers(0, SR_SUBJECTS))]
+                a = int(rng.integers(0, SR_SUBJECT_BP - n + 1))
+                seq = ACGT[mutate(rng, g[a : a + n])]
+            else:
+                seq = ACGT[rng.integers(0, 4, size=n, dtype=np.uint8)]
+            seq[rng.random(n) < N_RATE] = ord("N")
+            if rng.random() < 0.1:
+                a = int(rng.integers(0, n))
+                seq[a : a + int(rng.integers(1, 31))] = ord("N")
+            total += n
+            f.write(b"@l%d\n%s\n+\n%s\n" % (i, seq.tobytes(), b"I" * n))
+    return queries, path, total
+
+
+def run_sriracha_long(work: str, device: torch.device, seed: int, runs=LR_RUNS) -> dict:
+    """Phase 8's long-read runs (``make_long_read_data``: reads of 1-16 kbp,
+    every one in a bucket of 1024-16384 bases) through kwage-sriracha-torch
+    --device, each against the host engine's bytes; on a card each run must
+    launch its probe's sriracha_block kernel and none of canonical_kmers,
+    sriracha_counts, sriracha_reads or the other probe's. Every subject
+    must be listed (its amplicons), some reads with score 1. Returns what
+    run_sriracha returns, by run tag."""
+    t0 = time.perf_counter()
+    queries, path, bp = make_long_read_data(work, np.random.default_rng(seed + 6))
+    print(f"phase 8 long-read data: {SR_SUBJECTS} queries x {SR_SUBJECT_BP} bp, {LR_READS} "
+          f"reads, {bp / 1e6:.1f} Mbp ({time.perf_counter() - t0:.1f} s)", flush=True)
+    done = {}
+    for tag, k, t in runs:
+        args = ["-k", str(k), "-t", str(t), "-i", queries, path]
+        dev, tsv, t_dev, t_host, launched, prof = device_and_host(
+            work, device, tag, args, host_threads=HOST_THREADS)
+        probe = "lut" if k <= 13 else "hash"
+        route = f"sriracha_block_{probe}"
+        others = [n for n in launched if n != route and n != "subject_table" and launched[n]]
+        check(device.type != "cuda" or (launched[route] > 0 and not others),
+              f"run {tag} (k={k}) did not take {route} alone: {launched}")
+        rows = [line.split(b"\t") for line in dev.splitlines() if b"\t" in line]
+        per_query = collections.Counter(r[4] for r in rows)
+        perfect = sum(1 for r in rows if r[2] == b"1")
+        check(len(per_query) == SR_SUBJECTS and perfect > 0,
+              f"run {tag}: {len(rows)} rows over {len(per_query)} queries, {perfect} perfect")
+        shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
+        print(f"phase 8 sriracha long-read run {tag}: k={k} -t {t}, {LR_READS} reads of 1-16 "
+              f"kbp, {bp / 1e6:.1f} Mbp; --device {t_dev:.2f} s ({bp / 1e6 / t_dev:.2f} Mbp/s, "
+              f"{launched[route]} {route} launches, profile {shown}, {prof.get('spans')} "
+              f"spans); host engine in {HOST_THREADS} threads {t_host:.2f} s "
+              f"({bp / 1e6 / t_host:.2f} Mbp/s); TSV == host bytes, {len(rows)} rows, {perfect} "
+              f"with score 1", flush=True)
+        done[tag] = (k, t, queries, path, bp, tsv, t_dev, shown)
+    return done
+
+
+def run_sriracha_phase(work: str, device: torch.device, seed: int) -> dict:
+    """Phase 8: the short-read runs (``run_sriracha``), then the long-read
+    runs (``run_sriracha_long``); what both return, by run tag."""
+    return {**run_sriracha(work, device, seed), **run_sriracha_long(work, device, seed)}
 
 
 # --- phase 10: SriRachA over a mesh of slots ----------------------------------------------
@@ -3650,6 +3788,22 @@ def subject_sets(genomes: np.ndarray, k: int) -> list[tuple[str, np.ndarray]]:
             for i, g in enumerate(genomes)]
 
 
+def wide_rows(rng, genomes: np.ndarray, k: int, W: int,
+              device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """16 rows [16, W] of the block kernel's buckets (W - k + 1 above 512
+    windows) on ``device``: rows of 0, 1, k - 1, k, 513, half the width, the
+    width less one and the width; an every-byte row, a lowercase row and a
+    run of Ns; every fifth drawn from ``genomes``."""
+    b, lengths = read_block(rng, genomes, 16, W, W, SUB_RATE)
+    lengths[:8] = [0, 1, k - 1, k, 513, W // 2, W - 1, W]
+    for r, n in enumerate(lengths):
+        b[r, n:] = 0
+    b[8, :512] = np.arange(512) % 256
+    b[9, : lengths[9]] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=lengths[9])]
+    b[10, 700:730] = ord("N")
+    return torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
+
+
 def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
                            results: dict) -> None:
     """sriracha_reads and sriracha_counts (both probes), subject_table and
@@ -3658,10 +3812,15 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
     150 bp reads, 40 subjects of 30 kbp) at k = 21 and 11, timed, the fused
     sriracha_reads beside the two launches it replaces on the same inputs,
     and so at bench.sriracha's step (512 x 128, k = 21) and a whole span
-    (8192 x 256, k = 21 and 11); sriracha_counts timed on reads of 1.5 kbp
-    and 15 kbp (512 x 2048, 64 x 16384; the hash table at k = 21, the LUT
-    at k = 11), rows above the fused kernel's and within a tile; on a
-    small block holding every byte value at k = 3, 13, 14, 16, 31, 32;
+    (8192 x 256, k = 21 and 11); on reads of 1.5 kbp and 15 kbp (512 x
+    2048, 64 x 16384 and 512 x 16384; the hash table at k = 21, the LUT at
+    k = 11) the block kernel sriracha_block timed beside the two launches
+    it replaces, and sriracha_counts alone (rows above the warp kernel's
+    512 windows and within a tile); on a small block holding every byte
+    value at k = 3, 13, 14, 16, 31, 32, and the block kernel on rows of the
+    2048 bucket and of 2^14 + k - 1 bases (rows of 0, 1, k - 1, k, 513,
+    half, all but one and all of the width, N-bearing, lower case, every
+    byte) at those k;
     sriracha_reads on rows of 0, 1, k - 1 and k bases at every k = 1-32,
     and at widths 150, 200 and 543 and in views one byte off a 16-byte
     boundary at k = 1, 11, 21, 32; on batches of the path's long-read
@@ -3677,15 +3836,15 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
     reads, lens = torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
 
     def fused(tag, reads, lens, tables, timed):
-        """One comparison of the fused sriracha_reads entry with
+        """One comparison of the fused entry (sriracha_reads or
+        sriracha_block, by the width: ``fused_kernel``) with
         read_batch_counts_ref; ``timed``: ``sriracha_routes``, which runs
         it and the two launches it replaces (canonical_kmers' ASCII entry
         and sriracha_counts) once each on the same inputs, holds each
         route's output to the plain version's, and times them in CUDA
         graphs in the order fused, words, words, fused."""
-        name = f"sriracha_reads_{tables.route}"
-        check(tsr.fused_route(reads.shape[1], tables.k),
-              f"{name} {tag}: not the fused route's shape")
+        check(tsr.fused_route(reads.shape[1], tables.k), f"{tag}: not the fused route's shape")
+        name = f"{tsr.fused_kernel(reads.shape[1], tables.k)}_{tables.route}"
         got = tsr.read_batch_counts(reads, lens, tables)
         want = tsr.read_batch_counts_ref(reads, lens, tables)
         err = max_abs_err(got, want)
@@ -3783,15 +3942,18 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
             r5, l5 = torch.from_numpy(b5).to(device), torch.from_numpy(lengths5).to(device)
             for tables in ([luts] if k <= 14 else []) + [hashes]:
                 fused(f"[{B}, {L}] k={k}", r5, l5, tables, True)
-        # sriracha_counts on rows above the fused kernel's 512 windows and
-        # within a tile (the short-row design): reads of 1.5 kbp and 15 kbp,
-        # by the LUT at k = 11 and the hash table at k = 21.
-        for B, L, read_len in ((512, 2048, 1500), (64, 16384, 15000)):
+        # Reads of 1.5 kbp and 15 kbp (the buckets of 1024-16384 bases), by
+        # the LUT at k = 11 and the hash table at k = 21: the block kernel
+        # timed beside the two launches it replaces, and sriracha_counts
+        # alone on those rows (the short-row design).
+        for B, L, read_len in ((512, 2048, 1500), (64, 16384, 15000), (512, 16384, 15000)):
             b8, lengths8 = read_block(rng, genomes, B, L, read_len, SUB_RATE)
             r8, l8 = torch.from_numpy(b8).to(device), torch.from_numpy(lengths8).to(device)
+            fused(f"[{B}, {L}] k={k}", r8, l8, luts if k <= 14 else hashes, True)
             w8, v8 = tk.canonical_kmers(r8, k)
             counts(f"[{B}, {L}] k={k}", w8, v8, l8, luts if k <= 14 else hashes, True)
             del b8, r8, w8, v8
+            torch.cuda.empty_cache()
         del hashes
     torch.cuda.empty_cache()
 
@@ -3810,10 +3972,13 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
             err = max_abs_err(tsr.subject_table(sm, k), tsr.subject_table_ref(sm, k))
             record("subject_table", f"small k={k}", err, None, None)
             routes.append(tsr.build_lut_tables(subj, k, device))
+        wide = [wide_rows(rng, genomes, k, W, device) for W in (2048, 16384 + k - 1)]
         for tables in routes:
             counts(f"small [64, 256] k={k}", words, valid, small_lens, tables, False)
             fused(f"small [64, 256] k={k}", small, small_lens, tables, False)
-        del routes
+            for r9, l9 in wide:
+                fused(f"edge rows [{r9.shape[0]}, {r9.shape[1]}] k={k}", r9, l9, tables, False)
+        del routes, wide
         torch.cuda.empty_cache()
 
     # sriracha_reads at every k on rows of 0, 1, k - 1, k, k + 1 and 64
@@ -3937,6 +4102,29 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
                  + "; ".join(cross))
 
 
+class PhaseWalls:
+    """Each phase's wall seconds on the host's clock: ``with walls("8
+    sriracha"):`` prints the phase's seconds when it ends (a phase timed
+    twice adds up), and ``summary`` gives every phase's in the order run."""
+
+    def __init__(self):
+        self.walls: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, phase: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            wall = time.perf_counter() - t0
+            self.walls[phase] = self.walls.get(phase, 0.0) + wall
+            print(f"phase {phase}: {wall:.1f} s", flush=True)
+
+    def summary(self) -> str:
+        return (f"phase walls (s): {json.dumps({k: round(v, 1) for k, v in self.walls.items()})}"
+                f"; {sum(self.walls.values()):.1f} s in all")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3948,18 +4136,26 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     device = resolve_device("cuda")
     card = card_identity()
-    t0 = time.perf_counter()
+    walls = PhaseWalls()
     deadline = time.perf_counter() + SMOKE_SECONDS - SMOKE_RESERVE
-    with ThreadPoolExecutor(1) as pool:   # phase 15's variant library beside the library
-        variant = pool.submit(search_phases.get_lib)
-        lib = kernels.build()
-        variant.result()
-    print(f"build: {os.path.relpath(lib)} and {VARIANT_SOURCE} in "
-          f"{time.perf_counter() - t0:.1f} s; "
-          f"torch {torch.__version__} CUDA {torch.version.cuda}; {card}", flush=True)
-    t0 = time.perf_counter()
-    check(native_available(), "the host library (native/kwage_native.cpp, g++) did not build")
-    print(f"build: host library in {time.perf_counter() - t0:.1f} s", flush=True)
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    with walls("build"):
+        t0 = time.perf_counter()
+        # Phase 15's variant library and the host library (g++) beside the kernels.
+        with ThreadPoolExecutor(2) as pool:
+            variant = pool.submit(search_phases.get_lib)
+            native = pool.submit(timed, native_available)
+            lib = kernels.build()
+            variant.result()
+        print(f"build: {os.path.relpath(lib)} and {VARIANT_SOURCE} in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"torch {torch.__version__} CUDA {torch.version.cuda}; {card}", flush=True)
+        built, secs = native.result()
+        check(built, "the host library (native/kwage_native.cpp, g++) did not build")
+        print(f"build: host library in {secs:.1f} s, beside the kernels", flush=True)
 
     if args.profile:
         with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
@@ -3972,75 +4168,71 @@ def main(argv: list[str] | None = None) -> int:
 
     # Phase 15's dry scheduler first, on a disk nothing has written to yet
     # (SCHEDULER_RUNS); it launches nothing.
-    scheduler, _ = run_tools(device, deadline, SCHEDULER_RUNS)
+    with walls("15 dry_sched"):
+        scheduler, _ = run_tools(device, deadline, SCHEDULER_RUNS)
     # Each path runs with the launch counts zeroed just before it and read
     # just after; phase 4's comparison launches are not counted.
     paths = {}
-    with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
-        kernels.reset_launch_counts()
-        main_path = run_main_path(work, device, NUM_FILTER, LOG2_FILTER_LEN, COPIES, args.seed)
-        paths["search"] = kernels.launch_counts()
+
+    def path(name: str, phase: str, fn, *fargs):
+        """Run one path under its wall, its counts zeroed just before it and
+        read just after (into ``paths[name]``); return its result."""
         torch.cuda.empty_cache()
-        kernels.reset_launch_counts()
-        run_mesh(main_path, device)
-        paths["mesh"] = kernels.launch_counts()
-    torch.cuda.empty_cache()
+        with walls(phase):
+            kernels.reset_launch_counts()
+            out = fn(*fargs)
+            paths[name] = kernels.launch_counts()
+        return out
+
     with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
-        kernels.reset_launch_counts()
-        shapes = run_ingest(work, device, INGEST, args.seed)
-        paths["ingest"] = kernels.launch_counts()
-        torch.cuda.empty_cache()
-        kernels.reset_launch_counts()
-        shapes["chunked"] = run_chunked(work, device, shapes["run"])
-        paths["chunked"] = kernels.launch_counts()
-        torch.cuda.empty_cache()
-        kernels.reset_launch_counts()
-        elsewhere = run_remote_ingest(work, device, shapes.pop("run"))
-        paths["remote"] = {k: n + elsewhere.get(k, 0) for k, n in kernels.launch_counts().items()}
-    torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
-    run_entry(device)
-    paths["entry"] = kernels.launch_counts()
-    torch.cuda.empty_cache()
+        main_path = path("search", "1-3 search", run_main_path, work, device, NUM_FILTER,
+                         LOG2_FILTER_LEN, COPIES, args.seed)
+        path("mesh", "9 mesh", run_mesh, main_path, device)
     with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
-        kernels.reset_launch_counts()
-        phase8 = run_sriracha(work, device, args.seed)
-        paths["sriracha"] = kernels.launch_counts()
-        torch.cuda.empty_cache()
-        kernels.reset_launch_counts()
-        run_sriracha_mesh(work, device, phase8)
-        paths["sriracha_mesh"] = kernels.launch_counts()
-    torch.cuda.empty_cache()
+        shapes = path("ingest", "6 ingest", run_ingest, work, device, INGEST, args.seed)
+        shapes["chunked"] = path("chunked", "12 chunked", run_chunked, work, device,
+                                 shapes["run"])
+        elsewhere = path("remote", "11 remote", run_remote_ingest, work, device,
+                         shapes.pop("run"))
+        paths["remote"] = {k: n + elsewhere.get(k, 0) for k, n in paths["remote"].items()}
+    path("entry", "7 entry", run_entry, device)
     with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
-        kernels.reset_launch_counts()
-        shapes["prod_l"] = run_prod_l(work, device, args.seed)
-        paths["prod_l"] = kernels.launch_counts()
+        phase8 = path("sriracha", "8 sriracha", run_sriracha_phase, work, device, args.seed)
+        # Phase 10 keeps to runs A and B.
+        path("sriracha_mesh", "10 sriracha mesh", run_sriracha_mesh, work, device,
+             {tag: phase8[tag] for tag, *_ in SR_RUNS})
+    with tempfile.TemporaryDirectory(prefix="kwage_chip_smoke_") as work:
+        shapes["prod_l"] = path("prod_l", "14 prod-L", run_prod_l, work, device, args.seed)
         print("phase 14 counts: " + json.dumps(paths["prod_l"]), flush=True)
     torch.cuda.empty_cache()
 
-    results = phase_kernels(device, args.seed, shapes)
-    driven = {path: names for path, names in PATH_KERNELS.items() if path in paths}
-    for path, names in driven.items():
-        check(all(paths[path][k] > 0 for k in names),
-              f"a kernel of the {path} path was never launched: {paths[path]}")
+    with walls("4 kernels"):
+        results = phase_kernels(device, args.seed, shapes)
+    driven = {name: names for name, names in PATH_KERNELS.items() if name in paths}
+    for name, names in driven.items():
+        check(all(paths[name][k] > 0 for k in names),
+              f"a kernel of the {name} path was never launched: {paths[name]}")
     print("phase 5 counts: " + "; ".join(
-        f"{path} {{{', '.join(f'{k}: {paths[path][k]}' for k in names)}}}"
-        for path, names in driven.items()), flush=True)
+        f"{name} {{{', '.join(f'{k}: {paths[name][k]}' for k in names)}}}"
+        for name, names in driven.items()), flush=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kwage_tpu"))
     check(not loaded, f"jax or kwage_tpu was imported: {loaded}")
     torch.cuda.empty_cache()
-    run_bench(device)
+    with walls("13 bench"):
+        run_bench(device)
     torch.cuda.empty_cache()
-    tools, reports = run_tools(device, deadline)
-    tools = collections.Counter(tools) + collections.Counter(scheduler)
-    paths["tools"] = {k: tools.get(k, 0) for k in [*REPLACES, *VARIANT_OF]}
-    check(all(paths["tools"][k] > 0 for k in PATH_KERNELS["tools"]),
-          f"a kernel of the tools path was never launched: {paths['tools']}")
-    print("phase 15 counts: " + json.dumps(paths["tools"]), flush=True)
-    results.update(variant_checks(device, args.seed, reports["bench.search_phases"]))
+    with walls("15 tools"):
+        tools, reports = run_tools(device, deadline)
+        tools = collections.Counter(tools) + collections.Counter(scheduler)
+        paths["tools"] = {k: tools.get(k, 0) for k in [*REPLACES, *VARIANT_OF]}
+        check(all(paths["tools"][k] > 0 for k in PATH_KERNELS["tools"]),
+              f"a kernel of the tools path was never launched: {paths['tools']}")
+        print("phase 15 counts: " + json.dumps(paths["tools"]), flush=True)
+        results.update(variant_checks(device, args.seed, reports["bench.search_phases"]))
     every = [*REPLACES, *VARIANT_OF]
     launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in every}
     check(all(launches[k] > 0 for k in every), f"a kernel was never launched: {launches}")
+    print(walls.summary(), flush=True)
 
     # One line a kernel: its shape on the main path, its time beside its
     # bound there, and its launches on each path.
@@ -4055,7 +4247,7 @@ def main(argv: list[str] | None = None) -> int:
                                        "lsd_pass_operations_ms", "peak_bytes", "sync_ms",
                                        "launch_ms", "own_traffic_ms", "words_route_ms")
                if key in r},
-            "launches": {path: counts[k] for path, counts in paths.items() if counts.get(k)}}))
+            "launches": {name: counts[k] for name, counts in paths.items() if counts.get(k)}}))
     # The byte entry of bit_transpose: its launches count under that kernel.
     print(json.dumps(results["transpose_bits_device"]))
     print(card)

@@ -13,8 +13,9 @@ packing, uploads and readbacks included: ``value``, Mbp/s).
 Kernel only: the launches the path makes on one [512, read_len] block of
 the reads (the reads repeat when there are fewer than 512): one
 ``sriracha_reads_{hash,lut}`` where the block has at most 512 windows a
-row (``sriracha.device.fused_route``), else ``canonical_kmers`` and
-``sriracha_counts_{hash,lut}``; timed with CUDA events over a CUDA graph
+row, one ``sriracha_block_{hash,lut}`` where it has at most 2^14
+(``sriracha.device.fused_route``, ``fused_kernel``), else
+``canonical_kmers`` and ``sriracha_counts_{hash,lut}``; timed with CUDA events over a CUDA graph
 of raw launches that cycles RING copies of the block, each rolled by one
 more row: the counterpart of the JAX tool's chained ``jnp.roll``
 (``kernel_only_mbps``). The two-launch step is timed the same way beside
@@ -131,8 +132,8 @@ def probe_work(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Tensor,
 
 
 def reads_work(reads: torch.Tensor, lengths: torch.Tensor, tables) -> tuple[int, int]:
-    """(bytes, operations) of the function of one sriracha_reads launch on
-    ASCII reads uint8 [B, L]: the reads, the lengths and the counts once,
+    """(bytes, operations) of the function of one fused launch
+    (sriracha_reads or sriracha_block) on ASCII reads uint8 [B, L]: the reads, the lengths and the counts once,
     and ``probe_work``'s table bytes; 8 operations a base to decode, 20 a
     window for its canonical word, and ``probe_work``'s."""
     B, L = reads.shape
@@ -146,7 +147,7 @@ def reads_work(reads: torch.Tensor, lengths: torch.Tensor, tables) -> tuple[int,
 
 def kernel_ms(block: torch.Tensor, lengths: torch.Tensor, tables, words: bool = False) -> float:
     """ms of one step on a [512, read_len] block: the path's launches (one
-    sriracha_reads where ``fused_route``), or with ``words`` the
+    fused launch where ``fused_route``), or with ``words`` the
     canonical_kmers and sriracha_counts launches. On a card the median of
     SAMPLES readings, each the mean of REPLAYS replays of a CUDA graph of
     raw launches cycling RING blocks rolled a row apart; on the CPU the

@@ -20,6 +20,8 @@
 // uint8 [B, L] (canonical_kmers' ASCII entry's input) and lengths int32 [B]
 // in ONE launch, for rows of at most 512 windows (L - k + 1 <= 512; the
 // read buckets of 64-512 bp); the words never reach device memory.
+// sriracha_block (sriracha_block.cuh): the same, for rows of at most 2^14
+// windows (the read buckets of 1024-16384 bp).
 //
 // Bound: 9 bytes read per window, then one random 4-byte LUT gather or one
 // 96-byte bucket row (64 B keys, 32 B masks) per distinct word and group:
@@ -38,7 +40,9 @@
 // mask go to 32 shared counters by atomicAdd (integer, order-free: bit-exact
 // run to run). All groups' tables are one allocation (LUT [G, 4^k]; hash
 // rows concatenated with a first row and a bucket mask per group), so the
-// sort runs once and one launch probes every group.
+// sort runs once and one launch probes every group. On the read path this
+// design now sorts only the rows of at most 2^14 windows in a batch wider
+// than that (reads of 16385 to 16384 + k - 1 bp in the 32768 bucket).
 //
 // sriracha_reads. Bound: the reads' bytes, the lengths and the counts,
 // then the same table entry a distinct word and group; the 9 bytes a window
@@ -90,14 +94,12 @@
 #include <cuda_runtime.h>
 
 #include "kmers.cuh"
+#include "sriracha.cuh"
 
 namespace {
 
-constexpr int kBucketCap = 8;
 constexpr int64_t kMaxSharedWords = 1 << 14;
 constexpr int kThreads = 256;
-constexpr int kTileLog = 14;
-constexpr int kTile = 1 << kTileLog;  // sort slots per long-row tile (== kMaxSharedWords)
 constexpr int kTileThreads = 1024;
 // A tile in shared memory skips one slot in 17, so that the 16 threads of a
 // half-warp that each own 16 neighbouring slots fall on 16 different banks.
@@ -116,59 +118,11 @@ __device__ __forceinline__ void compare_exchange(uint64_t* s, Index i, Index j,
   }
 }
 
-__device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
-  uint32_t x = lo ^ (lo >> 16);
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  uint32_t y = hi ^ (hi >> 16);
-  y *= 0x9E3779B1u;
-  y ^= y >> 13;
-  y *= 0x85EBCA6Bu;
-  y ^= y >> 16;
-  return x ^ y;
-}
-
-__device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
-
 // Windows of row r that fit the read: j < min(len - k + 1, nwin).
 __device__ __forceinline__ int64_t fitting_windows(const int32_t* lengths, int64_t r,
                                                    int64_t nwin, int k) {
   const int64_t ends = (int64_t)lengths[r] - k + 1;
   return ends < nwin ? ends : nwin;
-}
-
-// The strides 2^(b+NL-1) .. 2^b of merge level ``size`` over a padded tile:
-// a thread owns the 2^NL slots that differ in bits [b, b + NL), takes them
-// into registers, runs the NL stages there and writes them back. ``size``
-// is above every stride, so one direction holds for all of a thread's slots.
-template <int NL>
-__device__ __forceinline__ void tile_strides(uint64_t* s, int b, int64_t base,
-                                             int64_t size) {
-  constexpr int E = 1 << NL;
-  for (int t = threadIdx.x; t < (kTile >> NL); t += blockDim.x) {
-    const int first = ((t >> b) << (b + NL)) | (t & ((1 << b) - 1));
-    const bool asc = ((base + first) & size) == 0;
-    uint64_t v[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) v[e] = s[padded(first | (e << b))];
-#pragma unroll
-    for (int l = NL - 1; l >= 0; --l) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        if ((e & (1 << l)) == 0) {
-          const uint64_t a = v[e], c = v[e | (1 << l)];
-          if ((a > c) == asc) {
-            v[e] = c;
-            v[e | (1 << l)] = a;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) s[padded(first | (e << b))] = v[e];
-  }
 }
 
 // Every stride below 2^log_top of merge level ``size`` over a padded tile,
@@ -188,67 +142,6 @@ __device__ __forceinline__ void tile_level(uint64_t* s, int log_top, int64_t bas
     hi = b;
   }
 }
-
-struct LutProbe {
-  const uint32_t* table;  // [G, size]
-  int64_t size;           // 4^k
-  __device__ uint32_t operator()(int g, uint64_t w) const {
-    return w < (uint64_t)size ? __ldg(table + g * size + (int64_t)w) : 0u;
-  }
-  // The fused kernel's probe in two steps: the loads, then the mask; a
-  // lane's probes of a group all go out at once (a word each).
-  static constexpr int kInFlight = 16;
-  using Row = uint32_t;
-  __device__ Row load(int g, uint64_t w) const { return (*this)(g, w); }
-  __device__ uint32_t mask(const Row& row, uint64_t) const { return row; }
-};
-
-struct HashProbe {
-  const unsigned long long* keys;  // [rows, kBucketCap]; empty slots all-ones
-  const uint32_t* masks;  // [rows, kBucketCap]; empty slots 0
-  const long long* row0;   // [G] first row of group g
-  const long long* bmask;  // [G] 2^m_g - 1
-  __device__ uint32_t operator()(int g, uint64_t w) const {
-    const uint32_t b =
-        mix32((uint32_t)(w >> 32), (uint32_t)w) & (uint32_t)bmask[g];
-    const int64_t slot = (row0[g] + b) * kBucketCap;
-    uint32_t m = 0;
-#pragma unroll
-    for (int c = 0; c < kBucketCap; ++c)
-      if (keys[slot + c] == w) m |= __ldg(masks + slot + c);
-    return m;
-  }
-  // The fused kernel's probe in two steps: the whole bucket row in six
-  // 16-byte loads (its 64 bytes of keys, its 32 of masks), none waiting on
-  // a compare; then the mask. Four a lane at once (96 registers).
-  static constexpr int kInFlight = 4;
-  struct Row {
-    ulonglong2 k[kBucketCap / 2];
-    uint4 m[2];
-  };
-  __device__ Row load(int g, uint64_t w) const {
-    const uint32_t b =
-        mix32((uint32_t)(w >> 32), (uint32_t)w) & (uint32_t)__ldg(bmask + g);
-    const int64_t slot = (__ldg(row0 + g) + b) * kBucketCap;
-    const ulonglong2* kp = reinterpret_cast<const ulonglong2*>(keys + slot);
-    const uint4* mp = reinterpret_cast<const uint4*>(masks + slot);
-    Row row;
-#pragma unroll
-    for (int c = 0; c < kBucketCap / 2; ++c) row.k[c] = __ldg(kp + c);
-    row.m[0] = __ldg(mp);
-    row.m[1] = __ldg(mp + 1);
-    return row;
-  }
-  __device__ uint32_t mask(const Row& row, uint64_t w) const {
-    const uint32_t ms[kBucketCap] = {row.m[0].x, row.m[0].y, row.m[0].z, row.m[0].w,
-                                     row.m[1].x, row.m[1].y, row.m[1].z, row.m[1].w};
-    uint32_t m = 0;
-#pragma unroll
-    for (int c = 0; c < kBucketCap / 2; ++c)
-      m |= (row.k[c].x == w ? ms[2 * c] : 0u) | (row.k[c].y == w ? ms[2 * c + 1] : 0u);
-    return m;
-  }
-};
 
 template <typename Probe>
 __global__ void sriracha_counts_kernel(const int64_t* __restrict__ words,
@@ -450,12 +343,6 @@ int64_t next_pow2(int64_t x) {
   return p;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 // One per-read launch over all B rows; then, when the batch is wide enough
 // to hold long rows (nwin > 2^14; scratch uint64 [B, next_pow2(nwin)]), the
 // tile chain over (tile, row) blocks, on the same stream.
@@ -516,7 +403,6 @@ int launch_counts(const void* words, const void* valid, const void* lengths,
 constexpr int kMaxReadWindows = 512;   // windows a row: reads of 64-512 bp
 constexpr int kReadPacked = kMaxReadWindows / 16 + 2;  // packed words a read
 constexpr int kReadThreads = 128;      // at most: see launch_reads()
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // A read's bases in shared memory: 2-bit codes, 16 a word, and their ok
 // bits, 16 a half-word, so that the uint32 word q of ``ok16`` is validity

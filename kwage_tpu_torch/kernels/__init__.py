@@ -81,6 +81,9 @@ _ENTRIES = {
     # (reads, lengths, keys, masks, row0, bmask, out, B, L, k, ns, out_stride,
     #  stream)
     "sriracha_reads_hash": [_VP] * 7 + [_I64] * 5 + [_VP],
+    # sriracha_reads' arguments, rows of at most 2^14 windows
+    "sriracha_block_lut": [_VP] * 4 + [_I64] * 6 + [_VP],
+    "sriracha_block_hash": [_VP] * 7 + [_I64] * 5 + [_VP],
     # (subjects, out, ns, smax, size, stream)
     "subject_table": [_VP, _VP, _I64, _I64, _I64, _VP],
     # (words, weights, words_out, counts_out, selected, stats, scratch, n, cap,

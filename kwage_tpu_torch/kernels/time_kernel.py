@@ -65,15 +65,21 @@ IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
 the SM clock it ran at and the operations a clock and SM.
 
 ``sriracha`` compares two routes of the package's own library
-(``kernels.build``), and the fused entries of any other ``sriracha.cu``
-named, each compiled alone (with ``kmers.cuh`` beside it or in csrc/):
+(``kernels.build``), and the fused entries of any other ``sriracha.cu``,
+``sriracha_block_lut.cu`` or ``sriracha_block_hash.cu`` named, each
+compiled alone (its headers, ``kmers.cuh``, ``sriracha.cuh`` and
+``sriracha_block.cuh``, beside it or in csrc/):
 SriRachA's fused
-short-read entries (``sriracha_reads_lut`` / ``_hash``) beside the two
+entries (``sriracha_reads_lut`` / ``_hash``, a warp a read, and
+``sriracha_block_lut`` / ``_hash``, a block a read) beside the two
 launches they replace
 (``canonical_kmers_ascii`` + ``sriracha_counts_lut`` / ``_hash``) at
 phase 8's batch ([512, 256] of 150 bp reads, 40 subjects of 30 kbp, k = 11
 on the LUT and k = 21 on the hash), ``bench.sriracha``'s step ([512, 128],
-k = 21, its 4 subjects) and a whole span ([8192, 256], both). Each route
+k = 21, its 4 subjects), a whole span ([8192, 256], both), and reads of
+1.5 kbp and 15 kbp in the block kernel's buckets ([512, 2048], [64, 16384]
+and [512, 16384], both k; an other source without the block entries is
+left out there). Each route
 must give ``read_batch_counts_ref``'s bytes; each is timed in a CUDA graph
 (``sriracha_routes``, which chip_smoke.py's phase 4 also runs), and each
 line ends with the share of the fused kernel's bound
@@ -135,13 +141,15 @@ _EARLIER = {
 
 def build_alone(source: str) -> tuple[str, str | None]:
     """Compile ``source`` alone (``-I csrc/``) into a shared library under
-    BUILD_DIR, named by a sha256 of its bytes and of a ``murmur.cuh`` and a
-    ``search.cu`` beside it or in csrc/ (headers it may include); return
+    BUILD_DIR, named by a sha256 of its bytes and of the ``murmur.cuh``,
+    ``kmers.cuh``, ``search.cu``, ``sriracha.cuh`` and ``sriracha_block.cuh``
+    beside it or in csrc/ (headers it may include); return
     (its path, nvcc's report, or None when that build existed). The library
     appears whole or not at all, so processes may build it at once."""
     tag = hashlib.sha256()
     for path in (source, *(os.path.join(d, name) for d in (os.path.dirname(source), CSRC_DIR)
-                           for name in ("murmur.cuh", "kmers.cuh", "search.cu"))):
+                           for name in ("murmur.cuh", "kmers.cuh", "search.cu", "sriracha.cuh",
+                                        "sriracha_block.cuh"))):
         if os.path.exists(path):
             with open(path, "rb") as f:
                 tag.update(f.read())
@@ -774,6 +782,10 @@ def sriracha_cases(device, rng):
                 for i, g in enumerate(genomes)]
         yield f"[512, 256] k={k}", k, *batch(512, 256), subj
         yield f"[8192, 256] k={k}", k, *batch(8192, 256), subj
+        for B, L, read_len in ((512, 2048, 1500), (64, 16384, 15000), (512, 16384, 15000)):
+            b, lengths = read_block(rng, genomes, B, L, read_len)
+            yield (f"[{B}, {L}] k={k} ({read_len} bp)", k, torch.from_numpy(b).to(device),
+                   torch.from_numpy(lengths).to(device), subj)
     subj, reads = make_inputs(21, 128, 512, 2048)
     block = np.stack([np.frombuffer(r.encode("ascii"), np.uint8) for r in reads])
     yield ("[512, 128] k=21 (bench.sriracha)", 21, torch.from_numpy(block).to(device),
@@ -781,12 +793,13 @@ def sriracha_cases(device, rng):
 
 
 def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict]:
-    """Each route of one batch of the fused short-read route's shape, run
-    once into an output filled with -7 and held to ``want``
-    (``read_batch_counts_ref``'s), then timed in a CUDA graph in the order
-    fused, others, words, words, others, fused: the package library's
-    fused entry, the fused entry of each (tag, library) of ``others``, and
-    the two launches it replaces (canonical_kmers' ASCII entry and
+    """Each route of one batch of the fused route's shape (a row of at most
+    2^14 windows), run once into an output filled with -7 and held to
+    ``want`` (``read_batch_counts_ref``'s), then timed in a CUDA graph in
+    the order fused, others, words, words, others, fused: the package
+    library's fused entry (``sriracha.device.fused_kernel``'s), the same
+    entry of each (tag, library) of ``others`` that has it, and the two
+    launches it replaces (canonical_kmers' ASCII entry and
     sriracha_counts). Raw launches: none is counted. Returns ({route:
     output equal}, {route: [ms, ms]})."""
     from . import get_lib
@@ -802,9 +815,11 @@ def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict
     def raw(launch, library=lib):
         return lambda st: getattr(library, "kw_" + launch[0])(*launch[1:-1], st)
 
-    versions = {"fused": raw(tsr.reads_launch(reads, lengths, tables, out))}
+    fused = tsr.reads_launch(reads, lengths, tables, out)
+    versions = {"fused": raw(fused)}
     for tag, other in others:
-        versions[f"fused {tag}"] = raw(tsr.reads_launch(reads, lengths, tables, out), other)
+        if hasattr(other, "kw_" + fused[0]):   # an earlier source may lack the entry
+            versions[f"fused {tag}"] = raw(fused, other)
     counts = raw(tsr.counts_launch(words, valid, lengths, tables, out, None))
     versions["words"] = lambda st: (
         lib.kw_canonical_kmers_ascii(reads.data_ptr(), words.data_ptr(), valid.data_ptr(),
@@ -824,17 +839,20 @@ def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict
 
 
 def fused_report(log: str) -> str:
-    """nvcc's registers and spills of the sriracha_reads_kernel instances
-    in a build's report, one line an instance."""
+    """nvcc's registers and spills of the sriracha_reads_kernel (E: slots a
+    lane) and sriracha_block_kernel (log2 P) instances in a build's report,
+    one line an instance."""
     out = []
     for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
         head = re.match(r"ptxas info\s*: Compiling entry function '(\S+)'", part)
-        if head and "sriracha_reads_kernel" in head.group(1):
+        kernel = head and re.search(r"sriracha_(reads|block)_kernel", head.group(1))
+        if kernel:
             regs = re.search(r"Used (\d+) registers", part)
             spill = re.search(r"(\d+) bytes spill stores", part)
             inst = re.search(r"(Lut|Hash)ProbeE([jy])Li(\d+)E", head.group(1))
-            out.append((f"{inst[1].lower()} {'u32' if inst[2] == 'j' else 'u64'} E={inst[3]}"
-                        if inst else head.group(1)) + " "
+            param = "E" if kernel[1] == "reads" else "log2 P"
+            out.append((f"{kernel[1]} {inst[1].lower()} {'u32' if inst[2] == 'j' else 'u64'} "
+                        f"{param}={inst[3]}" if inst else head.group(1)) + " "
                        f"{regs.group(1) if regs else '?'} regs "
                        f"{spill.group(1) if spill else '?'} B spilled")
     return "; ".join(out)
@@ -850,16 +868,18 @@ def sriracha_main(others: list[str]) -> int:
 
     so = build()
     with open(so[:-3] + ".log") as f:
-        print("sriracha_reads_kernel instances: " + fused_report(f.read()), flush=True)
+        print("fused kernel instances: " + fused_report(f.read()), flush=True)
     alone = []
     for source in others:
         path, report = build_alone(source)
         if report is not None:
             print(f"{source}: " + fused_report(report), flush=True)
         other = ctypes.CDLL(path)
-        for name in ("sriracha_reads_lut", "sriracha_reads_hash"):
-            getattr(other, "kw_" + name).argtypes = _ENTRIES[name]
-            getattr(other, "kw_" + name).restype = ctypes.c_int
+        for name in ("sriracha_reads_lut", "sriracha_reads_hash", "sriracha_block_lut",
+                     "sriracha_block_hash"):
+            if hasattr(other, "kw_" + name):
+                getattr(other, "kw_" + name).argtypes = _ENTRIES[name]
+                getattr(other, "kw_" + name).restype = ctypes.c_int
         alone.append((os.path.basename(source), other))
     device = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,11 +6,14 @@ at least 64 bases). A batch of rows of at most MAX_READ_WINDOWS windows
 (the buckets of 64-512 bases) goes through ONE kernel, ``sriracha_reads``:
 a warp a read decodes its bases, sorts and dedups its valid canonical
 words in registers and counts, for every subject, the distinct words the
-subject holds. A wider batch takes two: the ``canonical_kmers`` kernel
-gives each window's canonical word and validity, and the
-``sriracha_counts`` kernel sorts and dedups each read's valid words (in
-shared memory, or in tiles for rows of more than MAX_SHARED_WORDS) and
-counts (``fused_route``). The scalar gates,
+subject holds. A batch of rows of at most MAX_BLOCK_WINDOWS windows (the
+buckets of 1024-16384 bases) goes through ONE kernel too,
+``sriracha_block``: the same function, a block a read. A wider batch takes
+two: the ``canonical_kmers`` kernel gives each window's canonical word and
+validity, and the ``sriracha_counts`` kernel sorts and dedups each read's
+valid words (in shared memory, or in tiles for rows of more than
+MAX_SHARED_WORDS) and counts (``fused_route``, ``fused_kernel``). The
+scalar gates,
 thresholding, perfect-match culling and ordering run on the host from
 those integer counts, so the matches are the host engine's, bit for bit.
 
@@ -50,7 +53,8 @@ from .engine import SearchMatch, SrirachaOptions, StreamStats
 MAX_DEVICE_K = 32
 BUCKET_CAP = 8              # candidate slots per hash row (the JAX _BUCKET_CAP)
 MAX_SHARED_WORDS = 1 << 14  # csrc/sriracha.cu kMaxSharedWords: a row above it sorts in tiles
-MAX_READ_WINDOWS = 512      # csrc/sriracha.cu kMaxReadWindows: the fused kernel's widest row
+MAX_READ_WINDOWS = 512      # csrc/sriracha.cu kMaxReadWindows: the warp kernel's widest row
+MAX_BLOCK_WINDOWS = 1 << 14  # csrc/sriracha_block.cuh kMaxBlockWindows: the block kernel's row
 MAX_TABLE_K = 13            # 4^13 * 4 B = 256 MiB per group (CPU)
 MAX_TABLE_K_CUDA = 14       # 1 GiB per group, as the JAX package allows on a TPU
 GROUP = 32                  # subjects per table group (one uint32 mask)
@@ -442,11 +446,19 @@ def counts_launch(words, valid, lengths, tables, out, scratch) -> tuple:
 
 
 def fused_route(width: int, k: int) -> bool:
-    """Whether a batch of reads ``width`` bases wide takes the fused
-    sriracha_reads kernel (rows of at most MAX_READ_WINDOWS windows: every
-    bucket of 64-512 bases at every k), rather than canonical_kmers and
+    """Whether a batch of reads ``width`` bases wide goes from ASCII to
+    counts in one launch (rows of at most MAX_BLOCK_WINDOWS windows: every
+    bucket of 64-16384 bases at every k), rather than canonical_kmers and
     sriracha_counts."""
-    return width - k + 1 <= MAX_READ_WINDOWS
+    return width - k + 1 <= MAX_BLOCK_WINDOWS
+
+
+def fused_kernel(width: int, k: int) -> str:
+    """The kernel of a batch on the fused route: ``sriracha_reads`` (a warp
+    a read) for rows of at most MAX_READ_WINDOWS windows, the buckets of
+    64-512 bases; else ``sriracha_block`` (a block a read), the buckets of
+    1024-16384 bases."""
+    return "sriracha_reads" if width - k + 1 <= MAX_READ_WINDOWS else "sriracha_block"
 
 
 def read_batch_counts(reads: torch.Tensor, lengths: torch.Tensor, tables,
@@ -454,10 +466,10 @@ def read_batch_counts(reads: torch.Tensor, lengths: torch.Tensor, tables,
     """ASCII reads uint8 [B, L] and lengths int32 [B] -> int32 [B, ns + 2]:
     per subject the distinct valid canonical words of the read it holds,
     then num_kmer and num_unique. ``out`` (optional) is a contiguous int32
-    [B, ns + 2] tensor to write into. CUDA tensors: the sriracha_reads_lut /
-    sriracha_reads_hash kernel where ``fused_route``, else the
-    canonical_kmers and sriracha_counts wrappers; CPU tensors:
-    read_batch_counts_ref."""
+    [B, ns + 2] tensor to write into. CUDA tensors: the kernel of
+    ``fused_kernel`` (sriracha_reads_* or sriracha_block_*, by the tables'
+    probe) where ``fused_route``, else the canonical_kmers and
+    sriracha_counts wrappers; CPU tensors: read_batch_counts_ref."""
     if reads.dim() != 2 or reads.dtype != torch.uint8:
         raise ValueError(f"expected uint8 reads [B, L], got {reads.dtype} {tuple(reads.shape)}")
     B, L = reads.shape
@@ -484,15 +496,17 @@ def read_batch_counts(reads: torch.Tensor, lengths: torch.Tensor, tables,
 
 
 def reads_launch(reads, lengths, tables, out) -> tuple:
-    """The C entry and arguments of one sriracha_reads launch over checked,
-    contiguous CUDA tensors, for ``kernels.launch``."""
+    """The C entry and arguments of one fused launch (``fused_kernel``'s,
+    by the tables' probe) over checked, contiguous CUDA tensors, for
+    ``kernels.launch``."""
     B, L = reads.shape
     stream = torch.cuda.current_stream(reads.device).cuda_stream
     head = (reads.data_ptr(), lengths.data_ptr())
+    name = f"{fused_kernel(L, tables.k)}_{tables.route}"
     if tables.route == "lut":
-        return ("sriracha_reads_lut", *head, tables.table.data_ptr(), out.data_ptr(), B, L,
+        return (name, *head, tables.table.data_ptr(), out.data_ptr(), B, L,
                 tables.k, tables.table.shape[1], tables.ns, out.shape[1], stream)
-    return ("sriracha_reads_hash", *head, tables.keys.data_ptr(), tables.masks.data_ptr(),
+    return (name, *head, tables.keys.data_ptr(), tables.masks.data_ptr(),
             tables.row0.data_ptr(), tables.bmask.data_ptr(), out.data_ptr(), B, L, tables.k,
             tables.ns, out.shape[1], stream)
 
@@ -659,8 +673,9 @@ def search_reads_device(
     overlap device work. Each slot packs its part of every batch of a span
     into one host staging buffer (pinned on a card), uploads it once,
     launches ``read_batch_counts`` per batch on its own stream (one
-    sriracha_reads launch, or canonical_kmers and sriracha_counts for a
-    bucket above 512 bases) into one device buffer int32 [its rows, ns + 2]
+    sriracha_reads launch for a bucket of 64-512 bases, one sriracha_block
+    launch for 1024-16384, else canonical_kmers and sriracha_counts) into
+    one device buffer int32 [its rows, ns + 2]
     and queues one
     asynchronous copy back, then records an event; the span's readback
     waits for every slot's event and puts the rows back in read order. No

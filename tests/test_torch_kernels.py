@@ -65,7 +65,8 @@ def test_reset_launch_counts():
         "canonical_kmers": 0, "murmur32": 0, "radix_sort_pairs": 0, "select_runs": 0,
         "bloom_set_bits": 0,
         "sriracha_counts_lut": 0, "sriracha_counts_hash": 0, "sriracha_reads_lut": 0,
-        "sriracha_reads_hash": 0, "subject_table": 0, "run_counts": 0, "merge_counts": 0}
+        "sriracha_reads_hash": 0, "sriracha_block_lut": 0, "sriracha_block_hash": 0,
+        "subject_table": 0, "run_counts": 0, "merge_counts": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -157,3 +158,20 @@ def test_sriracha_reads_entries_count_apart(monkeypatch):
                      "sriracha_reads_hash": before["sriracha_reads_hash"] + 2}
     assert len(kernels._ENTRIES["sriracha_reads_lut"]) == 11
     assert len(kernels._ENTRIES["sriracha_reads_hash"]) == 13
+
+
+def test_sriracha_block_entries_count_apart(monkeypatch):
+    """The block-a-read entries (reads of 1-16 kbp) take sriracha_reads'
+    arguments and count apart from them and from the two-launch route's
+    kernels."""
+    monkeypatch.setattr(kernels, "_LIB", _OkLib())
+    before = kernels.launch_counts()
+    kernels.launch("sriracha_block_lut", *[0] * 4, 512, 2048, 11, 1 << 22, 40, 42, 0)
+    kernels.launch("sriracha_block_hash", *[0] * 7, 64, 16384, 21, 40, 42, 0)
+    kernels.launch("sriracha_block_hash", *[0] * 7, 512, 16384, 21, 40, 42, 0)
+    after = kernels.launch_counts()
+    assert after == {**before, "sriracha_block_lut": before["sriracha_block_lut"] + 1,
+                     "sriracha_block_hash": before["sriracha_block_hash"] + 2}
+    for probe in ("lut", "hash"):
+        assert kernels._ENTRIES[f"sriracha_block_{probe}"] == \
+            kernels._ENTRIES[f"sriracha_reads_{probe}"]

@@ -391,17 +391,25 @@ def _hit_sets(b, lengths, k, seed, ns=40):
 
 @pytest.mark.parametrize("k", [1, 11, 21, 32])
 def test_fused_route_rule(k):
-    """Read buckets of 64-512 bases take the fused sriracha_reads kernel at
-    every k; 1024 and above (and the long rows) take canonical_kmers and
-    sriracha_counts."""
+    """Read buckets of 64-512 bases take the fused sriracha_reads kernel (a
+    warp a read) at every k, buckets of 1024-16384 the fused sriracha_block
+    kernel (a block a read); 32768 and above (the long rows) take
+    canonical_kmers and sriracha_counts."""
     for width in (64, 128, 256, 512):
-        assert tdev.fused_route(width, k)
-    for width in (1024, 2048, 32768, 65536):
+        assert tdev.fused_route(width, k) and tdev.fused_kernel(width, k) == "sriracha_reads"
+    for width in (1024, 2048, 4096, 8192, 16384):
+        assert tdev.fused_route(width, k) and tdev.fused_kernel(width, k) == "sriracha_block"
+    for width in (32768, 65536):
         assert not tdev.fused_route(width, k)
-    buckets = [tdev.pad_len(max(n, k)) for n in (0, 1, 64, 65, 150, 512, 513, 20_000)]
-    assert [tdev.fused_route(w, k) for w in buckets] == [True] * 6 + [False] * 2
-    assert tdev.fused_route(tdev.MAX_READ_WINDOWS + k - 1, k)
-    assert not tdev.fused_route(tdev.MAX_READ_WINDOWS + k, k)
+    sizes = (0, 1, 64, 65, 150, 512, 513, 1500, 16_384, 16_385, 20_000)
+    buckets = [tdev.pad_len(max(n, k)) for n in sizes]
+    assert [tdev.fused_route(w, k) for w in buckets] == [True] * 9 + [False] * 2
+    assert [tdev.fused_kernel(w, k) for w in buckets[:9]] == \
+        ["sriracha_reads"] * 6 + ["sriracha_block"] * 3
+    assert tdev.fused_kernel(tdev.MAX_READ_WINDOWS + k - 1, k) == "sriracha_reads"
+    assert tdev.fused_kernel(tdev.MAX_READ_WINDOWS + k, k) == "sriracha_block"
+    assert tdev.fused_route(tdev.MAX_BLOCK_WINDOWS + k - 1, k)
+    assert not tdev.fused_route(tdev.MAX_BLOCK_WINDOWS + k, k)
 
 
 def _edge_block(k, width, seed):
@@ -444,6 +452,52 @@ def test_read_batch_counts_edge_rows_match_jax(k, width):
         got = tdev.read_batch_counts(reads_t, lens_t, tables)
         np.testing.assert_array_equal(got.numpy(), want)
         assert want[:, :40].sum() > 0
+        assert (want[lengths < k] == 0).all()
+
+
+def _wide_block(k, width, seed):
+    """ASCII rows of a bucket of 1024-16384 bases: rows of 0, k - 1, k,
+    half the width, one more, the width less one and the width (the
+    bucket's edges), 1.2 kbp and random lengths, N at the first, 16th,
+    32nd and last base of a row, a run of Ns, a lowercase row and a row of
+    every byte value; about a third of the rows copied from one sequence,
+    so that subjects hold them."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    source = acgt[rng.integers(0, 4, size=width)]
+    lens = [0, k - 1, k, width // 2, width // 2 + 1, width - 1, width, min(1200, width)]
+    lens += rng.integers(k, width + 1, size=4).tolist()
+    b = np.zeros((len(lens), width), np.uint8)
+    for r, n in enumerate(lens):
+        b[r, :n] = source[:n] if r % 3 == 0 else acgt[rng.integers(0, 4, size=n)]
+    for r, pos in zip((3, 4, 5, 6), (0, 15, 31, width - 1)):
+        b[r, pos] = ord("N")
+    b[7, 100:140] = ord("N")
+    b[8, : lens[8]] = np.frombuffer(b"acgt", np.uint8)[rng.integers(0, 4, size=lens[8])]
+    b[9, : lens[9]] = np.arange(lens[9]) % 256
+    return b, np.array(lens, np.int32)
+
+
+@pytest.mark.parametrize("k", [11, 16, 17, 21, 32])
+@pytest.mark.parametrize("width", [1024, 2048, 16384])
+def test_block_route_widths_match_jax(k, width):
+    """read_batch_counts on CPU tensors (the plain version every CUDA batch
+    of the block kernel is held to) against the JAX kernels at widths of
+    the sriracha_block route (1024, 2048 and 16384 bases): rows around the
+    bucket's edges, N-bearing rows, rows shorter than k, lower case and
+    every byte value; both probes (the LUT where k <= 13), 40 subjects in
+    two groups."""
+    assert tdev.fused_kernel(width, k) == "sriracha_block"
+    b, lengths = _wide_block(k, width, 50 + k)
+    sets = _hit_sets(b, lengths, k, 51 + k)
+    subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+    reads_t, lens_t = torch.from_numpy(b), torch.from_numpy(lengths)
+    for lut in ([False, True] if k <= 13 else [False]):
+        want = _jax_read_counts(b, lengths, sets, k, lut)
+        tables = (tdev.build_lut_tables if lut else tdev.build_hash_tables)(subj, k, CPU)
+        got = tdev.read_batch_counts(reads_t, lens_t, tables)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want[:, :40].sum() > 0 and want[6, 40] == width - k
         assert (want[lengths < k] == 0).all()
 
 
@@ -597,6 +651,137 @@ def test_warp_layout_emulation_matches_ref(k, P):
                                           tables).numpy()
         probe = _np_probe(tables)
         got = np.stack([_warp_read(b[r], lengths[r], k, P, probe, tables.ns)
+                        for r in range(b.shape[0])])
+        np.testing.assert_array_equal(got, want)
+        assert want[:, :40].sum() > 0
+
+
+def _block_read(row, length, k, P, probe, ns):
+    """One read through csrc/sriracha_block.cuh's sriracha_block_kernel as
+    a block of T = P / 16 threads runs it, in numpy: the staged 2-bit codes and ok
+    bits; thread t's canonical words of windows 16 t .. 16 t + 15 (packed
+    words t .. t + 2, validity words t / 2 and t / 2 + 1); the bitonic
+    network with strides below 16 inside a thread, strides of 16-256 as xor
+    exchanges with lane l ^ (stride / 16), and a level's strides of 512 and
+    more in shared memory, up to four a pass, each thread owning the slots
+    ``tile_strides`` gives it; the dedup against thread t - 1's last slot;
+    the distinct words compacted warp by warp, slot column by slot column,
+    a ballot's lanes in order; thread t probing words t, t + T, ...; the
+    counts by warp over the union of its masks, then added up. -> int
+    [ns + 2]."""
+    S, T = 16, P // 16
+    log_p = P.bit_length() - 1
+    n_len = min(int(length), row.size)
+    n_fit = max(n_len - k + 1, 0)
+    bases = np.zeros(P + 32, np.uint8)
+    bases[:n_len] = row[:n_len]
+    inside = np.arange(P + 32) < n_len
+    codes = np.where(inside, _CODE[bases], _U(0))
+    oks = (inside & _OK[bases]).astype(np.uint64)
+    shifts = _U(2) * np.arange(16, dtype=np.uint64)
+    packed = (codes.reshape(-1, 16) << shifts).sum(axis=1).astype(np.uint64)
+    ok16 = (oks.reshape(-1, 16) << np.arange(16, dtype=np.uint64)).sum(axis=1)
+    validw = ok16[0::2] | (ok16[1::2] << _U(16))
+    mask = _U((1 << (2 * k)) - 1)
+    mask_lo, mask_hi = mask & _U(0xFFFFFFFF), mask >> _U(32)
+    kmask = _U((1 << k) - 1)
+    t = np.arange(T)[:, None]
+    e = np.arange(S)[None, :]
+    j = S * t + e
+    sh = _U(2) * e.astype(np.uint64)
+    s_lo = _funnel(packed[t], packed[t + 1], sh) & mask_lo
+    s_hi = _funnel(packed[t + 1], packed[t + 2], sh) & mask_hi
+    anti = ((s_hi ^ mask_hi) << _U(32)) | (s_lo ^ mask_lo)
+    rev = (_swap_pairs(_brev32(s_lo)) << _U(32)) | _swap_pairs(_brev32(s_hi))
+    word = np.minimum(rev >> _U(64 - 2 * k), anti)
+    bit = ((t & 1) * 16 + e).astype(np.uint64)
+    ok = (j < n_fit) & (_funnel(validw[t >> 1], validw[(t >> 1) + 1], bit) & kmask == kmask)
+    v = np.where(ok, word, _U((1 << (32 if k <= 16 else 64)) - 1))
+    lane = t & 31
+
+    def exchange(a, c, asc):
+        lo, hi = np.minimum(a, c), np.maximum(a, c)
+        return np.where(asc, lo, hi), np.where(asc, hi, lo)
+
+    for ls in range(1, log_p + 1):
+        if ls > 9:
+            flat = v.reshape(-1).copy()    # slot 16 t + e (the padding moves no slot)
+            hi = ls
+            while hi > 9:
+                b = max(hi - 4, 9)
+                nl = hi - b
+                g = np.arange(P >> nl)
+                first = ((g >> b) << (b + nl)) | (g & ((1 << b) - 1))
+                idx = first[:, None] | (np.arange(1 << nl)[None, :] << b)
+                vals = flat[idx]
+                asc = (((first >> ls) & 1) == 0)[:, None]
+                for lt in range(nl - 1, -1, -1):
+                    for x in range(1 << nl):
+                        if not x & (1 << lt):
+                            y = x | (1 << lt)
+                            lo_hi = exchange(vals[:, [x]], vals[:, [y]], asc)
+                            vals[:, [x]], vals[:, [y]] = lo_hi
+                flat[idx] = vals
+                hi = b
+            v = flat.reshape(T, S)
+        up = ((t >> max(ls - 4, 0)) & 1) == 0
+        for lt in range(min(ls, 9) - 1, 3, -1):
+            lx = 1 << (lt - 4)
+            other = v[np.arange(T) ^ lx]
+            keep_min = ((lane & lx) == 0) == up
+            v = np.where(keep_min, np.minimum(v, other), np.maximum(v, other))
+        for lt in (3, 2, 1, 0):
+            if lt >= ls:
+                continue
+            for x in range(S):
+                if not x & (1 << lt):
+                    y = x | (1 << lt)
+                    asc = up if ls >= 4 else np.full((T, 1), ((x >> ls) & 1) == 0)
+                    v[:, [x]], v[:, [y]] = exchange(v[:, [x]], v[:, [y]], asc)
+    assert (np.diff(v.reshape(-1).astype(object)) >= 0).all(), "the network did not sort"
+    n = int(ok.sum())
+    left = np.concatenate([v[:1, :1], v[:-1, -1:]])    # thread t - 1's last slot
+    prev = np.concatenate([left, v[:, :-1]], axis=1)
+    distinct = (j < n) & ((j == 0) | (v != prev))
+    nw = T // 32
+    front = v.reshape(nw, 32, S).transpose(0, 2, 1)[distinct.reshape(nw, 32, S)
+                                                     .transpose(0, 2, 1)]
+    nu = front.size
+    word_of = e * T + t
+    probed = word_of < nu
+    out = np.zeros(ns + 2, np.int64)
+    for g, s0 in enumerate(range(0, ns, 32)):
+        m = np.where(probed, probe(g, front[np.minimum(word_of, max(nu - 1, 0))]
+                                   if nu else np.zeros_like(word_of, np.uint64)), 0)
+        m = m.astype(np.uint64).reshape(nw, 32 * S)
+        for w in range(nw):
+            union = int(np.bitwise_or.reduce(m[w]))
+            for b in range(min(32, ns - s0)):
+                if union >> b & 1:
+                    out[s0 + b] += int(((m[w] >> _U(b)) & _U(1)).sum())
+    out[ns], out[ns + 1] = n, nu
+    return out
+
+
+@pytest.mark.parametrize("P", [1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("k", [1, 11, 16, 17, 21, 32])
+def test_block_layout_emulation_matches_ref(k, P):
+    """csrc/sriracha_block.cuh's block kernel emulated in numpy, thread by
+    thread (``_block_read``): it gives read_batch_counts_ref's counts on seeded
+    batches whose rows sort at P = 1024 to 16384 slots, with 32-bit
+    (k <= 16) and 64-bit keys."""
+    b, lengths = _read_block(60 + P + k, 12 if P <= 4096 else 10, P, k)
+    assert tdev.fused_kernel(P, k) == "sriracha_block"
+    sets = _hit_sets(b, lengths, k, 61 + k)
+    subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+    routes = [tdev.build_hash_tables(subj, k, CPU)]
+    if k <= 13:
+        routes.append(tdev.build_lut_tables(subj, k, CPU))
+    for tables in routes:
+        want = tdev.read_batch_counts_ref(torch.from_numpy(b), torch.from_numpy(lengths),
+                                          tables).numpy()
+        probe = _np_probe(tables)
+        got = np.stack([_block_read(b[r], lengths[r], k, P, probe, tables.ns)
                         for r in range(b.shape[0])])
         np.testing.assert_array_equal(got, want)
         assert want[:, :40].sum() > 0
@@ -1057,6 +1242,37 @@ def test_sriracha_reads_match_ref(cuda_device):
             got = tdev.read_batch_counts(reads, lens, tables)
             after = kernels.launch_counts()
             name = f"sriracha_reads_{tables.route}"
+            assert after == {**before, name: before[name] + 1}
+            assert torch.equal(got, want), (k, L, off, tables.route)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sriracha_block_match_ref(cuda_device):
+    """The block-a-read entries against read_batch_counts_ref at buckets of
+    1024-16384 bases (P = 1024 to 2^14 sort slots), at every k branch, at
+    a width that is no power of two and one of 2^14 + k - 1 (2^14 windows),
+    and on reads one byte off a 16-byte boundary; one launch a batch,
+    counted under its probe."""
+    for k, L, off in ((3, 1024, 0), (11, 2048, 0), (13, 4096, 0), (14, 1024, 1), (16, 8192, 0),
+                      (17, 16384, 0), (21, 1500, 0), (21, 16384 + 20, 0), (31, 2048, 1),
+                      (32, 16384, 0)):
+        b, lengths = _wide_block(k, L, 70 + k)
+        sets = _hit_sets(b, lengths, k, 71 + k)
+        subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+        flat = torch.zeros(b.size + off, dtype=torch.uint8, device=cuda_device)
+        reads = flat[off:].view(b.shape)
+        reads.copy_(torch.from_numpy(b))
+        lens = torch.from_numpy(lengths).to(cuda_device)
+        routes = [tdev.build_hash_tables(subj, k, cuda_device)]
+        if k <= 14:
+            routes.append(tdev.build_lut_tables(subj, k, cuda_device))
+        for tables in routes:
+            want = tdev.read_batch_counts_ref(reads, lens, tables)
+            before = kernels.launch_counts()
+            got = tdev.read_batch_counts(reads, lens, tables)
+            after = kernels.launch_counts()
+            name = f"sriracha_block_{tables.route}"
             assert after == {**before, name: before[name] + 1}
             assert torch.equal(got, want), (k, L, off, tables.route)
     torch.cuda.synchronize()
