@@ -97,10 +97,15 @@ phase's wall; any failure raises and exits non-zero:
               --max-results 100: each TSV must equal the host engine's
               (the same CLI without ``--device``, in the machine's cores,
               HOST_THREADS) byte for byte, and
-              the subjects hit only by 20 kbp reads must list exactly those;
+              the subjects hit only by 20 kbp reads must list exactly those
+              and the five edge reads below;
               the 150 bp reads' batches take the fused sriracha_reads kernel
               of the run's probe and the 20 kbp reads' canonical_kmers and
-              sriracha_counts, and the other probe's kernels never launch.
+              sriracha_counts (with five reads of 16385-16405 bp, on both
+              sides of 2^14 windows at k = 11 and 21: the rows that
+              sriracha_counts' block kernel sorts from words, and the tile
+              chain's shortest), and the other probe's kernels never
+              launch.
               Mbp/s, the device path's profile and the host's Mbp/s. Then
               twice more, (C) k=21 and (D) k=11, over 8,192 long reads (an
               ONT run's ~1.2 kbp amplicons of the subjects, and genomic
@@ -185,7 +190,16 @@ phase's wall; any failure raises and exits non-zero:
               version at 512 x 2048, 64 x 16384 and 512 x 16384 (1.5 and 15
               kbp reads; k = 11 LUT, k = 21 hash), each timed beside the
               words route, and on edge rows of the 2048 bucket and of 2^14
-              + k - 1 bases at k = 3, 13, 14, 16, 31, 32. run_counts and
+              + k - 1 bases at k = 3, 13, 14, 16, 31, 32. The words entry
+              (sriracha_counts_lut / _hash: its rows of at most 2^14
+              windows on the same block kernel, from canonical words; the
+              longer ones in tiles) == the plain version at those three
+              shapes and the two 2^15-base batches, each timed beside the
+              first design's time, and on [8, 32768] rows of 0, k - 1,
+              16385, 16384 + k - 1, 16384 + k, 20, 26 and 32 kbp at k = 1,
+              3, 11, 13, 14, 16, 17, 21, 31, 32 (timed at k = 11 LUT and
+              21 hash), also from words and flags 8 bytes off a 16-byte
+              boundary (k = 11, 21, 32). run_counts and
               merge_counts at a 46 Mbp accession's shape and at a real
               accession's (a chunk of 2^27 windows; 2^28 + 2^26 words
               merged), run_counts beside torch.unique_consecutive; at the
@@ -298,7 +312,7 @@ from kwage_tpu_torch.core import FilterInfo, accession_to_str, str_to_accession
 from kwage_tpu_torch.core.params import BloomParam
 from kwage_tpu_torch.bench import search_phases
 from kwage_tpu_torch.bench._common import card_identity, exact_bloom
-from kwage_tpu_torch.bench.sriracha import probe_work, read_block, reads_work
+from kwage_tpu_torch.bench.sriracha import counts_work, read_block, reads_work
 from kwage_tpu_torch.bench.search_routes import (
     H2D_BYTES,
     batch_for_share,
@@ -387,6 +401,10 @@ SR_RUNS = [("A", 21, 0.8, SR_READS), ("B", 11, 0.8, SR_READS)]
 # subjects (SARS-CoV-2-sized genomes) and genomic ONT or PacBio reads
 # log-uniform in 1-16 kbp, with reads on the buckets' edges: every read in
 # a bucket of 1024-16384 bases (the sriracha_block route).
+# Reads on both sides of 2^14 windows at k = 11 and 21 (16384 + k - 1 and
+# 16384 + k bp) and of 16385 bp: the 32768 bucket's rows that the block
+# kernel sorts from canonical words, and its first rows of the tile chain.
+SR_EDGE_BP = [16385, 16394, 16395, 16404, 16405]
 LR_READS = 8192
 LR_AMPLICON_BP, LR_AMPLICON_SPREAD = 1200, 100
 LR_GENOMIC_BP = (1000, 16000)
@@ -1695,8 +1713,9 @@ def make_sriracha_data(work: str, rng, n_reads: int) -> tuple[str, str, int]:
     of them exact), 75% random background, 5% low-complexity (poly-A,
     dinucleotide repeats), N-bearing or shorter than k; then SR_LONG reads
     of SR_LONG_BP, half from the last SR_LONG_ONLY subjects (which no short
-    read comes from), half random, in random places. Returns (queries,
-    reads, bases)."""
+    read comes from), half random, and one read of each SR_EDGE_BP from
+    those last subjects (below their 100-match cap), in random places.
+    Returns (queries, reads, bases)."""
     genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
     queries = os.path.join(work, "queries.fasta")
     with open(queries, "wb") as f:
@@ -1721,13 +1740,18 @@ def make_sriracha_data(work: str, rng, n_reads: int) -> tuple[str, str, int]:
     short = set(nbear[0::2].tolist())           # half of them: 5-20 bp
     short_len = dict(zip(sorted(short), rng.integers(5, 21, size=len(short)).tolist()))
     longs = {}
-    for j, pos in enumerate(rng.choice(n_reads, size=SR_LONG, replace=False).tolist()):
+    places = rng.choice(n_reads, size=SR_LONG + len(SR_EDGE_BP), replace=False).tolist()
+    for j, pos in enumerate(places[:SR_LONG]):
         if j % 2 == 0:
             g = genomes[SR_SUBJECTS - SR_LONG_ONLY + (j // 2) % SR_LONG_ONLY]
             a = int(rng.integers(0, SR_SUBJECT_BP - SR_LONG_BP + 1))
             longs[pos] = ACGT[mutate(rng, g[a : a + SR_LONG_BP])].tobytes()
         else:
             longs[pos] = ACGT[rng.integers(0, 4, size=SR_LONG_BP)].tobytes()
+    for j, (pos, n) in enumerate(zip(places[SR_LONG:], SR_EDGE_BP)):
+        g = genomes[SR_SUBJECTS - SR_LONG_ONLY + j % SR_LONG_ONLY]
+        a = int(rng.integers(0, SR_SUBJECT_BP - n + 1))
+        longs[pos] = ACGT[mutate(rng, g[a : a + n])].tobytes()
     path = os.path.join(work, f"SRR9{n_reads:06d}.fastq")
     total = 0
     with open(path, "wb") as f:
@@ -1836,7 +1860,8 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
             t0 = time.perf_counter()
             data[n_reads] = make_sriracha_data(work, np.random.default_rng(seed + 4), n_reads)
             print(f"phase 8 data: {SR_SUBJECTS} queries x {SR_SUBJECT_BP} bp, {n_reads} reads "
-                  f"+ {SR_LONG} of {SR_LONG_BP} bp, {data[n_reads][2] / 1e6:.1f} Mbp "
+                  f"+ {SR_LONG} of {SR_LONG_BP} bp + one of each {SR_EDGE_BP} bp, "
+                  f"{data[n_reads][2] / 1e6:.1f} Mbp "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
         queries, path, bp = data[n_reads]
         args = ["-k", str(k), "-t", str(t), "-i", queries, path]
@@ -1859,6 +1884,8 @@ def run_sriracha(work: str, device: torch.device, seed: int, runs=SR_RUNS,
             hits = [r for r in rows if r[4] == b"query %d" % q and len(r[3]) == SR_LONG_BP]
             check(len(hits) == SR_LONG // 2 // SR_LONG_ONLY,
                   f"run {tag}: query {q} lists {len(hits)} 20 kbp reads, not its own")
+        edges = sorted({len(r[3]) for r in rows} & set(SR_EDGE_BP))
+        check(edges == SR_EDGE_BP, f"run {tag}: of the edge reads {SR_EDGE_BP} bp, {edges} listed")
         shown = {k2: round(v, 3) for k2, v in prof.items() if k2.endswith("_s")}
         print(f"phase 8 sriracha run {tag}: k={k} -t {t}, {n_reads} reads + {SR_LONG} long, "
               f"{bp / 1e6:.1f} Mbp; --device {t_dev:.2f} s ({bp / 1e6 / t_dev:.2f} Mbp/s, "
@@ -3804,6 +3831,36 @@ def wide_rows(rng, genomes: np.ndarray, k: int, W: int,
     return torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
 
 
+def edge_rows(rng, genomes: np.ndarray, k: int,
+              device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """[8, 32768] reads on ``device``: rows of 0, k - 1, 16385, 16384 + k -
+    1 and 16384 + k bases and of 20, 26 and 32 kbp, each from a subject
+    with SUB_RATE substitutions (repeated past the subject's end), 100 Ns
+    in the 16385-base row."""
+    lengths = np.array([0, k - 1, 16385, 16384 + k - 1, 16384 + k, 20_000, 26_000, 32_000],
+                       np.int32)
+    b = np.zeros((8, 1 << 15), np.uint8)
+    for r, n in enumerate(lengths):
+        b[r, :n] = ACGT[np.resize(mutate(rng, genomes[r]), n)]
+    b[2, 5000:5100] = ord("N")
+    return torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
+
+
+# sriracha_counts' ms (launches in a row) before the block kernel took its
+# rows of at most 2^14 windows, when a block of at most 256 threads sorted
+# each such row (NVIDIA H100 80GB HBM3, 700.00 W): (probe, k, shape) -> ms.
+COUNTS_FIRST_MS = {
+    ("lut", 11, "[512, 2048]"): 0.0732, ("lut", 11, "[64, 16384]"): 0.3190,
+    ("lut", 11, "[512, 16384]"): 1.2535, ("hash", 21, "[512, 2048]"): 0.1069,
+    ("hash", 21, "[64, 16384]"): 0.4273, ("hash", 21, "[512, 16384]"): 1.6222,
+    ("lut", 11, "[4, 32768], 3 long reads,"): 0.1272,
+    ("hash", 21, "[4, 32768], 3 long reads,"): 0.1427,
+    ("hash", 11, "[4, 32768], 3 long reads,"): 0.1439,
+    ("lut", 11, "[512, 32768], 3 long reads,"): 0.1494,
+    ("hash", 21, "[512, 32768], 3 long reads,"): 0.1683,
+}
+
+
 def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
                            results: dict) -> None:
     """sriracha_reads and sriracha_counts (both probes), subject_table and
@@ -3825,10 +3882,14 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
     and at widths 150, 200 and 543 and in views one byte off a 16-byte
     boundary at k = 1, 11, 21, 32; on batches of the path's long-read
     shape (4 x 2^15 and 512 x 2^15: reads of 2^15 bases and 20 kbp, the
-    rest empty; the tiled sort), timed; on batches that mix rows of 0, 1,
+    rest empty; the tiled sort), timed; sriracha_counts on [8, 32768] rows
+    of 0, k - 1, 16385, 16384 + k - 1, 16384 + k and 20-32 kbp at every k
+    branch, timed at k = 11 and 21, and from words 8 bytes off a 16-byte
+    boundary; on batches that mix rows of 0, 1,
     2^14 - 1, 2^14, 2^14 + 1 and more valid words
     (2^15 and 2^16 buckets). Then both probes timed at 8 k, 64 k, 256 k and
-    1 M k-mers per group at k = 11, by both routes."""
+    1 M k-mers per group at k = 11, by both routes. A timed sriracha_counts
+    line names the first design's time at its shape (COUNTS_FIRST_MS)."""
     rng = np.random.default_rng(seed + 5)
     stream = torch.cuda.current_stream(device).cuda_stream
     genomes = rng.integers(0, 4, size=(SR_SUBJECTS, SR_SUBJECT_BP), dtype=np.uint8)
@@ -3869,7 +3930,8 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
                      f"words; plain {plain:.3f} ms")
 
     def counts(tag, words, valid, lens, tables, timed):
-        """One comparison of sriracha_counts with its plain version."""
+        """One comparison of sriracha_counts with its plain version; a timed
+        one beside the first design's time at its shape, where known."""
         got = tsr.sriracha_counts(words, valid, lens, tables)
         want = tsr.sriracha_counts_ref(words, valid, lens, tables)
         err = max_abs_err(got, want)
@@ -3880,12 +3942,7 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
             launch = tsr.counts_launch(words, valid, lens, tables, got, scratch)
             ms = cuda_ms(lambda: kernels.launch(*launch), 20)
             plain = cuda_ms(lambda: tsr.sriracha_counts_ref(words, valid, lens, tables), 3)
-            # Bytes: the word and flag of every window that fits its read
-            # (the rest are never read), the lengths in, the counts out, and
-            # probe_work's table bytes; operations: probe_work's.
-            fit = int((lens.long() - tables.k + 1).clamp(0, words.shape[1]).sum())
-            nbytes, nops = probe_work(words, valid, lens, tables)
-            nbytes += fit * (words.element_size() + valid.element_size()) + nbytes_of(lens, got)
+            nbytes, nops = counts_work(words, valid, lens, tables)
         hits = int(want[:, : tables.ns].sum())
         check(hits > 0, f"sriracha_counts {tag}: no subject hit")
         n_long = int((want[:, tables.ns] > tsr.MAX_SHARED_WORDS).sum())
@@ -3894,6 +3951,9 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
             b = bound(nbytes, nops)
             note += (f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']}: {nbytes} bytes, "
                      f"{nops} operations; share {b['bound_ms'] / ms:.3f}")
+            first = COUNTS_FIRST_MS.get((tables.route, tables.k, tag.split(" k=")[0]))
+            if first is not None:
+                note += f"; the first design {first:.4f} ms"
         record(f"sriracha_counts_{tables.route}", tag, err, ms, plain, note + ")", nbytes, nops)
 
     def kmers(tag, ascii_reads, k):
@@ -4048,6 +4108,42 @@ def sriracha_kernel_checks(device: torch.device, seed: int, record, lines: list,
                        True)
         del routes, words, valid, long_reads
         torch.cuda.empty_cache()
+
+    # The 32768 bucket's edge rows at every k branch: rows of 0, k - 1,
+    # 16385, 16384 + k - 1 and 16384 + k bases (both sides of 2^14 windows:
+    # the block kernel from words, then the tile chain) and of 20, 26 and
+    # 32 kbp, by both probes; timed at k = 11 (LUT) and 21 (hash); at k =
+    # 11, 21 and 32 also from words and flags 8 bytes off a 16-byte
+    # boundary.
+    edged = []
+    for k in (1, 3, 11, 13, 14, 16, 17, 21, 31, 32):
+        subj = subject_sets(genomes, k)
+        routes = [tsr.build_hash_tables(subj, k, device)]
+        if k <= tsr.MAX_TABLE_K_CUDA:
+            routes.append(tsr.build_lut_tables(subj, k, device))
+        edge_reads, edge_lens = edge_rows(rng, genomes, k, device)
+        words, valid = tk.canonical_kmers(edge_reads, k)
+        tag = f"[8, 32768] k={k}"
+        for tables in routes:
+            counts(tag, words, valid, edge_lens, tables,
+                   (k, tables.route) in ((11, "lut"), (21, "hash")))
+            edged.append(f"k={k} {tables.route}")
+        if k in (11, 21, 32):
+            n = words.numel()
+            w_off = torch.empty(n + 1, dtype=torch.int64, device=device)[1:].view(words.shape)
+            v_off = torch.empty(n + 8, dtype=torch.bool, device=device)[8:].view(valid.shape)
+            w_off.copy_(words)
+            v_off.copy_(valid)
+            check(w_off.data_ptr() % 16 == 8 and v_off.data_ptr() % 16 == 8,
+                  f"words at {w_off.data_ptr() % 16}, flags at {v_off.data_ptr() % 16} mod 16")
+            for tables in routes:
+                counts(f"{tag} 8 bytes off", w_off, v_off, edge_lens, tables, False)
+                edged.append(f"k={k} {tables.route} 8 bytes off")
+            del w_off, v_off
+        del routes, words, valid, edge_reads
+        torch.cuda.empty_cache()
+    lines.append("sriracha_counts == plain on [8, 32768] (rows of 0, k - 1, 16385, 16384 + k - 1, "
+                 "16384 + k, 20000, 26000 and 32000 bases): " + ", ".join(edged))
 
     # Rows on both sides of the tile size in one batch: 0, 1, 2^14 - 1, 2^14,
     # 2^14 + 1 and 2^15 - k + 1 valid words (no N: every window valid), and

@@ -131,6 +131,19 @@ def probe_work(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Tensor,
     return table_bytes(s[distinct], tables), nops
 
 
+def counts_work(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Tensor,
+                tables) -> tuple[int, int]:
+    """(bytes, operations) of the function of one sriracha_counts launch on
+    canonical words int64 and validity [B, nwin]: the word and flag of
+    every window that fits its read (the rest are never read), the lengths
+    and the counts once, and ``probe_work``'s."""
+    B, nwin = words.shape
+    fit = int((lengths.long() - tables.k + 1).clamp(0, nwin).sum())
+    nbytes, nops = probe_work(words, valid, lengths, tables)
+    return (nbytes + fit * (words.element_size() + valid.element_size()) + 4 * B
+            + 4 * B * (tables.ns + 2), nops)
+
+
 def reads_work(reads: torch.Tensor, lengths: torch.Tensor, tables) -> tuple[int, int]:
     """(bytes, operations) of the function of one fused launch
     (sriracha_reads or sriracha_block) on ASCII reads uint8 [B, L]: the reads, the lengths and the counts once,

@@ -28,21 +28,19 @@
 // latency-bound gathers (a 4^11 LUT, 16 MiB a group, sits in the 50 MB L2;
 // a 4^14 one, 1 GiB, does not). subject_table: one atomicOr per word.
 //
-// Design: one block per read. The block compacts the read's valid words
-// into shared memory (a shared counter hands out slots: the validity flag,
-// never the word's value, decides what is kept), pads them with all-ones
-// to the next power of two P and bitonic-sorts them there under unsigned
-// 64-bit order, log2(P)(log2(P)+1)/2 passes with a barrier each and no
-// global traffic (a 150 bp read sorts at most 256 words, 2 KiB). The first
-// n sorted slots are the n valid words whatever their values, so the k = 32
+// Design of sriracha_counts: the rows of at most 2^14 windows in their
+// read go through the block kernel of sriracha_block.cuh with its words
+// source (sriracha_words_lut.cu, sriracha_words_hash.cu), one launch over
+// all B rows at any nwin, which writes zeros for every longer row. It sorts
+// a row's words under unsigned order with invalid windows as all-ones; the
+// validity flag, never the word's value, decides what is kept: the first n
+// sorted slots are the n valid words whatever their values, so the k = 32
 // word -1 needs no special case. Distinct words (slots that differ from
-// their left neighbour) are probed once per group; the set bits of each
-// mask go to 32 shared counters by atomicAdd (integer, order-free: bit-exact
-// run to run). All groups' tables are one allocation (LUT [G, 4^k]; hash
-// rows concatenated with a first row and a bucket mask per group), so the
-// sort runs once and one launch probes every group. On the read path this
-// design now sorts only the rows of at most 2^14 windows in a batch wider
-// than that (reads of 16385 to 16384 + k - 1 bp in the 32768 bucket).
+// their left neighbour) are probed once per group and their masks' set bits
+// counted (integer, order-free: bit-exact run to run). All groups' tables
+// are one allocation (LUT [G, 4^k]; hash rows concatenated with a first row
+// and a bucket mask per group), so the sort runs once and one launch probes
+// every group.
 //
 // sriracha_reads. Bound: the reads' bytes, the lengths and the counts,
 // then the same table entry a distinct word and group; the 9 bytes a window
@@ -67,15 +65,15 @@
 // and one warp reduction a hit subject counts its set bits; lane s keeps
 // subject s's count and writes it. Nothing is atomic: bit-exact run to run.
 //
-// Long rows (more than 2^14 windows that fit the read: reads over 16 kbp)
-// do not fit a block's shared memory. The first version sorted such a row
-// with ONE block in global memory (120 passes with a barrier each at P =
-// 2^15: 1.7-1.8 ms a batch). Now a batch wide enough to hold long rows
-// (nwin > 2^14) comes with a scratch slab [B, P]; the per-read kernel only
-// zeroes a long row's outputs, and a short chain of launches over (tile,
-// row) blocks, in which a short row's blocks leave at once (every kernel
-// reads the row's length as the per-read kernel does), sorts the long rows
-// across blocks in tiles of 2^14 words (128 KiB of shared memory):
+// Long rows (more than 2^14 windows that fit the read: reads of more than
+// 2^14 + k - 1 bases) do not fit a block's shared memory. The first version
+// sorted such a row with ONE block in global memory (120 passes with a
+// barrier each at P = 2^15: 1.7-1.8 ms a batch). Now a batch wide enough to
+// hold long rows (nwin > 2^14) comes with a scratch slab [B, P]; the block
+// launch only zeroes a long row's outputs, and a short chain of launches
+// over (tile, row) blocks, in which a short row's blocks leave at once
+// (every kernel reads the row's length as the block kernel does), sorts the
+// long rows across blocks in tiles of 2^14 words (128 KiB of shared memory):
 //   1. long_tile_sort: block (tile, row) loads its 2^14 windows (invalid
 //      ones as all-ones), adds its valid count to the row's num_kmer, runs
 //      every stage up to 2^14 in shared memory, four stages a barrier (each
@@ -143,80 +141,6 @@ __device__ __forceinline__ void tile_level(uint64_t* s, int log_top, int64_t bas
   }
 }
 
-template <typename Probe>
-__global__ void sriracha_counts_kernel(const int64_t* __restrict__ words,
-                                       const uint8_t* __restrict__ valid,
-                                       const int32_t* __restrict__ lengths,
-                                       int64_t nwin, int k, Probe probe, int ns,
-                                       int32_t* __restrict__ out,
-                                       int64_t out_stride) {
-  extern __shared__ uint64_t s[];
-  __shared__ int n_valid, n_unique;
-  __shared__ int cnt[32];
-  const int64_t r = blockIdx.x;
-  const int64_t last = fitting_windows(lengths, r, nwin, k);
-  if (last > kMaxSharedWords) {
-    // A long row: the tile kernels add into its zeroed outputs.
-    for (int i = threadIdx.x; i < ns + 2; i += blockDim.x) out[r * out_stride + i] = 0;
-    return;
-  }
-  if (threadIdx.x == 0) {
-    n_valid = 0;
-    n_unique = 0;
-  }
-  __syncthreads();
-
-  // Compact the valid windows' words (slot order is arbitrary).
-  const int64_t* wr = words + r * nwin;
-  const uint8_t* vr = valid + r * nwin;
-  for (int64_t j = threadIdx.x; j < last; j += blockDim.x)
-    if (vr[j]) s[atomicAdd(&n_valid, 1)] = (uint64_t)wr[j];
-  __syncthreads();
-  const int n = n_valid;
-  int P = 1;
-  while (P < n) P <<= 1;
-  for (int i = n + threadIdx.x; i < P; i += blockDim.x) s[i] = ~0ull;
-  __syncthreads();
-
-  // Bitonic sort of s[0, P), unsigned.
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (P >> 1); t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        compare_exchange(s, i, i + stride, (i & size) == 0);
-      }
-      __syncthreads();
-    }
-  }
-
-  int local = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    local += (i == 0 || s[i] != s[i - 1]);
-  if (local) atomicAdd(&n_unique, local);
-
-  for (int s0 = 0, g = 0; s0 < ns; s0 += 32, ++g) {
-    const int nsg = ns - s0 < 32 ? ns - s0 : 32;
-    if (threadIdx.x < 32) cnt[threadIdx.x] = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint64_t w = s[i];
-      if (i > 0 && w == s[i - 1]) continue;
-      uint32_t m = probe(g, w);
-      while (m) {
-        const int bit = __ffs(m) - 1;
-        if (bit < nsg) atomicAdd(&cnt[bit], 1);
-        m &= m - 1;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < nsg) out[r * out_stride + s0 + threadIdx.x] = cnt[threadIdx.x];
-  }
-  if (threadIdx.x == 0) {
-    out[r * out_stride + ns] = n;
-    out[r * out_stride + ns + 1] = n_unique;
-  }
-}
-
 // --- long rows: tiles of kTile sort slots across blocks -------------------
 
 // Block (tile, row): the tile's windows into shared memory (invalid ones and
@@ -235,7 +159,7 @@ __global__ void __launch_bounds__(kTileThreads) long_tile_sort_kernel(const int6
   const int64_t r = blockIdx.y;
   const int64_t base = (int64_t)blockIdx.x * kTile;
   const int64_t last = fitting_windows(lengths, r, nwin, k);
-  if (last <= kMaxSharedWords) return;  // the per-read kernel's row
+  if (last <= kMaxSharedWords) return;  // the block kernel's row
   const int64_t* wr = words + r * nwin;
   const uint8_t* vr = valid + r * nwin;
   if (threadIdx.x == 0) n_valid = 0;
@@ -343,44 +267,33 @@ int64_t next_pow2(int64_t x) {
   return p;
 }
 
-// One per-read launch over all B rows; then, when the batch is wide enough
-// to hold long rows (nwin > 2^14; scratch uint64 [B, next_pow2(nwin)]), the
-// tile chain over (tile, row) blocks, on the same stream.
+// The tile chain over (tile, row) blocks of a batch wide enough to hold
+// long rows (nwin > 2^14; scratch uint64 [B, next_pow2(nwin)]), on the
+// stream, after the block launch has zeroed those rows' outputs; nothing
+// for a narrower batch.
 template <typename Probe>
-int launch_counts(const void* words, const void* valid, const void* lengths,
-                  Probe probe, void* out, void* scratch, int64_t B, int64_t nwin,
-                  int64_t k, int64_t ns, int64_t out_stride, void* stream) {
-  const int64_t P = next_pow2(nwin);
-  const bool wide = nwin > kMaxSharedWords;
-  if (B < 0 || nwin < 1 || k < 1 || k > 32 || ns < 1 || out_stride < ns + 2 ||
-      P > (int64_t)1 << 30 || (wide && (scratch == nullptr || B > 65535)))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  static bool configured = false;  // per Probe
+int launch_long(const void* words, const void* valid, const void* lengths, Probe probe,
+                void* out, void* scratch, int64_t B, int64_t nwin, int64_t k, int64_t ns,
+                int64_t out_stride, void* stream) {
+  if (B == 0 || nwin <= kMaxSharedWords) return 0;
+  static bool configured = false;
   if (!configured) {
-    cudaError_t err = allow_smem(sriracha_counts_kernel<Probe>,
-                                 kMaxSharedWords * sizeof(uint64_t));
-    if (err == cudaSuccess) err = allow_smem(long_tile_sort_kernel, kTileBytes);
+    cudaError_t err = allow_smem(long_tile_sort_kernel, kTileBytes);
     if (err == cudaSuccess) err = allow_smem(long_tile_merge_kernel, kTileBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t Ps = P < kMaxSharedWords ? P : kMaxSharedWords;
-  const int threads = (int)(Ps / 2 < 64 ? 64 : Ps / 2 > kThreads ? kThreads : Ps / 2);
+  const int64_t P = next_pow2(nwin);
   const int64_t* w = (const int64_t*)words;
   const uint8_t* v = (const uint8_t*)valid;
   const int32_t* len = (const int32_t*)lengths;
-  sriracha_counts_kernel<Probe><<<(unsigned)B, threads, (size_t)Ps * sizeof(uint64_t), st>>>(
-      w, v, len, nwin, (int)k, probe, (int)ns, (int32_t*)out, out_stride);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !wide) return (int)err;
-
   const dim3 tiles((unsigned)(P / kTile), (unsigned)B);
   uint64_t* sc = (uint64_t*)scratch;
   long_tile_sort_kernel<<<tiles, kTileThreads, kTileBytes, st>>>(
       w, v, len, nwin, (int)k, sc, P, (int32_t*)out, out_stride, (int)ns);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const dim3 pairs((unsigned)(P / 2 / kThreads), (unsigned)B);
   for (int64_t size = 2 * (int64_t)kTile; size <= P; size <<= 1) {
     for (int64_t stride = size >> 1; stride >= kTile; stride >>= 1) {
@@ -396,6 +309,15 @@ int launch_counts(const void* words, const void* valid, const void* lengths,
   long_probe_kernel<Probe><<<spans, kThreads, 0, st>>>(
       len, nwin, (int)k, sc, P, probe, (int)ns, (int32_t*)out, out_stride);
   return (int)cudaGetLastError();
+}
+
+// Whether sriracha_counts' arguments are usable: a wide batch (nwin >
+// 2^14) needs its scratch and at most 65535 rows (the tile chain's grid).
+bool counts_args_ok(const void* scratch, int64_t B, int64_t nwin, int64_t k, int64_t ns,
+                    int64_t out_stride) {
+  const bool wide = nwin > kMaxSharedWords;
+  return B >= 0 && nwin >= 1 && k >= 1 && k <= 32 && ns >= 1 && out_stride >= ns + 2 &&
+         next_pow2(nwin) <= (int64_t)1 << 30 && !(wide && (scratch == nullptr || B > 65535));
 }
 
 // --- short reads: ASCII reads to counts in one launch ---------------------
@@ -656,18 +578,34 @@ __global__ void subject_table_kernel(const int64_t* __restrict__ subjects,
 
 }  // namespace
 
+// The block kernel's words entries (sriracha_words_lut.cu,
+// sriracha_words_hash.cu): every row of at most 2^14 windows, zeros for the
+// rest.
+extern "C" int kw_sriracha_words_lut(const void* words, const void* valid, const void* lengths,
+                                     const void* table, void* out, int64_t B, int64_t nwin,
+                                     int64_t k, int64_t size, int64_t ns, int64_t out_stride,
+                                     void* stream);
+extern "C" int kw_sriracha_words_hash(const void* words, const void* valid, const void* lengths,
+                                      const void* keys, const void* masks, const void* row0,
+                                      const void* bmask, void* out, int64_t B, int64_t nwin,
+                                      int64_t k, int64_t ns, int64_t out_stride, void* stream);
+
 // (words, valid, lengths, table, out, scratch, B, nwin, k, size, ns,
-//  out_stride, stream); scratch may be null when nwin <= 2^14.
+//  out_stride, stream); scratch may be null when nwin <= 2^14. The block
+// launch, then the tile chain for a wide batch.
 extern "C" int kw_sriracha_counts_lut(const void* words, const void* valid,
                                       const void* lengths, const void* table,
                                       void* out, void* scratch, int64_t B,
                                       int64_t nwin, int64_t k, int64_t size,
                                       int64_t ns, int64_t out_stride,
                                       void* stream) {
-  if (size < 1) return (int)cudaErrorInvalidValue;
-  return launch_counts(words, valid, lengths,
-                       LutProbe{(const uint32_t*)table, size}, out, scratch, B,
-                       nwin, k, ns, out_stride, stream);
+  if (size < 1 || !counts_args_ok(scratch, B, nwin, k, ns, out_stride))
+    return (int)cudaErrorInvalidValue;
+  const int err = kw_sriracha_words_lut(words, valid, lengths, table, out, B, nwin, k, size,
+                                        ns, out_stride, stream);
+  if (err) return err;
+  return launch_long(words, valid, lengths, LutProbe{(const uint32_t*)table, size}, out,
+                     scratch, B, nwin, k, ns, out_stride, stream);
 }
 
 // (words, valid, lengths, keys, masks, row0, bmask, out, scratch, B, nwin, k,
@@ -679,12 +617,14 @@ extern "C" int kw_sriracha_counts_hash(const void* words, const void* valid,
                                        void* scratch, int64_t B, int64_t nwin,
                                        int64_t k, int64_t ns, int64_t out_stride,
                                        void* stream) {
-  return launch_counts(words, valid, lengths,
-                       HashProbe{(const unsigned long long*)keys,
-                                 (const uint32_t*)masks,
-                                 (const long long*)row0,
-                                 (const long long*)bmask},
-                       out, scratch, B, nwin, k, ns, out_stride, stream);
+  if (!counts_args_ok(scratch, B, nwin, k, ns, out_stride)) return (int)cudaErrorInvalidValue;
+  const int err = kw_sriracha_words_hash(words, valid, lengths, keys, masks, row0, bmask, out,
+                                         B, nwin, k, ns, out_stride, stream);
+  if (err) return err;
+  return launch_long(words, valid, lengths,
+                     HashProbe{(const unsigned long long*)keys, (const uint32_t*)masks,
+                               (const long long*)row0, (const long long*)bmask},
+                     out, scratch, B, nwin, k, ns, out_stride, stream);
 }
 
 // (reads, lengths, table, out, B, L, k, size, ns, out_stride, stream):

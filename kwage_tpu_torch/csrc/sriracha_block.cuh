@@ -1,39 +1,51 @@
-// SriRachA per-read confirmation counts for reads of 1-16 kbp, a block a
-// read: the kernel of sriracha_block_lut.cu and sriracha_block_hash.cu (one
-// probe each, so that nvcc compiles the two sets of instances side by side).
+// SriRachA per-read confirmation counts for rows of at most 2^14 windows,
+// a block a row: the kernel of sriracha_block_{lut,hash}.cu (from ASCII
+// reads) and sriracha_words_{lut,hash}.cu (from canonical words), one
+// probe a file, so that nvcc compiles the four sets of instances side by
+// side.
 //
 // Replaces: kwage_tpu/sriracha/device.py _kmerize_batch (:50) and
 // _kmerize_batch64 (:159) with _read_batch_kernel_tables (:239) and
-// _read_batch_kernel_hash (:179), at those reads' widths.
+// _read_batch_kernel_hash (:179), at those rows' widths.
 //
 // sriracha_block: sriracha_counts' out (sriracha.cu) from the ASCII reads
 // uint8 [B, L] and lengths int32 [B] in ONE launch, for rows of at most
 // 2^14 windows (L - k + 1 <= 2^14: the read buckets of 1024-16384 bp); the
-// words never reach device memory.
+// words never reach device memory. sriracha_words: the same out from
+// canonical_kmers' words int64 [B, nwin] and validity uint8 [B, nwin] (row
+// stride nwin, any nwin), for every row of at most 2^14 windows that fit
+// its read; a longer row gets zeros, into which sriracha_counts' tile chain
+// adds.
 //
-// Bound: as sriracha_reads' (sriracha.cu). What held sriracha_counts back
-// on these rows: one block of at most 256 threads a read sorting 64-bit
-// keys in shared memory with a barrier a bitonic stage (105 at P = 2^14),
-// a shared atomic counter for the compaction, probes one at a time and a
-// shared atomic a set bit, and the 9 bytes a window of canonical_kmers'
-// output written and read back. Design: a block of T = P / 16 threads a
-// read (64 at P = 1024, so that several blocks share an SM; 1024 at P =
-// 2^14), staged from ASCII as sriracha_reads stages it; thread t builds the
-// canonical words of windows 16 t .. 16 t + 15 in registers (32-bit keys
-// where k <= 16). The bitonic sort keeps strides below 16 in a thread and
-// strides of 16-256 in __shfl_xor_sync exchanges; a merge level with
-// strides of 512 and more goes through padded shared memory, up to four
-// strides a barrier (tile_strides, as the long-row tiles do): 11 barriers
-// at P = 2^14. The distinct words are compacted by ballots, warp by warp,
-// to the front of shared memory; thread t probes words t, t + T, ...,
-// several loads in flight before any mask is used (fewer hash rows at
-// 512-1024 threads, where the registers are fewer). A hash probe reads its
-// row's 64 bytes of keys and then only the matching slot's 4-byte mask
-// (HashProbe::load_keys / mask_of): a miss reads two sectors, not the
-// row's three (timed beside the whole row on an H100 80GB HBM3 at 700 W:
-// 0.066 against 0.102 ms at [512, 2048], k = 21). Each warp counts its
-// masks' set bits by warp reductions over their union, and warp 0 adds
-// the warps' counts up. Nothing is atomic.
+// Bound: as sriracha_reads' (sriracha.cu); the words source reads the 9
+// bytes of every window that fits its read in place of the read's bytes.
+// What held the first design (one block a row of canonical_kmers' words)
+// back on these rows: at most 256 threads a row sorting 64-bit keys in
+// shared memory with a barrier a bitonic stage (105 at P = 2^14), a shared atomic counter for
+// the compaction, probes one at a time and a shared atomic a set bit (and,
+// from ASCII, the 9 bytes a window of canonical_kmers' output written and
+// read back). Design: a block of T = P / 16 threads a row (32 at P = 512,
+// the words entry's narrowest, and 64 at P = 1024, so that several blocks
+// share an SM; 1024 at P = 2^14); a source fills
+// thread t's 16 slots, windows 16 t .. 16 t + 15, in registers (32-bit
+// keys where k <= 16, whose words fit 32 bits): AsciiSource stages the
+// read as sriracha_reads stages it and builds the canonical words there,
+// WordsSource loads the words and flags coalesced (consecutive threads,
+// consecutive windows) into padded shared memory and takes its slots from
+// there. The rest is one code path for both. The bitonic sort keeps strides
+// below 16 in a thread and strides of 16-256 in __shfl_xor_sync exchanges;
+// a merge level with strides of 512 and more goes through padded shared
+// memory, up to four strides a barrier (tile_strides, as the long-row
+// tiles do): 11 barriers at P = 2^14. The distinct words are compacted by
+// ballots, warp by warp, to the front of shared memory; thread t probes
+// words t, t + T, ..., several loads in flight before any mask is used
+// (fewer hash rows at 512-1024 threads, where the registers are fewer). A
+// hash probe reads its row's 64 bytes of keys and then only the matching
+// slot's 4-byte mask (HashProbe::load_keys / mask_of): a miss reads two
+// sectors, not the row's three (timed beside the whole row on an H100 80GB
+// HBM3 at 700 W: 0.066 against 0.102 ms at [512, 2048], k = 21). Each
+// warp counts its masks' set bits by warp reductions over their union, and
+// warp 0 adds the warps' counts up. Nothing is atomic.
 
 #pragma once
 
@@ -45,11 +57,11 @@
 
 namespace {
 
-// --- reads of 1-16 kbp: ASCII reads to counts in one launch, a block a read
+// --- rows of at most 2^14 windows: to counts in one launch, a block a row
 
 constexpr int kMaxBlockLog = 14;
-constexpr int kMaxBlockWindows = 1 << kMaxBlockLog;  // windows a row: reads of 1-16 kbp
-constexpr int kMinBlockLog = 10;           // the smallest block sorts 1024 slots
+constexpr int kMaxBlockWindows = 1 << kMaxBlockLog;  // windows a row: reads up to 16 kbp
+constexpr int kMinBlockLog = 9;            // the smallest block, one warp, sorts 512 slots
 constexpr int kSlotLog = 4;                // sort slots a thread: 16
 constexpr int kSlots = 1 << kSlotLog;
 constexpr int kWarpSlotLog = kSlotLog + 5;  // a warp's slots: strides below 512
@@ -86,84 +98,139 @@ __device__ __forceinline__ void thread_stage(Key (&v)[kSlots], int ls, int t) {
   }
 }
 
-// One read a block of T = P / 16 threads, 16 sort slots a thread in
-// registers; P = 2^LogP >= the batch's windows a row. Key: uint32 where
-// k <= 16, else uint64. Dynamic shared memory: P + P / 16 keys.
-template <typename Probe, typename Key, int LogP>
+// A row's slots from ASCII reads uint8 [B, L]: the read staged in shared
+// memory as the warp kernel stages it (thread q packs bases [16 q, 16 q +
+// 16) into 2-bit codes and ok bits; bases past the read are code 0 and not
+// ok), then thread t's canonical words of windows 16 t .. 16 t + 15 from
+// packed words t .. t + 2 and validity words t / 2, t / 2 + 1.
+struct AsciiSource {
+  const uint8_t* reads;
+  int64_t L;
+  bool aligned;  // reads on a 16-byte boundary, L a multiple of 16
+  template <int T>
+  struct Stage {
+    uint32_t packed[T + 2];  // packed words windows j < 16 T read
+    uint16_t ok16[T + 2];    // 4-byte aligned: it follows packed
+  };
+  // Thread t's slots (invalid windows and those past the read all-ones);
+  // returns how many of them are valid.
+  template <int T, typename Key>
+  __device__ int fill(Stage<T>& st, Key*, int64_t r, int n_fit, int k, Key (&v)[kSlots]) const {
+    const int t = threadIdx.x;
+    const int64_t len = (int64_t)n_fit + k - 1;  // the read's bases within L
+    const uint8_t* row = reads + r * L;
+    for (int q = t; q < T + 2; q += T) {
+      uint32_t coded[4] = {0u, 0u, 0u, 0u};
+      const int64_t b0 = 16 * (int64_t)q;
+      if (b0 < len) {
+        uint32_t x[4] = {0u, 0u, 0u, 0u};
+        if (aligned && b0 + 16 <= L) {
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(row + b0));
+          x[0] = w.x;
+          x[1] = w.y;
+          x[2] = w.z;
+          x[3] = w.w;
+        } else {
+          for (int i = 0; i < 16 && b0 + i < L; ++i)
+            x[i >> 2] |= (uint32_t)row[b0 + i] << (8 * (i & 3));
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (b0 + i < len)
+            coded[i >> 2] |= kw::base_code((x[i >> 2] >> (8 * (i & 3))) & 0xFFu) << (8 * (i & 3));
+      }
+      uint32_t codes, ok;
+      kw::pack16(coded, codes, ok);
+      st.packed[q] = codes;
+      st.ok16[q] = (uint16_t)ok;
+    }
+    __syncthreads();
+    const kw::KmerShape ks(k);
+    const uint32_t* validw = reinterpret_cast<const uint32_t*>(st.ok16);
+    const uint32_t w0 = st.packed[t], w1 = st.packed[t + 1], w2 = st.packed[t + 2];
+    const uint32_t v0 = validw[t >> 1], v1 = validw[(t >> 1) + 1];
+    int nvalid = 0;
+#pragma unroll
+    for (int e = 0; e < kSlots; ++e) {
+      const bool ok = t * kSlots + e < n_fit && kw::window_ok(v0, v1, (t & 1) * 16 + e, ks);
+      const uint64_t w = kw::canonical_word(w0, w1, w2, 2 * e, ks);
+      v[e] = ok ? (Key)w : ~Key(0);
+      nvalid += ok;
+    }
+    return nvalid;
+  }
+};
+
+// A row's slots from canonical_kmers' words int64 [B, nwin] and validity
+// uint8 [B, nwin] (row stride nwin): thread t loads windows t, t + T, ...
+// (a warp's loads are consecutive), keys of the valid ones that fit the
+// read and all-ones for the rest, into the padded sort buffer, and after a
+// barrier takes slots 16 t .. 16 t + 15 from there (17 t + e: no bank
+// conflict). Words of k <= 16 are below 4^16 and fit the 32-bit key.
+struct WordsSource {
+  const int64_t* words;
+  const uint8_t* valid;
+  int64_t nwin;
+  template <int T>
+  struct Stage {};
+  template <int T, typename Key>
+  __device__ int fill(Stage<T>&, Key* s, int64_t r, int n_fit, int, Key (&v)[kSlots]) const {
+    const int t = threadIdx.x;
+    const int64_t* wr = words + r * nwin;
+    const uint8_t* vr = valid + r * nwin;
+    int nvalid = 0;
+#pragma unroll
+    for (int e = 0; e < kSlots; ++e) {
+      const int j = e * T + t;
+      Key x = ~Key(0);
+      if (j < n_fit) {
+        const int64_t w = __ldg(wr + j);
+        if (__ldg(vr + j)) {
+          x = (Key)w;
+          ++nvalid;
+        }
+      }
+      s[padded(j)] = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kSlots; ++e) v[e] = s[padded(t * kSlots + e)];
+    return nvalid;
+  }
+};
+
+// One row a block of T = P / 16 threads, 16 sort slots a thread in
+// registers; P = 2^LogP >= the windows of every row it sorts. Key: uint32
+// where k <= 16, else uint64. Dynamic shared memory: P + P / 16 keys. A row
+// with no window in its read, or with more than P (a words batch wider
+// than 2^14 windows), gets zeros.
+template <typename Source, typename Probe, typename Key, int LogP>
 __global__ void __launch_bounds__((1 << LogP) >> kSlotLog)
-    sriracha_block_kernel(const uint8_t* __restrict__ reads,
-                          const int32_t* __restrict__ lengths, int64_t L, int k,
-                          bool aligned, Probe probe, int ns, int32_t* __restrict__ out,
-                          int64_t out_stride) {
+    sriracha_block_kernel(Source src, const int32_t* __restrict__ lengths, int64_t nwin, int k,
+                          Probe probe, int ns, int32_t* __restrict__ out, int64_t out_stride) {
   constexpr int P = 1 << LogP;
   constexpr int T = P >> kSlotLog;
   constexpr int kWarps = T / 32;
-  constexpr int kPacked = T + 2;  // packed words windows j < P read
   constexpr int C = block_in_flight<Probe>(T);
   extern __shared__ __align__(16) unsigned char smem[];
   Key* s = reinterpret_cast<Key*>(smem);  // the sort, then the distinct words
-  __shared__ uint32_t packed[kPacked];
-  __shared__ __align__(4) uint16_t ok16[kPacked];
+  __shared__ typename Source::template Stage<T> stage;
   __shared__ int s_valid[kWarps], s_dist[kWarps];
   __shared__ Key s_last[kWarps];
   __shared__ int s_counts[2][kWarps][32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t r = blockIdx.x;
-  int64_t len = lengths[r];
-  if (len > L) len = L;
-  const int n_fit = len - k + 1 > 0 ? (int)(len - k + 1) : 0;  // windows in the read
+  const int64_t ends = (int64_t)lengths[r] - k + 1;
+  const int64_t fit = ends < nwin ? ends : nwin;  // windows in the read
   int32_t* o = out + r * out_stride;
-  if (n_fit == 0) {
+  if (fit <= 0 || fit > P) {
     for (int i = t; i < ns + 2; i += T) o[i] = 0;
     return;
   }
+  const int n_fit = (int)fit;
 
-  // Stage the read as the warp kernel does: thread q packs bases [16 q,
-  // 16 q + 16); bases past the read are code 0 and not ok.
-  const uint8_t* row = reads + r * L;
-  for (int q = t; q < kPacked; q += T) {
-    uint32_t coded[4] = {0u, 0u, 0u, 0u};
-    const int64_t b0 = 16 * (int64_t)q;
-    if (b0 < len) {
-      uint32_t x[4] = {0u, 0u, 0u, 0u};
-      if (aligned && b0 + 16 <= L) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(row + b0));
-        x[0] = w.x;
-        x[1] = w.y;
-        x[2] = w.z;
-        x[3] = w.w;
-      } else {
-        for (int i = 0; i < 16 && b0 + i < L; ++i)
-          x[i >> 2] |= (uint32_t)row[b0 + i] << (8 * (i & 3));
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        if (b0 + i < len)
-          coded[i >> 2] |= kw::base_code((x[i >> 2] >> (8 * (i & 3))) & 0xFFu) << (8 * (i & 3));
-    }
-    uint32_t codes, ok;
-    kw::pack16(coded, codes, ok);
-    packed[q] = codes;
-    ok16[q] = (uint16_t)ok;
-  }
-  __syncthreads();
-
-  // Thread t's windows are 16 t .. 16 t + 15: all in packed words t .. t + 2
-  // and validity words t / 2, t / 2 + 1. An invalid window, or one past the
-  // read, holds all-ones.
-  const kw::KmerShape ks(k);
-  const uint32_t* validw = reinterpret_cast<const uint32_t*>(ok16);
-  const uint32_t w0 = packed[t], w1 = packed[t + 1], w2 = packed[t + 2];
-  const uint32_t v0 = validw[t >> 1], v1 = validw[(t >> 1) + 1];
   Key v[kSlots];
-  int nvalid = 0;
-#pragma unroll
-  for (int e = 0; e < kSlots; ++e) {
-    const bool ok = t * kSlots + e < n_fit && kw::window_ok(v0, v1, (t & 1) * 16 + e, ks);
-    const uint64_t w = kw::canonical_word(w0, w1, w2, 2 * e, ks);
-    v[e] = ok ? (Key)w : ~Key(0);
-    nvalid += ok;
-  }
+  int nvalid = src.template fill<T>(stage, s, r, n_fit, k, v);
   nvalid = (int)__reduce_add_sync(kFull, (unsigned)nvalid);
   if (lane == 0) s_valid[warp] = nvalid;
 
@@ -303,20 +370,20 @@ __global__ void __launch_bounds__((1 << LogP) >> kSlotLog)
   }
 }
 
-template <typename Probe>
-using BlockKernel = void (*)(const uint8_t*, const int32_t*, int64_t, int, bool, Probe, int,
-                             int32_t*, int64_t);
+template <typename Source, typename Probe>
+using BlockKernel = void (*)(Source, const int32_t*, int64_t, int, Probe, int, int32_t*, int64_t);
 
 // The instance of P = 2^log_p, its shared memory allowed at its first use.
-template <typename Probe, typename Key>
-cudaError_t block_kernel(int log_p, BlockKernel<Probe>* kernel, size_t* smem) {
+template <typename Source, typename Probe, typename Key>
+cudaError_t block_kernel(int log_p, BlockKernel<Source, Probe>* kernel, size_t* smem) {
   static bool configured[kMaxBlockLog + 1] = {};
   switch (log_p) {
-    case 10: *kernel = sriracha_block_kernel<Probe, Key, 10>; break;
-    case 11: *kernel = sriracha_block_kernel<Probe, Key, 11>; break;
-    case 12: *kernel = sriracha_block_kernel<Probe, Key, 12>; break;
-    case 13: *kernel = sriracha_block_kernel<Probe, Key, 13>; break;
-    default: *kernel = sriracha_block_kernel<Probe, Key, 14>; break;
+    case 9: *kernel = sriracha_block_kernel<Source, Probe, Key, 9>; break;
+    case 10: *kernel = sriracha_block_kernel<Source, Probe, Key, 10>; break;
+    case 11: *kernel = sriracha_block_kernel<Source, Probe, Key, 11>; break;
+    case 12: *kernel = sriracha_block_kernel<Source, Probe, Key, 12>; break;
+    case 13: *kernel = sriracha_block_kernel<Source, Probe, Key, 13>; break;
+    default: *kernel = sriracha_block_kernel<Source, Probe, Key, 14>; break;
   }
   const int P = 1 << log_p;
   *smem = (size_t)(P + (P >> 4)) * sizeof(Key);
@@ -326,27 +393,49 @@ cudaError_t block_kernel(int log_p, BlockKernel<Probe>* kernel, size_t* smem) {
   return err;
 }
 
-// One launch over all B rows of at most kMaxBlockWindows windows.
-template <typename Probe>
-int launch_block(const void* reads, const void* lengths, Probe probe, void* out, int64_t B,
-                 int64_t L, int64_t k, int64_t ns, int64_t out_stride, void* stream) {
-  const int64_t nwin = L - k + 1;
-  if (B < 0 || k < 1 || k > 32 || nwin < 1 || nwin > kMaxBlockWindows || ns < 1 ||
-      out_stride < ns + 2 || B > 0x7FFFFFFF)
+// One launch over all B rows of a batch of nwin windows a row, at P =
+// 2^max(9, ceil(log2 min(nwin, 2^14))): one warp a row up to 512 windows
+// (the words entry's narrow batches; the ASCII entry's rows that narrow
+// take the warp kernel of sriracha.cu).
+template <typename Source, typename Probe>
+int launch_block(Source src, const void* lengths, Probe probe, void* out, int64_t B,
+                 int64_t nwin, int64_t k, int64_t ns, int64_t out_stride, void* stream) {
+  if (B < 0 || k < 1 || k > 32 || nwin < 1 || ns < 1 || out_stride < ns + 2 ||
+      B > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   int log_p = kMinBlockLog;
-  while ((int64_t)1 << log_p < nwin) ++log_p;
-  BlockKernel<Probe> kernel;
+  while (log_p < kMaxBlockLog && (int64_t)1 << log_p < nwin) ++log_p;
+  BlockKernel<Source, Probe> kernel;
   size_t smem;
-  const cudaError_t err = k <= 16 ? block_kernel<Probe, uint32_t>(log_p, &kernel, &smem)
-                                  : block_kernel<Probe, unsigned long long>(log_p, &kernel, &smem);
+  const cudaError_t err =
+      k <= 16 ? block_kernel<Source, Probe, uint32_t>(log_p, &kernel, &smem)
+              : block_kernel<Source, Probe, unsigned long long>(log_p, &kernel, &smem);
   if (err != cudaSuccess) return (int)err;
-  const bool aligned = ((uintptr_t)reads & 15u) == 0 && (L & 15) == 0;
   kernel<<<(unsigned)B, (1 << log_p) >> kSlotLog, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)reads, (const int32_t*)lengths, L, (int)k, aligned, probe, (int)ns,
-      (int32_t*)out, out_stride);
+      src, (const int32_t*)lengths, nwin, (int)k, probe, (int)ns, (int32_t*)out, out_stride);
   return (int)cudaGetLastError();
+}
+
+// The ASCII entry: rows of at most kMaxBlockWindows windows.
+template <typename Probe>
+int launch_block_ascii(const void* reads, const void* lengths, Probe probe, void* out,
+                       int64_t B, int64_t L, int64_t k, int64_t ns, int64_t out_stride,
+                       void* stream) {
+  if (L - k + 1 > kMaxBlockWindows) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)reads & 15u) == 0 && (L & 15) == 0;
+  return launch_block(AsciiSource{(const uint8_t*)reads, L, aligned}, lengths, probe, out, B,
+                      L - k + 1, k, ns, out_stride, stream);
+}
+
+// The words entry: any nwin; rows of more than kMaxBlockWindows windows get
+// zeros.
+template <typename Probe>
+int launch_block_words(const void* words, const void* valid, const void* lengths, Probe probe,
+                       void* out, int64_t B, int64_t nwin, int64_t k, int64_t ns,
+                       int64_t out_stride, void* stream) {
+  return launch_block(WordsSource{(const int64_t*)words, (const uint8_t*)valid, nwin}, lengths,
+                      probe, out, B, nwin, k, ns, out_stride, stream);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // sriracha_block_hash: the block-a-read kernel (sriracha_block.cuh) with
 // the bucketed hash probe, in a translation unit of its own so that nvcc
-// compiles its instances beside the other probe's.
+// compiles its instances beside the others.
 //
 // Replaces: kwage_tpu/sriracha/device.py _kmerize_batch64 (:159) with
 // _read_batch_kernel_hash (:179), for reads of 1-16 kbp.
@@ -16,8 +16,8 @@ extern "C" int kw_sriracha_block_hash(const void* reads, const void* lengths,
                                       const void* row0, const void* bmask, void* out,
                                       int64_t B, int64_t L, int64_t k, int64_t ns,
                                       int64_t out_stride, void* stream) {
-  return launch_block(reads, lengths,
-                      HashProbe{(const unsigned long long*)keys, (const uint32_t*)masks,
-                                (const long long*)row0, (const long long*)bmask},
-                      out, B, L, k, ns, out_stride, stream);
+  return launch_block_ascii(reads, lengths,
+                            HashProbe{(const unsigned long long*)keys, (const uint32_t*)masks,
+                                      (const long long*)row0, (const long long*)bmask},
+                            out, B, L, k, ns, out_stride, stream);
 }

@@ -1,6 +1,6 @@
 // sriracha_block_lut: the block-a-read kernel (sriracha_block.cuh) with
 // the dense LUT probe, in a translation unit of its own so that nvcc
-// compiles its instances beside the other probe's.
+// compiles its instances beside the others.
 //
 // Replaces: kwage_tpu/sriracha/device.py _kmerize_batch (:50) with
 // _read_batch_kernel_tables (:239), for reads of 1-16 kbp.
@@ -16,6 +16,6 @@ extern "C" int kw_sriracha_block_lut(const void* reads, const void* lengths,
                                      int64_t k, int64_t size, int64_t ns,
                                      int64_t out_stride, void* stream) {
   if (size < 1) return (int)cudaErrorInvalidValue;
-  return launch_block(reads, lengths, LutProbe{(const uint32_t*)table, size}, out, B, L, k,
-                      ns, out_stride, stream);
+  return launch_block_ascii(reads, lengths, LutProbe{(const uint32_t*)table, size}, out, B,
+                            L, k, ns, out_stride, stream);
 }

@@ -15,7 +15,11 @@ show that its main path went through the kernels (``launch_counts``).
 Three exported functions launch nothing: ``kw_search_scratch_words``,
 ``kw_run_scratch_words`` and ``kw_merge_scratch_words``, the sizes of the
 scratch ``search_total_hits``, ``run_counts`` and ``merge_counts`` take
-(``scratch_words``).
+(``scratch_words``). Two are steps of another entry and are not bound:
+``kw_sriracha_words_lut`` / ``_hash`` (``csrc/sriracha_words_*.cu``), the
+block kernel over the rows of at most 2^14 windows that
+``sriracha_counts_lut`` / ``_hash`` launch first; their launches count
+under ``sriracha_counts_*``.
 """
 
 from __future__ import annotations

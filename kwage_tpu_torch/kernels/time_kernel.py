@@ -64,29 +64,36 @@ the byte bound, and run_counts' with torch.unique_consecutive's time.
 IMAD and LOP3 on every SM, together and each alone; it prints T ops/s,
 the SM clock it ran at and the operations a clock and SM.
 
-``sriracha`` compares two routes of the package's own library
-(``kernels.build``), and the fused entries of any other ``sriracha.cu``,
+``sriracha`` times the routes of the package's own library
+(``kernels.build``) and the entries of any other ``sriracha.cu``,
 ``sriracha_block_lut.cu`` or ``sriracha_block_hash.cu`` named, each
 compiled alone (its headers, ``kmers.cuh``, ``sriracha.cuh`` and
-``sriracha_block.cuh``, beside it or in csrc/):
-SriRachA's fused
-entries (``sriracha_reads_lut`` / ``_hash``, a warp a read, and
-``sriracha_block_lut`` / ``_hash``, a block a read) beside the two
-launches they replace
-(``canonical_kmers_ascii`` + ``sriracha_counts_lut`` / ``_hash``) at
-phase 8's batch ([512, 256] of 150 bp reads, 40 subjects of 30 kbp, k = 11
-on the LUT and k = 21 on the hash), ``bench.sriracha``'s step ([512, 128],
-k = 21, its 4 subjects), a whole span ([8192, 256], both), and reads of
-1.5 kbp and 15 kbp in the block kernel's buckets ([512, 2048], [64, 16384]
-and [512, 16384], both k; an other source without the block entries is
-left out there). Each route
-must give ``read_batch_counts_ref``'s bytes; each is timed in a CUDA graph
+``sriracha_block.cuh``, beside it or in csrc/; a ``sriracha.cu`` whose
+``sriracha_counts_*`` calls the block kernel's words entries links
+``sriracha_words_lut.cu`` and ``sriracha_words_hash.cu`` from there too):
+SriRachA's fused entries (``sriracha_reads_lut`` / ``_hash``, a warp a
+read, and ``sriracha_block_lut`` / ``_hash``, a block a read), the words
+entry ``sriracha_counts_lut`` / ``_hash`` alone on the batch's canonical
+words (this library's and each other ``sriracha.cu``'s), and the two
+launches a wide batch takes (``canonical_kmers_ascii`` +
+``sriracha_counts_*``), at phase 8's batch ([512, 256] of 150 bp reads,
+40 subjects of 30 kbp, k = 11 on the LUT and k = 21 on the hash),
+``bench.sriracha``'s step ([512, 128], k = 21, its 4 subjects), a whole
+span ([8192, 256], both), reads of 1.5 kbp and 15 kbp in the block
+kernel's buckets ([512, 2048], [64, 16384] and [512, 16384], both k), and
+two batches of the 32768 bucket, where only the words entry runs: [4,
+32768] holding reads of 2^15 bases and 20 kbp, and [8, 32768] holding
+rows of 0, k - 1, 16385, 16384 + k - 1 and 16384 + k bases (both sides
+of 2^14 windows) and of 20, 26 and 32 kbp (both k). A source without an
+entry is left out where it lacks it. Each route must give
+``read_batch_counts_ref``'s bytes; each is timed in a CUDA graph
 (``sriracha_routes``, which chip_smoke.py's phase 4 also runs), and each
-line ends with the share of the fused kernel's bound
-(``bench.sriracha.reads_work``: the reads, the lengths, the counts and the
-table bytes of every read's distinct valid words, or its operations).
-nvcc's registers and spills of the fused kernel's instances are printed
-first.
+ends with the share of its bound: ``bench.sriracha.reads_work`` from
+ASCII (the reads, the lengths, the counts and the table bytes of every
+read's distinct valid words, or its operations), ``counts_work`` for the
+words entry alone (the 9 bytes of every window that fits its read in
+place of the reads). nvcc's registers and spills of the block and warp
+kernels' instances are printed first.
 """
 
 from __future__ import annotations
@@ -139,15 +146,29 @@ _EARLIER = {
 }
 
 
+def companions(source: str) -> list[str]:
+    """The sources a ``sriracha.cu`` links with: the block kernel's words
+    entries (``sriracha_words_lut.cu``, ``sriracha_words_hash.cu``, beside
+    it or in csrc/) where it calls them; none for another source."""
+    with open(source) as f:
+        if "kw_sriracha_words_" not in f.read():
+            return []
+    return [next(p for p in (os.path.join(os.path.dirname(source), name),
+                             os.path.join(CSRC_DIR, name)) if os.path.exists(p))
+            for name in ("sriracha_words_lut.cu", "sriracha_words_hash.cu")]
+
+
 def build_alone(source: str) -> tuple[str, str | None]:
-    """Compile ``source`` alone (``-I csrc/``) into a shared library under
-    BUILD_DIR, named by a sha256 of its bytes and of the ``murmur.cuh``,
-    ``kmers.cuh``, ``search.cu``, ``sriracha.cuh`` and ``sriracha_block.cuh``
-    beside it or in csrc/ (headers it may include); return
-    (its path, nvcc's report, or None when that build existed). The library
-    appears whole or not at all, so processes may build it at once."""
+    """Compile ``source`` alone (``-I csrc/``), with its ``companions``, into
+    a shared library under BUILD_DIR, named by a sha256 of their bytes and
+    of the ``murmur.cuh``, ``kmers.cuh``, ``search.cu``, ``sriracha.cuh`` and
+    ``sriracha_block.cuh`` beside it or in csrc/ (headers it may include);
+    return (its path, nvcc's report, or None when that build existed). The
+    library appears whole or not at all, so processes may build it at
+    once."""
     tag = hashlib.sha256()
-    for path in (source, *(os.path.join(d, name) for d in (os.path.dirname(source), CSRC_DIR)
+    units = [source, *companions(source)]
+    for path in (*units, *(os.path.join(d, name) for d in (os.path.dirname(source), CSRC_DIR)
                            for name in ("murmur.cuh", "kmers.cuh", "search.cu", "sriracha.cuh",
                                         "sriracha_block.cuh"))):
         if os.path.exists(path):
@@ -158,7 +179,7 @@ def build_alone(source: str) -> tuple[str, str | None]:
     if os.path.exists(so):
         return so, None
     tmp = f"{so}.{os.getpid()}"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-shared", "-o", tmp, source],
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-shared", "-o", tmp, *units],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed ({res.returncode}) on {source}:\n{res.stdout}")
@@ -765,7 +786,8 @@ SASS = {"murmur": ("murmur32_kernel", f"ILi{MURMUR_K}E(Li4E)?E")}
 def sriracha_cases(device, rng):
     """(label, k, reads uint8 [B, L] and lengths int32 [B] on ``device``,
     the subjects) of ``time_kernel sriracha``: 150 bp reads
-    (``bench.sriracha.read_block``) of 40 random 30 kbp genomes; and
+    (``bench.sriracha.read_block``) of 40 random 30 kbp genomes, reads of
+    1.5 and 15 kbp, the wide batches of the 32768 bucket; and
     bench.sriracha's own inputs."""
     from ..bench.sriracha import make_inputs, read_block
     from ..core.words import canonical_kmers
@@ -777,6 +799,16 @@ def sriracha_cases(device, rng):
         b, lengths = read_block(rng, genomes, B, L, 150)
         return torch.from_numpy(b).to(device), torch.from_numpy(lengths).to(device)
 
+    def wide(lengths):
+        """A [len(lengths), 32768] batch: row r holds genome r's bases,
+        repeated to its length; row 2 has 100 N bases past 5000."""
+        b = np.zeros((len(lengths), 1 << 15), np.uint8)
+        for r, n in enumerate(lengths):
+            b[r, :n] = acgt[np.resize(genomes[r], n)]
+        b[2, 5000:5100] = ord("N")
+        return (torch.from_numpy(b).to(device),
+                torch.tensor(lengths, dtype=torch.int32, device=device))
+
     for k in (11, 21):
         subj = [(f"s{i}", np.unique(canonical_kmers(acgt[g].tobytes(), k)))
                 for i, g in enumerate(genomes)]
@@ -786,6 +818,9 @@ def sriracha_cases(device, rng):
             b, lengths = read_block(rng, genomes, B, L, read_len)
             yield (f"[{B}, {L}] k={k} ({read_len} bp)", k, torch.from_numpy(b).to(device),
                    torch.from_numpy(lengths).to(device), subj)
+        yield f"[4, 32768] k={k} (3 long reads)", k, *wide([1 << 15, 20_000, 20_000, 0]), subj
+        edge = [0, k - 1, 16385, 16384 + k - 1, 16384 + k, 20_000, 26_000, 32_000]
+        yield f"[8, 32768] k={k} (rows of {edge} bp)", k, *wide(edge), subj
     subj, reads = make_inputs(21, 128, 512, 2048)
     block = np.stack([np.frombuffer(r.encode("ascii"), np.uint8) for r in reads])
     yield ("[512, 128] k=21 (bench.sriracha)", 21, torch.from_numpy(block).to(device),
@@ -793,15 +828,18 @@ def sriracha_cases(device, rng):
 
 
 def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict]:
-    """Each route of one batch of the fused route's shape (a row of at most
-    2^14 windows), run once into an output filled with -7 and held to
-    ``want`` (``read_batch_counts_ref``'s), then timed in a CUDA graph in
-    the order fused, others, words, words, others, fused: the package
-    library's fused entry (``sriracha.device.fused_kernel``'s), the same
-    entry of each (tag, library) of ``others`` that has it, and the two
-    launches it replaces (canonical_kmers' ASCII entry and
-    sriracha_counts). Raw launches: none is counted. Returns ({route:
-    output equal}, {route: [ms, ms]})."""
+    """Each route of one batch, run once into an output filled with -7 and
+    held to ``want`` (``read_batch_counts_ref``'s), then timed in a CUDA
+    graph in the order listed and back: "fused", the package library's
+    fused entry (``sriracha.device.fused_kernel``'s; a batch of the fused
+    route's width only), and "fused TAG", the same entry of each (TAG,
+    library) of ``others`` that has it; "counts", the package library's
+    ``sriracha_counts_*`` alone on the batch's canonical words (made once
+    beforehand by canonical_kmers' ASCII entry), and "counts TAG", that
+    entry of each other library; "words", canonical_kmers' ASCII entry and
+    the package's ``sriracha_counts_*`` (the route of a wider batch). Raw
+    launches: none is counted. Returns ({route: output equal}, {route:
+    [ms, ms]})."""
     from . import get_lib
     from ..sriracha import device as tsr
 
@@ -811,23 +849,34 @@ def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict
     out = torch.empty_like(want)
     words = torch.empty((B, L - k + 1), dtype=torch.int64, device=reads.device)
     valid = torch.empty((B, L - k + 1), dtype=torch.bool, device=reads.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if lib.kw_canonical_kmers_ascii(reads.data_ptr(), words.data_ptr(), valid.data_ptr(),
+                                    B, L, L, k, stream):
+        raise RuntimeError("canonical_kmers_ascii: launch failed")
+    scratch = tsr.counts_scratch(B, L - k + 1, reads.device)
 
     def raw(launch, library=lib):
         return lambda st: getattr(library, "kw_" + launch[0])(*launch[1:-1], st)
 
-    fused = tsr.reads_launch(reads, lengths, tables, out)
-    versions = {"fused": raw(fused)}
+    versions = {}
+    if tsr.fused_route(L, k):
+        fused = tsr.reads_launch(reads, lengths, tables, out)
+        versions["fused"] = raw(fused)
+        for tag, other in others:
+            if hasattr(other, "kw_" + fused[0]):   # an earlier source may lack the entry
+                versions[f"fused {tag}"] = raw(fused, other)
+    counts = tsr.counts_launch(words, valid, lengths, tables, out, scratch)
+    versions["counts"] = raw(counts)
     for tag, other in others:
-        if hasattr(other, "kw_" + fused[0]):   # an earlier source may lack the entry
-            versions[f"fused {tag}"] = raw(fused, other)
-    counts = raw(tsr.counts_launch(words, valid, lengths, tables, out, None))
+        if hasattr(other, "kw_" + counts[0]):
+            versions[f"counts {tag}"] = raw(counts, other)
     versions["words"] = lambda st: (
         lib.kw_canonical_kmers_ascii(reads.data_ptr(), words.data_ptr(), valid.data_ptr(),
-                                     B, L, L, k, st) or counts(st))
+                                     B, L, L, k, st) or versions["counts"](st))
     same = {}
     for name, call in versions.items():
         out.fill_(-7)
-        if call(torch.cuda.current_stream().cuda_stream):
+        if call(stream):
             raise RuntimeError(f"sriracha route {name}: launch failed")
         torch.cuda.synchronize()
         same[name] = torch.equal(out, want)
@@ -840,8 +889,8 @@ def sriracha_routes(reads, lengths, tables, want, others=()) -> tuple[dict, dict
 
 def fused_report(log: str) -> str:
     """nvcc's registers and spills of the sriracha_reads_kernel (E: slots a
-    lane) and sriracha_block_kernel (log2 P) instances in a build's report,
-    one line an instance."""
+    lane) and sriracha_block_kernel (its source, log2 P) instances in a
+    build's report, one line an instance."""
     out = []
     for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
         head = re.match(r"ptxas info\s*: Compiling entry function '(\S+)'", part)
@@ -850,8 +899,10 @@ def fused_report(log: str) -> str:
             regs = re.search(r"Used (\d+) registers", part)
             spill = re.search(r"(\d+) bytes spill stores", part)
             inst = re.search(r"(Lut|Hash)ProbeE([jy])Li(\d+)E", head.group(1))
+            source = re.search(r"(Ascii|Words)Source", head.group(1))
             param = "E" if kernel[1] == "reads" else "log2 P"
-            out.append((f"{kernel[1]} {inst[1].lower()} {'u32' if inst[2] == 'j' else 'u64'} "
+            name = f"{kernel[1]} {source[1].lower()}" if source else kernel[1]
+            out.append((f"{name} {inst[1].lower()} {'u32' if inst[2] == 'j' else 'u64'} "
                         f"{param}={inst[3]}" if inst else head.group(1)) + " "
                        f"{regs.group(1) if regs else '?'} regs "
                        f"{spill.group(1) if spill else '?'} B spilled")
@@ -863,7 +914,8 @@ def sriracha_main(others: list[str]) -> int:
     over ``sriracha_cases``, each other source compiled alone (module
     docstring)."""
     from . import build
-    from ..bench.sriracha import reads_work
+    from ..bench.sriracha import counts_work, reads_work
+    from ..ops import kmers as tk
     from ..sriracha import device as tsr
 
     so = build()
@@ -876,32 +928,40 @@ def sriracha_main(others: list[str]) -> int:
             print(f"{source}: " + fused_report(report), flush=True)
         other = ctypes.CDLL(path)
         for name in ("sriracha_reads_lut", "sriracha_reads_hash", "sriracha_block_lut",
-                     "sriracha_block_hash"):
+                     "sriracha_block_hash", "sriracha_counts_lut", "sriracha_counts_hash"):
             if hasattr(other, "kw_" + name):
                 getattr(other, "kw_" + name).argtypes = _ENTRIES[name]
                 getattr(other, "kw_" + name).restype = ctypes.c_int
-        alone.append((os.path.basename(source), other))
+        alone.append((source, other))   # the path as named: two may share a file name
     device = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
+
+    def bound(nbytes, nops):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / INT32_OPS_PER_S * 1e3
+        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
     for label, k, reads, lengths, subj in sriracha_cases(device, np.random.default_rng(0)):
         routes = [tsr.build_hash_tables(subj, k, device)]
         if k <= tsr.MAX_TABLE_K:
             routes.insert(0, tsr.build_lut_tables(subj, k, device))
+        words, valid = tk.canonical_kmers_ascii_ref(reads, k)
         for tables in routes:
             want = tsr.read_batch_counts_ref(reads, lengths, tables)
             same, times = sriracha_routes(reads, lengths, tables, want, alone)
-            nbytes, nops = reads_work(reads, lengths, tables)
-            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(by_bytes, nops / INT32_OPS_PER_S * 1e3)
+            fused_ms, fused_by = bound(*reads_work(reads, lengths, tables))
+            counts_ms, counts_by = bound(*counts_work(words, valid, lengths, tables))
             distinct = int(want[:, tables.ns + 1].sum())
             print(f"sriracha {label} {tables.route} ({tables.ns} subjects, {distinct} distinct "
-                  f"words, {nbytes} bytes, {nops} operations, bound {bound_ms:.5f} ms by "
-                  f"{'bytes' if bound_ms == by_bytes else 'operations'}): " + "; ".join(
-                      f"{name} {t[0]:.4f} / {t[1]:.4f} ms (share {bound_ms / min(t):.3f})"
+                  f"words; bound from ASCII {fused_ms:.5f} ms by {fused_by}, of the counts "
+                  f"{counts_ms:.5f} ms by {counts_by}): " + "; ".join(
+                      f"{name} {t[0]:.4f} / {t[1]:.4f} ms (share "
+                      f"{(counts_ms if name.startswith('counts') else fused_ms) / min(t):.3f})"
                       for name, t in times.items()) + f"; outputs equal: {same}", flush=True)
             if not all(same.values()):
                 return 1
+        del words, valid
         torch.cuda.empty_cache()
     return 0
 

@@ -10,10 +10,10 @@ subject holds. A batch of rows of at most MAX_BLOCK_WINDOWS windows (the
 buckets of 1024-16384 bases) goes through ONE kernel too,
 ``sriracha_block``: the same function, a block a read. A wider batch takes
 two: the ``canonical_kmers`` kernel gives each window's canonical word and
-validity, and the ``sriracha_counts`` kernel sorts and dedups each read's
-valid words (in shared memory, or in tiles for rows of more than
-MAX_SHARED_WORDS) and counts (``fused_route``, ``fused_kernel``). The
-scalar gates,
+validity, and ``sriracha_counts`` sorts and dedups each read's valid words
+and counts: a row of at most MAX_SHARED_WORDS windows by the block kernel
+of ``sriracha_block`` from those words, a longer one in tiles across
+blocks (``fused_route``, ``fused_kernel``). The scalar gates,
 thresholding, perfect-match culling and ordering run on the host from
 those integer counts, so the matches are the host engine's, bit for bit.
 
@@ -56,7 +56,8 @@ MAX_SHARED_WORDS = 1 << 14  # csrc/sriracha.cu kMaxSharedWords: a row above it s
 MAX_READ_WINDOWS = 512      # csrc/sriracha.cu kMaxReadWindows: the warp kernel's widest row
 MAX_BLOCK_WINDOWS = 1 << 14  # csrc/sriracha_block.cuh kMaxBlockWindows: the block kernel's row
 MAX_TABLE_K = 13            # 4^13 * 4 B = 256 MiB per group (CPU)
-MAX_TABLE_K_CUDA = 14       # 1 GiB per group, as the JAX package allows on a TPU
+MAX_TABLE_K_CUDA = 14       # 4^14 * 4 B = 1 GiB a group of 32 subjects, where luts_fit
+                            # finds the groups' tables in half of the card's free memory
 GROUP = 32                  # subjects per table group (one uint32 mask)
 _SIGN = -(1 << 63)
 
@@ -377,8 +378,13 @@ def sriracha_counts(words: torch.Tensor, valid: torch.Tensor, lengths: torch.Ten
     [B, ns + 2]: per subject the distinct valid words it holds, then
     num_kmer and num_unique. ``out`` (optional) is a contiguous int32
     [B, ns + 2] tensor to write into. CUDA tensors: the sriracha_counts_lut
-    / sriracha_counts_hash kernel (at most 65,535 rows when nwin is above
-    MAX_SHARED_WORDS); CPU tensors: sriracha_counts_ref."""
+    / sriracha_counts_hash entry, which sorts every row of at most
+    MAX_SHARED_WORDS windows in its read with the block kernel of
+    ``sriracha_block`` (a block a row, from the words; zeros for a longer
+    row) and then, in a batch of more than MAX_SHARED_WORDS windows a row
+    (at most 65,535 rows), the longer rows in tiles across blocks, adding
+    into those zeros. The words of k <= 16 must be below 2^32, as
+    canonical words are (below 4^k). CPU tensors: sriracha_counts_ref."""
     if (words.dim() != 2 or words.dtype != torch.int64 or valid.shape != words.shape
             or valid.dtype not in (torch.bool, torch.uint8)):
         raise ValueError(f"expected int64 words and validity [B, nwin], got {words.dtype} "

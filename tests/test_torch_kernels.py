@@ -175,3 +175,32 @@ def test_sriracha_block_entries_count_apart(monkeypatch):
     for probe in ("lut", "hash"):
         assert kernels._ENTRIES[f"sriracha_block_{probe}"] == \
             kernels._ENTRIES[f"sriracha_reads_{probe}"]
+
+
+def test_words_entries_are_steps_of_sriracha_counts(tmp_path):
+    """The block kernel's words entries live in files of their own and are
+    called by sriracha.cu's sriracha_counts_* (one launch count, the
+    entry's), never bound; time_kernel links them with a sriracha.cu that
+    calls them, beside it or from csrc/, and with no other."""
+    from kwage_tpu_torch.kernels import time_kernel
+
+    assert not [n for n in (*kernels._ENTRIES, *kernels.launch_counts()) if "words" in n]
+    csrc = kernels.CSRC_DIR
+    here = os.path.join(csrc, "sriracha.cu")
+    with open(here) as f:
+        src = f.read()
+    assert "sriracha_counts_kernel" not in src
+    words = [os.path.join(csrc, f"sriracha_words_{probe}.cu") for probe in ("lut", "hash")]
+    assert set(words) <= set(kernels.sources())
+    for probe, path in zip(("lut", "hash"), words):
+        assert src.count(f"kw_sriracha_words_{probe}(") == 2   # declared, called
+        with open(path) as f:
+            assert f'extern "C" int kw_sriracha_words_{probe}(' in f.read()
+    assert time_kernel.companions(here) == words
+    older = tmp_path / "sriracha.cu"
+    older.write_text(src.replace("kw_sriracha_words_", "kw_other_"))
+    assert time_kernel.companions(str(older)) == []
+    older.write_text(src)
+    beside = [tmp_path / f"sriracha_words_{probe}.cu" for probe in ("lut", "hash")]
+    beside[0].write_text("// lut")
+    assert time_kernel.companions(str(older)) == [str(beside[0]), words[1]]

@@ -656,21 +656,12 @@ def test_warp_layout_emulation_matches_ref(k, P):
         assert want[:, :40].sum() > 0
 
 
-def _block_read(row, length, k, P, probe, ns):
-    """One read through csrc/sriracha_block.cuh's sriracha_block_kernel as
-    a block of T = P / 16 threads runs it, in numpy: the staged 2-bit codes and ok
-    bits; thread t's canonical words of windows 16 t .. 16 t + 15 (packed
-    words t .. t + 2, validity words t / 2 and t / 2 + 1); the bitonic
-    network with strides below 16 inside a thread, strides of 16-256 as xor
-    exchanges with lane l ^ (stride / 16), and a level's strides of 512 and
-    more in shared memory, up to four a pass, each thread owning the slots
-    ``tile_strides`` gives it; the dedup against thread t - 1's last slot;
-    the distinct words compacted warp by warp, slot column by slot column,
-    a ballot's lanes in order; thread t probing words t, t + T, ...; the
-    counts by warp over the union of its masks, then added up. -> int
-    [ns + 2]."""
+def _block_slots_ascii(row, length, k, P):
+    """csrc/sriracha_block.cuh's AsciiSource, in numpy: the read staged as
+    2-bit codes and ok bits; thread t's canonical words of windows 16 t ..
+    16 t + 15 (packed words t .. t + 2, validity words t / 2 and t / 2 +
+    1), all-ones where invalid -> (slots [T, 16], valid [T, 16])."""
     S, T = 16, P // 16
-    log_p = P.bit_length() - 1
     n_len = min(int(length), row.size)
     n_fit = max(n_len - k + 1, 0)
     bases = np.zeros(P + 32, np.uint8)
@@ -696,7 +687,59 @@ def _block_read(row, length, k, P, probe, ns):
     word = np.minimum(rev >> _U(64 - 2 * k), anti)
     bit = ((t & 1) * 16 + e).astype(np.uint64)
     ok = (j < n_fit) & (_funnel(validw[t >> 1], validw[(t >> 1) + 1], bit) & kmask == kmask)
-    v = np.where(ok, word, _U((1 << (32 if k <= 16 else 64)) - 1))
+    return np.where(ok, word, _U((1 << (32 if k <= 16 else 64)) - 1)), ok
+
+
+def _block_slots_words(words, valid, length, k, P):
+    """csrc/sriracha_block.cuh's WordsSource, in numpy: thread t loads
+    windows t, t + T, ... of the row's int64 words and flags (row stride
+    nwin) into the padded buffer, the key of a valid window that fits the
+    read (its low 32 bits where k <= 16) and all-ones for the rest, then
+    takes slots 16 t .. 16 t + 15 from there -> (slots [T, 16], valid [T,
+    16]); None for a row with no window in its read or more than P."""
+    S, T = 16, P // 16
+    nwin = words.size
+    n_fit = min(int(length) - k + 1, nwin)
+    if n_fit <= 0 or n_fit > P:
+        return None
+    ones = _U((1 << (32 if k <= 16 else 64)) - 1)
+    keys = words.view(np.uint64) & ones
+    t = np.arange(T)[:, None]
+    e = np.arange(S)[None, :]
+    jw = e * T + t                                   # the window thread t loads at step e
+    at = np.minimum(jw, nwin - 1)
+    ok_w = (jw < n_fit) & valid[at].astype(bool)
+    staged = np.zeros(P + P // 16, np.uint64)
+    staged[jw + jw // 16] = np.where(ok_w, keys[at], ones)
+    j = S * t + e
+    okj = np.zeros(P, bool)
+    okj[jw] = ok_w
+    return staged[j + j // 16], okj[j]
+
+
+def _block_read(row, length, k, P, probe, ns, slots=None):
+    """One row through csrc/sriracha_block.cuh's sriracha_block_kernel as
+    a block of T = P / 16 threads runs it, in numpy: thread t's 16 slots
+    (``slots``, a source's (slots, valid), or None for a row that gets
+    zeros; default ``_block_slots_ascii`` of the read ``row``); the bitonic
+    network with strides below 16 inside a thread, strides of 16-256 as xor
+    exchanges with lane l ^ (stride / 16), and a level's strides of 512 and
+    more in shared memory, up to four a pass, each thread owning the slots
+    ``tile_strides`` gives it; the dedup against thread t - 1's last slot;
+    the distinct words compacted warp by warp, slot column by slot column,
+    a ballot's lanes in order; thread t probing words t, t + T, ...; the
+    counts by warp over the union of its masks, then added up. -> int
+    [ns + 2]."""
+    S, T = 16, P // 16
+    log_p = P.bit_length() - 1
+    if slots is None and row is not None:
+        slots = _block_slots_ascii(row, length, k, P)
+    if slots is None:
+        return np.zeros(ns + 2, np.int64)
+    v, ok = slots
+    t = np.arange(T)[:, None]
+    e = np.arange(S)[None, :]
+    j = S * t + e
     lane = t & 31
 
     def exchange(a, c, asc):
@@ -763,27 +806,47 @@ def _block_read(row, length, k, P, probe, ns):
     return out
 
 
-@pytest.mark.parametrize("P", [1024, 2048, 4096, 8192, 16384])
-@pytest.mark.parametrize("k", [1, 11, 16, 17, 21, 32])
-def test_block_layout_emulation_matches_ref(k, P):
+# (k, P, source): the ASCII source's cases keep their ids, "k-P"; the
+# words entry's narrowest block (P = 512, one warp) takes its batches of
+# at most 512 windows a row.
+_BLOCK_CASES = [pytest.param(k, P, source, id=f"{k}-{P}" if source == "ascii"
+                             else f"{source}-{k}-{P}")
+                for source, sizes in (("ascii", (1024, 2048, 4096, 8192, 16384)),
+                                      ("words", (512, 1024, 2048, 4096, 8192, 16384)))
+                for P in sizes for k in (1, 11, 16, 17, 21, 32)]
+
+
+@pytest.mark.parametrize("k, P, source", _BLOCK_CASES)
+def test_block_layout_emulation_matches_ref(k, P, source):
     """csrc/sriracha_block.cuh's block kernel emulated in numpy, thread by
-    thread (``_block_read``): it gives read_batch_counts_ref's counts on seeded
-    batches whose rows sort at P = 1024 to 16384 slots, with 32-bit
-    (k <= 16) and 64-bit keys."""
-    b, lengths = _read_block(60 + P + k, 12 if P <= 4096 else 10, P, k)
-    assert tdev.fused_kernel(P, k) == "sriracha_block"
+    thread (``_block_read``), from either source: it gives the plain
+    version's counts on seeded batches whose rows sort at P = 1024 (words:
+    512) to 16384 slots, with 32-bit (k <= 16) and 64-bit keys. ASCII:
+    reads P bases wide, the fused route's block buckets
+    (read_batch_counts_ref). Words: canonical_kmers' words and flags of
+    reads P + k - 1 bases wide, so that a full row has P windows
+    (sriracha_counts_ref)."""
+    width = P if source == "ascii" else P + k - 1
+    b, lengths = _read_block(60 + P + k, 12 if P <= 4096 else 10, width, k)
+    assert source == "words" or tdev.fused_kernel(P, k) == "sriracha_block"
+    assert max(tdev.next_pow2(min(width - k + 1, tdev.MAX_BLOCK_WINDOWS)), 512) == P
+    words, valid = tdev.canonical_kmers_ascii_ref(torch.from_numpy(b), k)
     sets = _hit_sets(b, lengths, k, 61 + k)
     subj = [(f"s{i}", s) for i, s in enumerate(sets)]
     routes = [tdev.build_hash_tables(subj, k, CPU)]
     if k <= 13:
         routes.append(tdev.build_lut_tables(subj, k, CPU))
     for tables in routes:
-        want = tdev.read_batch_counts_ref(torch.from_numpy(b), torch.from_numpy(lengths),
-                                          tables).numpy()
+        want = tdev.sriracha_counts_ref(words, valid, torch.from_numpy(lengths), tables).numpy()
         probe = _np_probe(tables)
-        got = np.stack([_block_read(b[r], lengths[r], k, P, probe, tables.ns)
-                        for r in range(b.shape[0])])
-        np.testing.assert_array_equal(got, want)
+        if source == "ascii":
+            got = [_block_read(b[r], lengths[r], k, P, probe, tables.ns)
+                   for r in range(b.shape[0])]
+        else:
+            got = [_block_read(None, lengths[r], k, P, probe, tables.ns, _block_slots_words(
+                words[r].numpy(), valid[r].numpy(), lengths[r], k, P))
+                   for r in range(b.shape[0])]
+        np.testing.assert_array_equal(np.stack(got), want)
         assert want[:, :40].sum() > 0
 
 
@@ -891,7 +954,10 @@ def test_route_rule(monkeypatch):
 
 def test_long_reads_and_every_bucket():
     """Reads from 0 to 20 kbp (buckets 64 .. 32768 bases, the last above
-    the kernel's shared-memory sort) equal the host engine."""
+    the kernel's shared-memory sort), and reads of 16385 to 16384 + k - 1
+    bases (at most 2^14 windows, in the 32768 bucket: the block kernel
+    from canonical words) and of 16384 + k (the tile chain's shortest),
+    equal the host engine."""
     rng = np.random.default_rng(11)
     k = 21
     target = "".join(rng.choice(list("ACGT"), 30_000))
@@ -903,9 +969,14 @@ def test_long_reads_and_every_bucket():
             reads.append((target[a : a + n], i + 1, 1))
         else:
             reads.append(("".join(rng.choice(list("ACGTN"), n)), i + 1, 1))
+    edges = [16385, 16386, 16384 + k - 2, 16384 + k - 1, 16384 + k]
+    for n in edges:
+        a = int(rng.integers(0, len(target) - n + 1))
+        reads.append((target[a : a + n], len(reads) + 1, 1))
     opt = SrirachaOptions(kmer_len=k, kmer_match_threshold=0.8)
     host = _matches(search_reads(iter(reads), subj, opt))
-    assert any(m[3] == reads[-2][0] for m in host[0])
+    assert any(m[3] == reads[9][0] for m in host[0])
+    assert {len(m[3]) for m in host[0]} >= set(edges)
     assert _matches(tdev.search_reads_device(iter(reads), subj, opt, batch_size=4)) == host
 
 
@@ -913,7 +984,8 @@ def test_sriracha_counts_rows_around_the_tile_match_jax():
     """One batch that mixes rows of 0, 1, 2^14 - 1, 2^14, 2^14 + 1 and 2^15
     valid words (the kernel sorts a row above 2^14 in tiles across blocks):
     the wrapper's scratch sizing runs on the CPU too, and
-    the counts equal the JAX kernel's."""
+    the counts equal the JAX kernel's; then a wide batch of rows of no
+    window, of at most 2^14 and of more, at k = 11, 21 and 32."""
     k, tile = 21, tdev.MAX_SHARED_WORDS
     rng = np.random.default_rng(21)
     windows = [0, 1, tile - 1, tile, tile + 1, 1 << 15]
@@ -945,6 +1017,33 @@ def test_sriracha_counts_rows_around_the_tile_match_jax():
     for dest in (None, out):
         got = tdev.read_batch_counts(reads_t, lens_t, tables, dest)
         np.testing.assert_array_equal(got.numpy(), want)
+
+    # A wide batch of the 32768 bucket at k = 11, 21 and 32: rows of 0 and
+    # k - 1 bases (no window), 16385 and 16384 + k - 1 (at most 2^14
+    # windows: the block kernel from words), then 16384 + k, 20 and 32
+    # kbp (the tile chain); the words entry against the JAX kernel.
+    for k in (11, 21, 32):
+        row_lens = [0, k - 1, 16385, 16384 + k - 1, 16384 + k, 20_000, 1 << 15]
+        lengths = np.array(row_lens, np.int32)
+        b = np.zeros((len(row_lens), 1 << 15), np.uint8)
+        for r, n in enumerate(row_lens):
+            b[r, :n] = acgt[np.resize(target, n) if r % 2 else rng.integers(0, 4, size=n)]
+        b[2, 3000:3050] = ord("N")
+        sets = [np.unique(host_canonical_kmers(acgt[target].tobytes(), k)),
+                np.unique(host_canonical_kmers(b[2, : lengths[2]].tobytes(), k))[::3]]
+        subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+        want = _jax_read_counts(b, lengths, sets, k, lut=k <= 13)
+        fit = np.clip(lengths - k + 1, 0, None)
+        assert (want[:, 2] <= fit).all() and want[2, 2] < fit[2] and want[3, 2] == 1 << 14
+        assert (want[:2] == 0).all() and want[:, :2].sum() > 0
+        words, valid = tdev.canonical_kmers(torch.from_numpy(b), k)
+        assert tdev.counts_scratch(*words.shape, CPU).shape == (len(row_lens), 1 << 15)
+        routes = [tdev.build_hash_tables(subj, k, CPU)]
+        if k <= 13:
+            routes.append(tdev.build_lut_tables(subj, k, CPU))
+        for tables in routes:
+            got = tdev.sriracha_counts(words, valid, torch.from_numpy(lengths), tables)
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_long_reads_in_a_span_give_the_host_tsv(monkeypatch):
@@ -1296,6 +1395,39 @@ def test_sriracha_kernels_match_ref(cuda_device):
         for tables in routes:
             got = tdev.sriracha_counts(words, valid, lens, tables)
             assert torch.equal(got, tdev.sriracha_counts_ref(words, valid, lens, tables)), (k, L)
+    # The words entry's rows of at most 2^14 windows (the block kernel from
+    # words): widths of 2048 and 16384 bases, a wide batch whose rows of 0,
+    # k - 1, 16385 and 16384 + k - 1 bases sit beside rows of the tile
+    # chain, and words and flags 8 bytes off a 16-byte boundary; one launch
+    # a call, counted under its probe.
+    for k, L in ((3, 2048), (11, 2048), (14, 16384), (16, 16384 + 15), (17, 2048),
+                 (21, 16384), (21, 1 << 15), (11, 1 << 15), (32, 1 << 15)):
+        b, lengths = _read_block(90 + k, 12, L, k)
+        if L > 16384 + k:
+            lengths[:6] = [0, k - 1, 16385, 16384 + k - 1, 16384 + k, L]
+            for r, n in enumerate(lengths):
+                b[r, n:] = 0
+        sets = _hit_sets(b, lengths, k, 91 + k)
+        subj = [(f"s{i}", s) for i, s in enumerate(sets)]
+        lens = torch.from_numpy(lengths).to(cuda_device)
+        words, valid = tdev.canonical_kmers(torch.from_numpy(b).to(cuda_device), k)
+        w_off = torch.empty(words.numel() + 1, dtype=torch.int64, device=cuda_device)[1:]
+        v_off = torch.empty(valid.numel() + 8, dtype=torch.bool, device=cuda_device)[8:]
+        w_off, v_off = w_off.view(words.shape), v_off.view(valid.shape)
+        w_off.copy_(words)
+        v_off.copy_(valid)
+        assert w_off.data_ptr() % 16 == 8 and v_off.data_ptr() % 16 == 8
+        routes = [tdev.build_hash_tables(subj, k, cuda_device)]
+        if k <= 14:
+            routes.append(tdev.build_lut_tables(subj, k, cuda_device))
+        for tables in routes:
+            want = tdev.sriracha_counts_ref(words, valid, lens, tables)
+            name = f"sriracha_counts_{tables.route}"
+            for w, v in ((words, valid), (w_off, v_off)):
+                before = kernels.launch_counts()
+                got = tdev.sriracha_counts(w, v, lens, tables)
+                assert kernels.launch_counts() == {**before, name: before[name] + 1}
+                assert torch.equal(got, want), (k, L, tables.route, w.data_ptr() % 16)
     torch.cuda.synchronize()
 
 
