@@ -1,0 +1,11 @@
+"""``hits_share``, read the same way, in the cells whose end-to-end metrics are
+the tail and set-up alone (``search_p95_ms``, ``setup_s``), where it moves
+the tail. Hit collection and rendering are the second part of a render."""
+
+from pathlib import Path
+
+from benchmark import manifest
+
+_SAME = manifest.metric("hits_share", Path(__file__).resolve().parent.parent)
+TIMES = getattr(_SAME, "TIMES", {})
+read = _SAME.read
